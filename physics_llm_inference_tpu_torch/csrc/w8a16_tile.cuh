@@ -1,8 +1,9 @@
 // One 64x64 output tile of y = x @ w for bf16 activations and int8 weights,
 // accumulated in f32 on the tensor cores (WMMA bf16 m16n16k16).
 //
-// Shared by int8_matmul.cu (K1) and lmhead.cu (K3). Both are bound by the
-// int8 weight stream at decode sizes (M = 64: 2*64 flop per weight byte,
+// Shared by int8_matmul.cu (K1), lmhead.cu (K3) and fused_decode.cu (K4).
+// All are bound by the int8 weight stream at decode sizes (M = 64: 2*64
+// flop per weight byte,
 // against the H100's ~295 flop/byte ridge), so the tile is built around
 // moving weight bytes:
 //  - w is read along N, its contiguous axis, 16 bytes per thread per load;
@@ -11,7 +12,10 @@
 //    K sum, by the caller;
 //  - the next K-slice is loaded into registers while the current one is in
 //    the tensor cores (one-stage register prefetch);
-//  - ragged M, N and K are masked with zeros, so no shape needs to divide.
+//  - ragged M, N and K are masked with zeros, so no shape needs to divide;
+//  - x is read through L2 (ld.global.cg): in the fused decode kernel
+//    (fused_decode.cu), which also uses this tile, another block of the same
+//    launch wrote it, and L1 is not coherent across SMs.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -51,13 +55,15 @@ static __device__ __forceinline__ void load_stage(
     const int row = id >> 3, col = (id & 7) * 8;
     const int gm = m0 + row, gk = k0 + col;
     if (vec_x && gm < M && gk + 8 <= k_end) {
-      st.a[i] = *reinterpret_cast<const uint4*>(x + (size_t)gm * K + gk);
+      st.a[i] = __ldcg(reinterpret_cast<const uint4*>(x + (size_t)gm * K + gk));
     } else {
-      __align__(16) __nv_bfloat16 tmp[8];
+      __align__(16) unsigned short tmp[8];
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
-        tmp[e] = (gm < M && gk + e < k_end) ? x[(size_t)gm * K + gk + e]
-                                            : __float2bfloat16(0.f);
+        tmp[e] = (gm < M && gk + e < k_end)
+                     ? __ldcg(reinterpret_cast<const unsigned short*>(
+                           x + (size_t)gm * K + gk + e))
+                     : static_cast<unsigned short>(0);   // bf16 +0
       }
       st.a[i] = *reinterpret_cast<const uint4*>(tmp);
     }

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-All `csrc/*.cu` files are compiled by `nvcc` into one shared library with a
-plain C interface (no PyTorch headers, so the build takes seconds), placed in
-the repository's ignored `build/` directory, and loaded with ctypes. The
+Each `csrc/*.cu` file is compiled by its own `nvcc` process, all started
+together, and the objects are linked into one shared library with a plain C
+interface (no PyTorch headers, so the build takes seconds), placed in the
+repository's ignored `build/` directory, and loaded with ctypes. The
 library is built at first use and rebuilt when a source is newer than it.
 Only the sources in the repository are used; nothing is fetched.
 """
@@ -20,11 +21,12 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build"
 LIB_PATH = BUILD_DIR / "libpli_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+              "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # argtypes of every C entry point: a pointer or the stream is c_void_p (a
 # plain int would be cut to 32 bits), sizes are c_int.
 SIGNATURES = {
@@ -39,6 +41,17 @@ SIGNATURES = {
     # eps, vec_w, stream
     "pli_lmhead_greedy": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
                           _P],
+    # q, k, v, out, q_offset, valid_from, B, Hq, Hkv, Sq, Sk, d, kv_len,
+    # causal, the (b, h, s) element strides of q, k and v, scale * log2(e),
+    # stream
+    "pli_flash_attention": [_P] * 6 + [_I] * 8 + [_L] * 9 + [_F, _P],
+    # out: blocks of one cooperative launch
+    "pli_fused_decode_grid": [_P],
+    # x0, ln1, ln2, wqkv, sqkv, wo, swo, wgu, sgu, wdn, sdn, k_q, k_s, v_q,
+    # v_s, cos, sin, q_slot, valid_from, k_new, ks_new, v_new, vs_new, x_out,
+    # then the workspaces xf, h, qbuf, attn, ff, ws; L, B, S, D, F, Hq, Hkv,
+    # hd, slot, write_cache, the four k-splits; eps, scale; grid, stream
+    "pli_fused_decode_step": [_P] * 30 + [_I] * 14 + [_F, _F, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -62,21 +75,38 @@ def _stale() -> bool:
 
 
 def build(verbose: bool = False) -> Path:
-    """Compile csrc/*.cu into build/libpli_kernels.so if missing or stale."""
+    """Compile csrc/*.cu into build/libpli_kernels.so if missing or stale:
+    one nvcc per source, all in parallel, then one link."""
     if not _stale():
         return LIB_PATH
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    sources = sorted(str(p) for p in CSRC.glob("*.cu"))
+    nvcc = _nvcc()
+    obj_dir = BUILD_DIR / f"obj.{os.getpid()}"
+    obj_dir.mkdir(parents=True, exist_ok=True)
+    flags = ["-Xptxas=-v", *NVCC_FLAGS] if verbose else NVCC_FLAGS
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = obj_dir / f"{src.stem}.o"
+        cmd = [nvcc, *flags, f"-I{CSRC}", "-c", "-o", str(obj), str(src)]
+        jobs.append((src.name, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    errors = []
+    for name, _, proc in jobs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"{name} ({proc.returncode}):\n{err}")
+        elif verbose and err:
+            print(f"{name}:\n{err}")
+    if errors:
+        raise RuntimeError("nvcc failed: " + "\n".join(errors))
     tmp = LIB_PATH.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, f"-I{CSRC}", "-o", str(tmp), *sources]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    res = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                          *(str(obj) for _, obj, _ in jobs)],
+                         capture_output=True, text=True)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    if verbose and res.stderr:
-        print(res.stderr)
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                           f"{res.stderr}")
     os.replace(tmp, LIB_PATH)
+    shutil.rmtree(obj_dir, ignore_errors=True)
     return LIB_PATH
 
 

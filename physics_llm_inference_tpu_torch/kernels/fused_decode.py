@@ -1,0 +1,275 @@
+"""K4: the whole INT8 W+KV decode step, all layers, in one launch.
+
+Replaces the TPU kernel `physics_llm_inference_tpu/kernels/fused_decode.py`
+`fused_decode_step` (`_kernel`, `_fused_decode_step`) in its default
+configuration: K-blocked weight tiles, silu per DOWN tile, bf16 activations.
+The CUDA kernel is `csrc/fused_decode.cu`: one persistent cooperative launch
+per step, whose per-layer phases (QKV partials; RoPE and KV quantize;
+attention over the INT8 cache plus the current token; WO; norm; gate/up;
+silu·up; down) are separated by grid-wide barriers. Weight tiles are the
+W8A16 tile of K1, the attention loop is K2's; K-split partials land in an f32
+workspace and are summed in a fixed order.
+
+The numerics are the TPU kernel's, not the per-op path's: the residual
+stream stays f32 across all layers and is cast once at the end; qkv, gate
+and up are rounded to bf16 after their f32 sums; K is rounded to bf16 after
+RoPE before it is quantized; the current token attends through the
+dequantized int8 values the cache will hold; p·v_scale is rounded to bf16
+before P@V. Hold the kernel against `fused_decode_step_plain`, never
+against the per-op path: the two differ at bf16 near-ties.
+
+`fused_decode_step` is the entry point: a CPU tensor goes to
+`fused_decode_step_plain`; a CUDA tensor goes to the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+import torch.nn.functional as F
+
+from ..ops.norms import rms_norm
+from . import _build
+from .int8_matmul import int8_matmul_plain
+
+launches = 0  # kernel launches made by fused_decode_step
+
+_NEG_INF = -1e30
+_BM = _BN = _BK = 64    # the W8A16 tile
+_DMAX, _GMAX = 128, 8   # the attention loop's head_dim and group limits
+_grid: dict[int, int] = {}          # device index -> blocks of one launch
+_workspaces: dict[tuple, dict] = {}  # (device, shapes) -> scratch tensors
+
+
+def _rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
+    """Rotate-half in f32: x (B, H, hd), cos/sin (B, 1, hd/2)."""
+    d2 = x.shape[-1] // 2
+    x1, x2 = x[..., :d2], x[..., d2:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def _quant(x: torch.Tensor):
+    """Per-head absmax int8 over the last axis, as XLA evaluates the TPU
+    kernel's quantizer: the scale `max(amax, 1e-8) / 127` becomes a product
+    with the f32 reciprocal of 127; `round(x / s)` stays a division.
+    Returns (q int8, s (..., 1) f32)."""
+    amax = x.abs().amax(dim=-1, keepdim=True)
+    s = amax.clamp_min(1e-8) * torch.tensor(1.0 / 127.0, dtype=torch.float32)
+    q = torch.round(x / s).clamp_(-127, 127)
+    return q.to(torch.int8), s
+
+
+def _mm(a: torch.Tensor, w, layer: int) -> torch.Tensor:
+    """f32 (a @ w.q[layer]) * w.s[layer]."""
+    return int8_matmul_plain(a, w.q, w.s, layer=layer, out_dtype=torch.float32)
+
+
+def fused_decode_step_plain(blocks, x, k_q, k_s, v_q, v_s, q_slot, valid_from,
+                            rope_cos_g, rope_sin_g, cfg, slot=None,
+                            write_cache: bool = False):
+    """Plain torch, with the TPU kernel's numerics (`_kernel`,
+    fused_decode.py:70-523) over all rows at once. Attention reads the cache
+    before this step's write, as the TPU kernel reads its input block.
+    Arguments and results as `fused_decode_step`."""
+    if (slot is not None) != write_cache:
+        raise ValueError("a write slot goes with write_cache=True")
+    bf = torch.bfloat16
+    L, B, S, _ = k_q.shape
+    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    g, f = hq // hkv, cfg.intermediate_dim
+    sm_scale = 1.0 / math.sqrt(hd)
+    kpos = torch.arange(S, device=x.device)
+    qslot = q_slot.reshape(B).long()
+    vfrom = (torch.zeros_like(qslot) if valid_from is None
+             else valid_from.reshape(B).long())
+    # the cache holds the tokens strictly before the current slot
+    live = (kpos[None, :] < qslot[:, None]) & (kpos[None, :] >= vfrom[:, None])
+    cos = rope_cos_g.float()[:, None, :]
+    sin = rope_sin_g.float()[:, None, :]
+    xf = x.float()
+    new = []
+    for l in range(L):
+        h = rms_norm(xf, blocks["ln1"][l], cfg.norm_eps).to(bf)
+        qkv = _mm(h, blocks["wqkv"], l).to(bf).float()
+        q = _rope(qkv[:, :hq * hd].reshape(B, hq, hd), cos, sin).to(bf)
+        k = _rope(qkv[:, hq * hd:(hq + hkv) * hd].reshape(B, hkv, hd), cos,
+                  sin).to(bf).float()
+        v = qkv[:, (hq + hkv) * hd:].reshape(B, hkv, hd)
+        k8, ks = _quant(k)                          # (B, Hkv, hd), (B, Hkv, 1)
+        v8, vs = _quant(v)
+        kcur = (k8.float() * ks).to(bf).float()
+        vcur = (v8.float() * vs).to(bf).float()
+
+        qg = q.float().reshape(B, hkv, g, hd)
+        kc = k_q[l].reshape(B, S, hkv, hd).float()
+        vc = v_q[l].reshape(B, S, hkv, hd).float()
+        sc = torch.einsum("bhgd,bshd->bhgs", qg, kc)
+        sc = sc * (k_s[l][:, :, None, :] * sm_scale)
+        sc = sc.masked_fill(~live[:, None, None, :], _NEG_INF)
+        s_cur = (qg * kcur[:, :, None, :]).sum(dim=-1, keepdim=True) * sm_scale
+        m = torch.maximum(sc.amax(dim=-1, keepdim=True), s_cur)
+        p = torch.exp(sc - m)
+        p_cur = torch.exp(s_cur - m)
+        denom = p.sum(dim=-1, keepdim=True) + p_cur
+        pv = torch.einsum("bhgs,bshd->bhgd",
+                          (p * v_s[l][:, :, None, :]).to(bf).float(), vc)
+        pv = pv + p_cur * vcur[:, :, None, :]
+        attn = (pv / denom).reshape(B, hq * hd).to(bf)
+
+        xf = xf + _mm(attn, blocks["wo"], l)
+        h2 = rms_norm(xf, blocks["ln2"][l], cfg.norm_eps).to(bf)
+        gu = _mm(h2, blocks["w_gate_up"], l)
+        gate = gu[:, :f].to(bf).float()
+        up = gu[:, f:].to(bf).float()
+        ff = (F.silu(gate) * up).to(bf)
+        xf = xf + _mm(ff, blocks["w_down"], l)
+
+        codes = (k8.reshape(B, hkv * hd), ks[..., 0], v8.reshape(B, hkv * hd),
+                 vs[..., 0])
+        if write_cache:
+            k_q[l][:, slot] = codes[0]
+            k_s[l][:, :, slot] = codes[1]
+            v_q[l][:, slot] = codes[2]
+            v_s[l][:, :, slot] = codes[3]
+        else:
+            new.append(codes)
+    x_out = xf.to(x.dtype)
+    if write_cache:
+        return x_out, k_q, k_s, v_q, v_s
+    return (x_out, *(torch.stack(t) for t in zip(*new)))
+
+
+def _splits(m: int, n: int, k: int, grid: int) -> int:
+    """k-splits of one GEMM phase: as many as keep its (m-tile, n-tile,
+    split) items within one wave of the grid, with >= 4 k-tiles a split."""
+    tiles = -(-m // _BM) * -(-n // _BN)
+    k_tiles = -(-k // _BK)
+    splits = max(1, min(grid // tiles, k_tiles // 4))
+    per = -(-k_tiles // splits)
+    return -(-k_tiles // per)
+
+
+def _launch_grid(device: torch.device) -> int:
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _grid:
+        n = ctypes.c_int(0)
+        with torch.cuda.device(idx):
+            _build.check(_build.lib().pli_fused_decode_grid(ctypes.byref(n)),
+                         "fused_decode_step (occupancy)")
+        _grid[idx] = n.value
+    return _grid[idx]
+
+
+def _workspace(device, L, B, D, F_, QH, KH, HKV, ws_floats) -> dict:
+    key = (str(device), L, B, D, F_, QH, KH, ws_floats)
+    if key not in _workspaces:
+        def e(*shape, dtype=torch.bfloat16):
+            return torch.empty(shape, dtype=dtype, device=device)
+
+        _workspaces[key] = dict(
+            xf=e(B, D, dtype=torch.float32), h=e(B, D), qbuf=e(B, QH),
+            attn=e(B, QH), ff=e(B, F_), ws=e(ws_floats, dtype=torch.float32),
+            k_new=e(L, B, KH, dtype=torch.int8),
+            ks_new=e(L, B, HKV, dtype=torch.float32),
+            v_new=e(L, B, KH, dtype=torch.int8),
+            vs_new=e(L, B, HKV, dtype=torch.float32))
+    return _workspaces[key]
+
+
+def fused_decode_step(blocks, x, k_q, k_s, v_q, v_s, q_slot, valid_from,
+                      rope_cos_g, rope_sin_g, cfg, slot=None,
+                      write_cache: bool = False):
+    """One decode step over all layers.
+
+    blocks: the stacked INT8 block parameters (`wqkv` (L, D, QO), `wo`,
+    `w_gate_up`, `w_down` as QuantizedTensors, `ln1`/`ln2` (L, D)).
+    x: (B, D) embedded tokens. k_q/v_q: (L, B, S, Hkv·hd) int8; k_s/v_s:
+    (L, B, Hkv, S) f32. q_slot/valid_from: (B,) current slot / first valid
+    slot. rope_cos_g/rope_sin_g: (B, hd/2) f32 at each request's position.
+
+    slot + write_cache=True: the new K/V are written IN PLACE at `slot` for
+    every request and layer, and (x_out, k_q, k_s, v_q, v_s) returned.
+    Otherwise (x_out, k_new (L, B, Hkv·hd) int8, ks (L, B, Hkv) f32, v_new,
+    vs) for the caller to scatter."""
+    global launches
+    if not x.is_cuda:
+        return fused_decode_step_plain(blocks, x, k_q, k_s, v_q, v_s, q_slot,
+                                       valid_from, rope_cos_g, rope_sin_g,
+                                       cfg, slot, write_cache)
+    if (slot is not None) != write_cache:
+        raise ValueError("a write slot goes with write_cache=True")
+    B, D = x.shape
+    L, _, S, KH = k_q.shape
+    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    F_, QH = cfg.intermediate_dim, hq * hd
+    QO = QH + 2 * hkv * hd
+    wqkv, wo = blocks["wqkv"], blocks["wo"]
+    wgu, wdn = blocks["w_gate_up"], blocks["w_down"]
+    want = {"wqkv": (wqkv, (L, D, QO)), "wo": (wo, (L, QH, D)),
+            "w_gate_up": (wgu, (L, D, 2 * F_)), "w_down": (wdn, (L, F_, D))}
+    for name, (w, shape) in want.items():
+        if tuple(w.q.shape) != shape or tuple(w.s.shape) != (L, 1, shape[2]):
+            raise ValueError(f"fused_decode_step: {name} is {tuple(w.q.shape)}"
+                             f", expected {shape}")
+        if w.q.dtype != torch.int8 or w.s.dtype != torch.float32:
+            raise TypeError("fused_decode_step takes int8 weights, f32 scales")
+    if (KH != hkv * hd or k_s.shape != (L, B, hkv, S) or v_q.shape != k_q.shape
+            or v_s.shape != k_s.shape or k_q.shape[1] != B
+            or rope_cos_g.shape != (B, hd // 2)
+            or rope_sin_g.shape != (B, hd // 2)):
+        raise ValueError("fused_decode_step: inconsistent cache or rope "
+                         "shapes")
+    if hd % 16 or hd > _DMAX or hq % hkv or hq // hkv > _GMAX:
+        raise ValueError(f"kernel takes head_dim % 16 == 0, <= {_DMAX} and "
+                         f"<= {_GMAX} query heads per kv head")
+    if x.dtype != torch.bfloat16 or blocks["ln1"].dtype != torch.bfloat16 \
+            or blocks["ln2"].dtype != torch.bfloat16:
+        raise TypeError("fused_decode_step on CUDA takes bf16 activations "
+                        "and norm weights")
+    if k_q.dtype != torch.int8 or v_q.dtype != torch.int8 \
+            or k_s.dtype != torch.float32 or v_s.dtype != torch.float32:
+        raise TypeError("fused_decode_step takes the INT8 cache, f32 scales")
+    qslot = q_slot.reshape(B).to(torch.int32).contiguous()
+    vfrom = (torch.zeros_like(qslot) if valid_from is None
+             else valid_from.reshape(B).to(torch.int32).contiguous())
+    cos = rope_cos_g.float().contiguous()
+    sin = rope_sin_g.float().contiguous()
+    wide = (k_q, v_q, *(w.q for w, _ in want.values()))  # read 16 B a load
+    for t in (x, blocks["ln1"], blocks["ln2"], k_s, v_s, cos, sin, qslot,
+              vfrom, *wide, *(w.s for w, _ in want.values())):
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError("kernel needs contiguous tensors on one device")
+    if any(t.data_ptr() % 16 for t in wide):
+        raise ValueError("int8 weights and cache must be 16-byte aligned")
+
+    grid = _launch_grid(x.device)
+    splits = (_splits(B, QO, D, grid), _splits(B, D, QH, grid),
+              _splits(B, 2 * F_, D, grid), _splits(B, D, F_, grid))
+    ws_floats = B * max(splits[0] * QO, splits[1] * D, splits[2] * 2 * F_,
+                        splits[3] * D)
+    w = _workspace(x.device, L, B, D, F_, QH, KH, hkv, ws_floats)
+    if write_cache:
+        new = (w["k_new"], w["ks_new"], w["v_new"], w["vs_new"])
+        slot = int(slot)
+    else:
+        new = (torch.empty((L, B, KH), dtype=torch.int8, device=x.device),
+               torch.empty((L, B, hkv), dtype=torch.float32, device=x.device),
+               torch.empty((L, B, KH), dtype=torch.int8, device=x.device),
+               torch.empty((L, B, hkv), dtype=torch.float32, device=x.device))
+        slot = -1
+    x_out = torch.empty_like(x)
+    ptr = [t.data_ptr() for t in (
+        x, blocks["ln1"], blocks["ln2"], wqkv.q, wqkv.s, wo.q, wo.s, wgu.q,
+        wgu.s, wdn.q, wdn.s, k_q, k_s, v_q, v_s, cos, sin, qslot, vfrom, *new,
+        x_out, w["xf"], w["h"], w["qbuf"], w["attn"], w["ff"], w["ws"])]
+    err = _build.lib().pli_fused_decode_step(
+        *ptr, L, B, S, D, F_, hq, hkv, hd, slot, int(write_cache), *splits,
+        cfg.norm_eps, 1.0 / math.sqrt(hd), grid,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "fused_decode_step")
+    launches += 1
+    if write_cache:
+        return x_out, k_q, k_s, v_q, v_s
+    return (x_out, *new)

@@ -13,13 +13,16 @@ What differs from the JAX package, on purpose:
   JAX rebuilds its arrays functionally and aliases them under jit.
 - The fresh-KV prefill branch is the explicit `fresh_kv` argument, not a
   test of `k_limit == s`.
-- "On the accelerator" means a CUDA tensor. There the per-op decode path
-  runs the three CUDA kernels (int8_matmul, int8_kv_decode_attention,
-  lmhead_greedy). The fused whole-model decode kernel and flash attention
-  are not ported yet: where the JAX package would run them, `forward` raises
+- "On the accelerator" means a CUDA tensor. There a decode step that
+  passes the JAX package's fused gate runs the whole-model decode kernel
+  (fused_decode_step), and the others the per-op kernels (int8_matmul,
+  int8_kv_decode_attention); prefill from 512 slots of context runs
+  flash_attention; the greedy head runs lmhead_greedy. The fused kernel's
+  W8A8 variant (`act_quant="int8"`) is not ported: it raises
   NotImplementedError instead of substituting another path. On a CPU tensor
   the JAX gates are false, as on the JAX CPU backend, and both packages take
-  the same per-op/dense path.
+  the same per-op/dense path; `_fused_decode_forward` is the fused branch
+  itself, callable on the CPU, where the kernels take their plain versions.
 """
 from __future__ import annotations
 
@@ -28,8 +31,10 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..kernels.flash_attention import flash_attention
+from ..kernels.fused_decode import fused_decode_step
 from ..kernels.int8_kv_attention import int8_kv_decode_attention
-from ..kernels.int8_matmul import int8_matmul
+from ..kernels.int8_matmul import int8_matmul, int8_matmul_plain
 from ..kernels.lmhead import lmhead_greedy, lmhead_greedy_ok
 from ..kernels.quant import quantize_int8
 from ..ops.gqa import grouped_sdpa
@@ -63,18 +68,33 @@ class KVSlice(NamedTuple):
     start: int | torch.Tensor
 
 
+def _linear_f32(x2: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
+    """(M, K) @ w (K, N) -> f32 (M, N): the product of x2 and w.q cast to
+    x2's dtype (exact for int8), accumulated in f32, then the per-channel
+    scale — the XLA branch of the JAX package's `_linear`
+    (transformer.py:138-143) before its cast. On the card a library GEMM
+    with f32 output (the JAX package leaves this product to XLA, outside
+    any Pallas kernel); on the CPU int8_matmul_plain's math."""
+    if not x2.is_cuda:
+        return int8_matmul_plain(x2, w.q, w.s, out_dtype=torch.float32)
+    wq = w.q.to(x2.dtype)
+    acc = (torch.mm(x2, wq) if x2.dtype == torch.float32
+           else torch.mm(x2, wq, out_dtype=torch.float32))
+    return acc.mul_(w.s.reshape(1, -1))
+
+
 def _linear(x: torch.Tensor, w) -> torch.Tensor:
     """x (..., K) @ w -> (..., N). A plain tensor is a plain matmul. A
     QuantizedTensor (K, N) goes to int8_matmul (the CUDA kernel on the card,
     its plain version on the CPU), except for prefill-sized m >= 2048 on the
-    card, where the weights are dequantized to the activation dtype and
-    torch.matmul runs, as the JAX package leaves that case to XLA."""
+    card, which takes `_linear_f32`, as the JAX package leaves that case to
+    XLA."""
     if not isinstance(w, QuantizedTensor):
         return x @ w
     k, n = w.q.shape
     x2 = x.reshape(-1, k)
     if x.is_cuda and x2.shape[0] >= _PREFILL_M:
-        out = x2 @ w.dequantize(x.dtype)
+        out = _linear_f32(x2, w).to(x.dtype)
     else:
         out = int8_matmul(x2.contiguous(), w.q, w.s, out_dtype=x.dtype)
     return out.reshape(*x.shape[:-1], n)
@@ -291,9 +311,14 @@ def block_forward(bp: dict, x: torch.Tensor, cfg: ModelConfig,
             k_slots = torch.arange(kq.shape[2], device=x.device)
 
     if impl == "flash":
-        raise NotImplementedError(_NOT_PORTED.format(
-            "flash attention", 5, 'attention_impl="dense"'))
-    attn = _attend(q.transpose(1, 2), kq, vq, slots, k_slots, valid_from)
+        # every runtime path uses affine slots (slots = start + arange),
+        # which is the kernel's rectangular-causal mask; valid_from masks
+        # left padding
+        attn = flash_attention(q.transpose(1, 2), kq, vq,
+                               q_offset=0 if kv is None else start,
+                               causal=True, valid_from=valid_from)
+    else:
+        attn = _attend(q.transpose(1, 2), kq, vq, slots, k_slots, valid_from)
     attn = attn.transpose(1, 2).reshape(b, s, hq * hd)
     x = x + _linear(attn, bp["wo"])
     x = x + _ffn(bp, rms_norm(x, bp["ln2"], cfg.norm_eps))
@@ -320,6 +345,51 @@ def _fused_decode_ok(params: dict, cfg: ModelConfig, b: int,
     return (hd % 128 == 0 and b % 8 == 0 and qo % 128 == 0
             and d % 128 == 0 and f % 128 == 0 and s_max % 8 == 0
             and 8 * s_max * cfg.num_kv_heads * hd <= (8 << 20))
+
+
+def _scatter_new_kv(cache: QuantKV, new_q: torch.Tensor, new_s: torch.Tensor,
+                    start) -> QuantKV:
+    """Write the fused kernel's per-layer new K or V (L, B, Hkv·hd) int8 and
+    scales (L, B, Hkv) into the stacked cache at slot(s) `start` (an int, or
+    a (B,) tensor of per-request slots), IN PLACE (JAX transformer.py:
+    616-633 rebuilds the arrays). Returns the same cache."""
+    if not isinstance(start, torch.Tensor) or start.dim() == 0:
+        cache.q[:, :, start] = new_q
+        cache.s[:, :, :, start] = new_s
+        return cache
+    b = new_q.shape[1]
+    bidx = torch.arange(b, device=cache.q.device)
+    idx = start.to(device=cache.q.device, dtype=torch.long)
+    cache.q[:, bidx, idx] = new_q
+    # advanced indices around a slice put their axis first: (B, L, Hkv)
+    cache.s[:, bidx, :, idx] = new_s.transpose(0, 1)
+    return cache
+
+
+def _fused_decode_forward(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                          kv: KVSlice, positions, slots, valid_from,
+                          rope_cos, rope_sin):
+    """The fused branch of the JAX package's forward (transformer.py:
+    688-717): one fused_decode_step runs every layer. x: (B, 1, D) embedded
+    tokens. A uniform start writes the cache in place; per-request starts
+    get the new K/V back and scatter them. Returns (x (B, 1, D), kv)."""
+    b = x.shape[0]
+    start = kv.start
+    per_request = isinstance(start, torch.Tensor) and start.dim() > 0
+    q_slot = (slots[:, 0] if slots is not None
+              else torch.as_tensor(start, device=x.device).reshape(-1)
+              .expand(b))
+    pos = positions[:, 0]
+    args = (params["blocks"], x[:, 0], kv.k.q, kv.k.s, kv.v.q, kv.v.s,
+            q_slot, valid_from, rope_cos[pos], rope_sin[pos], cfg)
+    if per_request:
+        x_out, k_new, ksc, v_new, vsc = fused_decode_step(*args)
+        _scatter_new_kv(kv.k, k_new, ksc, start)
+        _scatter_new_kv(kv.v, v_new, vsc, start)
+    else:
+        x_out, *_ = fused_decode_step(*args, slot=int(start),
+                                      write_cache=True)
+    return x_out[:, None, :], KVSlice(kv.k, kv.v, kv.start + 1)
 
 
 def forward(params: dict, input_ids: torch.Tensor, cfg: ModelConfig,
@@ -364,16 +434,22 @@ def forward(params: dict, input_ids: torch.Tensor, cfg: ModelConfig,
         new_kv = None
     else:
         if s == 1 and x.is_cuda and _fused_decode_ok(params, cfg, b, kv):
-            raise NotImplementedError(_NOT_PORTED.format(
-                "The fused whole-model decode kernel", 4,
-                "ModelConfig.fused_decode=False"))
-        for layer in range(cfg.num_layers):
-            x, _ = block_forward(layer_view(blocks, layer), x, cfg, rope_cos,
-                                 rope_sin, positions, kv=(kv.k, kv.v),
-                                 start=kv.start, slots=slots,
-                                 valid_from=valid_from, layer=layer,
-                                 k_limit=k_limit, fresh_kv=fresh_kv)
-        new_kv = KVSlice(kv.k, kv.v, kv.start + s)
+            if cfg.act_quant == "int8":
+                raise NotImplementedError(_NOT_PORTED.format(
+                    "The W8A8 variant of the fused decode kernel", 4,
+                    "ModelConfig.fused_decode=False"))
+            x, new_kv = _fused_decode_forward(params, x, cfg, kv, positions,
+                                              slots, valid_from, rope_cos,
+                                              rope_sin)
+        else:
+            for layer in range(cfg.num_layers):
+                x, _ = block_forward(layer_view(blocks, layer), x, cfg,
+                                     rope_cos, rope_sin, positions,
+                                     kv=(kv.k, kv.v), start=kv.start,
+                                     slots=slots, valid_from=valid_from,
+                                     layer=layer, k_limit=k_limit,
+                                     fresh_kv=fresh_kv)
+            new_kv = KVSlice(kv.k, kv.v, kv.start + s)
 
     if last_only:
         x = x[:, -1:, :]

@@ -7,13 +7,18 @@ imports no jax, so on a machine without it run it as
 import pytest
 import torch
 
+from physics_llm_inference_tpu_torch.kernels import flash_attention as t_fa
+from physics_llm_inference_tpu_torch.kernels import fused_decode as t_fd
 from physics_llm_inference_tpu_torch.kernels import int8_kv_attention as t_attn
 from physics_llm_inference_tpu_torch.kernels import int8_matmul as t_mm
 from physics_llm_inference_tpu_torch.kernels import lmhead as t_head
 from physics_llm_inference_tpu_torch.models import transformer as ttf
 from physics_llm_inference_tpu_torch.models.config import ModelConfig
-from physics_llm_inference_tpu_torch.models.quant import init_params_int8
+from physics_llm_inference_tpu_torch.models.quant import (QuantizedTensor,
+                                                          init_params_int8)
 from physics_llm_inference_tpu_torch.ops.norms import rms_norm
+from physics_llm_inference_tpu_torch.ops.rope import rope_frequencies
+from physics_llm_inference_tpu_torch.runtime.generate import cached_generate
 from physics_llm_inference_tpu_torch.runtime.kv_cache import KVCache
 
 pytestmark = pytest.mark.cuda
@@ -87,10 +92,140 @@ def test_lmhead_kernel_token_is_a_bf16_max(dev):
 
 
 def test_fused_decode_config_raises_on_card(dev):
+    # the W8A8 variant of the fused decode kernel is not ported: a decode
+    # call that passes the fused gate with act_quant="int8" raises
     cfg = ModelConfig(vocab_size=512, hidden_dim=256, num_layers=1,
-                      num_heads=2, num_kv_heads=1, intermediate_dim=256)
+                      num_heads=2, num_kv_heads=1, intermediate_dim=256,
+                      act_quant="int8")
     params = init_params_int8(_gen(dev), cfg)
     cache = KVCache.create(cfg, 8, 16, dtype=torch.int8, device=dev)
     ids = torch.ones((8, 1), dtype=torch.int64, device=dev)
     with pytest.raises(NotImplementedError, match="fused"):
         ttf.forward(params, ids, cfg, kv=cache.as_slice(), greedy_head=True)
+
+
+def _row_rel(a, b):
+    return float(((a - b).norm(dim=-1) / b.norm(dim=-1)).max())
+
+
+FUSED = ModelConfig(vocab_size=512, hidden_dim=512, num_layers=2,
+                    num_heads=4, num_kv_heads=2, intermediate_dim=768,
+                    max_seq_len=64)
+
+
+@pytest.mark.parametrize("write_cache", [False, True])
+def test_fused_decode_kernel_matches_plain(dev, write_cache):
+    cfg, B, S = FUSED, 8, 40
+    g = _gen(dev, 3)
+    blocks = init_params_int8(g, cfg)["blocks"]
+    L, hkv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    kq = torch.randint(-127, 128, (L, B, S, hkv * hd), dtype=torch.int8,
+                       generator=g, device=dev)
+    vq = torch.randint(-127, 128, (L, B, S, hkv * hd), dtype=torch.int8,
+                       generator=g, device=dev)
+    ks = torch.rand((L, B, hkv, S), generator=g, device=dev) * 0.05
+    vs = torch.rand((L, B, hkv, S), generator=g, device=dev) * 0.05
+    x = torch.randn((B, cfg.hidden_dim), generator=g, device=dev).bfloat16()
+    slot = 33
+    qslot = torch.full((B,), slot, dtype=torch.int32, device=dev)
+    vfrom = torch.tensor([0, 3, 7, 30, 0, 12, 1, 33], dtype=torch.int32,
+                         device=dev)
+    pos = slot - vfrom
+    cos, sin = rope_frequencies(hd, cfg.max_seq_len, device=dev)
+    caches = [t.clone() for t in (kq, ks, vq, vs)]
+    kw = dict(slot=slot, write_cache=True) if write_cache else {}
+    before = t_fd.launches
+    got = t_fd.fused_decode_step(blocks, x, *caches, qslot, vfrom, cos[pos],
+                                 sin[pos], cfg, **kw)
+    torch.cuda.synchronize()
+    assert t_fd.launches == before + 1
+    plain = [t.clone() for t in (kq, ks, vq, vs)]
+    want = t_fd.fused_decode_step_plain(blocks, x, *plain, qslot, vfrom,
+                                        cos[pos], sin[pos], cfg, **kw)
+    # different f32 summation orders over two layers of an f32 residual
+    assert _row_rel(got[0].float(), want[0].float()) < 2e-2
+    if write_cache:
+        for a, b, c in zip(got[1:], want[1:], (kq, ks, vq, vs)):
+            # every byte outside the slot is unchanged
+            outside = torch.ones(a.shape[2 if a.dtype == torch.int8 else 3],
+                                 dtype=torch.bool, device=dev)
+            outside[slot] = False
+            idx = (slice(None), slice(None), outside) if a.dtype == \
+                torch.int8 else (slice(None), slice(None), slice(None),
+                                 outside)
+            assert torch.equal(a[idx], c[idx])
+            sel = (slice(None), slice(None), slot) if a.dtype == \
+                torch.int8 else (slice(None), slice(None), slice(None), slot)
+            assert (a[sel].float() - b[sel].float()).abs().max() <= \
+                (1 if a.dtype == torch.int8 else 2e-2 * b[sel].abs().max())
+    else:
+        # codes: one int8 level where the f32 sums round apart
+        for a, b in ((got[1], want[1]), (got[3], want[3])):
+            d = (a.int() - b.int()).abs()
+            assert int(d.max()) <= 1 and float((d == 0).float().mean()) > 0.99
+        for a, b in ((got[2], want[2]), (got[4], want[4])):
+            torch.testing.assert_close(a, b, rtol=2e-2, atol=0)
+
+
+def test_default_config_generates_through_fused_kernel(dev):
+    cfg = ModelConfig(vocab_size=512, hidden_dim=512, num_layers=2,
+                      num_heads=4, num_kv_heads=2, intermediate_dim=768,
+                      max_seq_len=256)
+    params = init_params_int8(_gen(dev, 4), cfg)
+    before = t_fd.launches
+    out = cached_generate(params, cfg, [[5, 9, 2], [7] * 20], 6,
+                          temperature=0.0, kv_dtype=torch.int8)
+    assert out.tokens.shape == (2, 6)
+    # B = 2 fails the gate (b % 8): per-op; B = 8 passes it: fused
+    assert t_fd.launches == before
+    out = cached_generate(params, cfg, [[3, 1 + i] for i in range(8)], 6,
+                          temperature=0.0, kv_dtype=torch.int8)
+    assert out.tokens.shape == (8, 6) and t_fd.launches == before + 6
+    assert int(out.tokens.min()) >= 0 and int(out.tokens.max()) < 512
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,qoff,kv_len", [
+    (2, 8, 2, 200, 200, 0, None),
+    (3, 32, 8, 64, 300, [236, 100, 0], 290),
+    (2, 6, 1, 33, 100, [67, 40], None),
+])
+def test_flash_kernel_matches_plain(dev, b, hq, hkv, sq, sk, qoff, kv_len):
+    g = _gen(dev, 5)
+    q = torch.randn((b, sq, hq, 128), generator=g, device=dev).bfloat16()
+    k = torch.randn((b, sk, hkv, 128), generator=g, device=dev).bfloat16()
+    v = torch.randn((b, sk, hkv, 128), generator=g, device=dev).bfloat16()
+    qoff = torch.tensor(qoff, device=dev) if isinstance(qoff, list) else qoff
+    vfrom = torch.tensor([5, 0, 17][:b], dtype=torch.int32, device=dev)
+    # strided (B, S, H, d) views, as block_forward passes them
+    args = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    before = t_fa.launches
+    got = t_fa.flash_attention(*args, q_offset=qoff, kv_len=kv_len,
+                               valid_from=vfrom)
+    torch.cuda.synchronize()
+    assert t_fa.launches == before + 1
+    want = t_fa.flash_attention_plain(*args, q_offset=qoff, kv_len=kv_len,
+                                      valid_from=vfrom)
+    assert bool(torch.isfinite(got).all())
+    qpos = torch.as_tensor(qoff, device=dev).reshape(-1, 1) + \
+        torch.arange(sq, device=dev)
+    live = qpos >= vfrom[:, None]            # (B, Sq): rows past the padding
+    err = (got.float() - want.float()).abs().transpose(1, 2)[live]
+    assert float(err.max()) <= 2e-2
+
+
+def test_prefill_linear_is_exact_in_f32(dev):
+    """The prefill linear (m >= 2048 on the card) against an f64
+    reference: bf16(q) is exact, the sum is f32, the scale comes after the
+    dot. Rounding q * s to bf16 first (the earlier form) costs ~1e-3."""
+    g = _gen(dev, 6)
+    m, k, n = 2048, 4096, 512
+    x = torch.randn((m, k), generator=g, device=dev).bfloat16()
+    w = QuantizedTensor(
+        torch.randint(-127, 128, (k, n), dtype=torch.int8, generator=g,
+                      device=dev),
+        torch.rand((1, n), generator=g, device=dev) / (73.9 * k ** 0.5))
+    ref = (x.double() @ w.q.double()) * w.s.double()
+    got = ttf._linear_f32(x, w)
+    assert got.dtype == torch.float32
+    assert _row_rel(got.double(), ref) < 1e-5
+    assert _row_rel((x @ w.dequantize(torch.bfloat16)).double(), ref) > 1e-5

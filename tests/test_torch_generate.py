@@ -96,9 +96,9 @@ def test_unported_paths_are_refused_not_substituted():
     from physics_llm_inference_tpu_torch.models.quant import init_params_int8
     from physics_llm_inference_tpu_torch.runtime.kv_cache import KVCache
 
-    # the 7B slice's shapes: where the JAX package would run flash attention
-    # (prefill from 512 tokens of context) or the fused decode kernel, the
-    # port raises on the card
+    # the 7B slice's shapes: the port picks flash attention exactly where
+    # the JAX package would (prefill from 512 tokens of context), and only
+    # on the card
     big = tcfg_mod.ModelConfig(vocab_size=32000, hidden_dim=4096,
                                num_layers=32, num_heads=32, num_kv_heads=8,
                                intermediate_dim=11008)
@@ -120,10 +120,10 @@ def test_unported_paths_are_refused_not_substituted():
                          greedy_head=True)
     assert tok.shape == (8,)
 
-    flash = tcfg_mod.ModelConfig(**{**small.__dict__,
-                                    "attention_impl": "flash"})
-    with pytest.raises(NotImplementedError, match="Queue B"):
-        ttf.forward(params, torch.ones((2, 4), dtype=torch.int64), flash)
+    # MoE is not ported: forward refuses it rather than run a dense FFN
+    moe = tcfg_mod.ModelConfig(**{**small.__dict__, "num_experts": 4})
+    with pytest.raises(NotImplementedError, match="Queue A"):
+        ttf.forward(params, torch.ones((2, 4), dtype=torch.int64), moe)
 
 
 def test_uncached_forward_logits_match():

@@ -20,6 +20,7 @@ def test_walk_finds_every_module():
     names = _modules()
     for expected in ("models.transformer", "kernels.int8_matmul",
                      "kernels.int8_kv_attention", "kernels.lmhead",
+                     "kernels.fused_decode", "kernels.flash_attention",
                      "runtime.generate", "convert", "specs.gpu"):
         assert f"{port.__name__}.{expected}" in names
 
