@@ -8,21 +8,28 @@ Phases, each of which raises on failure (exit code != 0, no final line):
 2. build: nvcc compiles csrc/*.cu into build/, one process per source, all
    in parallel (kernels/_build.py);
 3. each CUDA kernel (K1 int8_matmul, K2 int8_kv_decode_attention, K3
-   lmhead_greedy, K4 fused_decode_step, K5 flash_attention) against its
-   plain torch version at the main path's shapes, with the tolerance
-   stated, and both timed with CUDA events;
+   lmhead_greedy, K4 fused_decode_step, K5 flash_attention, K6
+   int8_paged_decode_attention, K7 paged_decode_attention, K8
+   fused_paged_decode_step) against its plain torch version at the main
+   paths' shapes, with the tolerance stated, and both timed with CUDA
+   events;
 4. slice parity: a model at the 7B widths with 2 layers runs prefill plus 8
    teacher-forced decode steps with the kernels and again with the kernels'
    entry points swapped for their plain versions (here, not in the package),
-   once on the per-op decode path and once on the fused one; final hidden
-   states and greedy tokens are compared;
-5. the main path at full size: the 7B-class config of bench.py (32 layers,
-   the default ModelConfig: fused_decode=True, attention_impl="auto")
-   initialized on the card from a seed, cached_generate at batch 64 with 128
-   greedy tokens over an INT8 KV cache, at prompt 128 (fused decode) and
-   prompt 512 (flash prefill, fused decode); then the per-op decode path
-   (fused_decode=False) at prompt 128, which runs K2. Every kernel of each
-   path must have launched during that path's timed run.
+   on the per-op and the fused dense decode paths and on the paged path in
+   the paged engine's default geometry (chunked flash prefill into INT8
+   block pools, fused paged decode); final hidden states or logits and
+   greedy tokens are compared;
+5. the main paths at full size, on the 7B-class config (32 layers)
+   initialized on the card from a seed: cached_generate at batch 64 with 128
+   greedy tokens over an INT8 KV cache in the default ModelConfig at prompt
+   128 and 512, then on the per-op decode path (K2); then the paged serving
+   engine in the scripts/bench_serving7b.py configuration (INT8 pools, 512-
+   token blocks, batch 64, horizon 8, radix on) serving 128 requests of
+   prompt 576 (every fourth behind one of 8 shared 512-token prefixes) for 64
+   greedy tokens each after a warm wave, which decodes through K8; then its
+   per-op routes, INT8 pools at block size 16 (K6) and bf16 pools (K7). Every
+   kernel of each path must have launched during that path's timed run.
 Then one JSON line with each kernel's numbers, and the last line
 {"ok": true, "device": {...}}.
 """
@@ -43,20 +50,31 @@ WIDTHS = dict(vocab_size=32000, hidden_dim=4096, num_heads=32,
               dtype="bfloat16")
 BATCH, PROMPT, LONG_PROMPT, NEW_TOKENS = 64, 128, 512, 128
 SEED = 0
-KERNELS = {  # name: (module, CUDA source, the TPU kernel it replaces)
-    "int8_matmul": ("int8_matmul", "csrc/int8_matmul.cu",
+# the paged engine of scripts/bench_serving7b.py
+SERVE_REQUESTS, SERVE_PROMPT, SERVE_TOKENS, SHARED_PREFIXES = 128, 576, 64, 8
+KERNELS = {  # name: (module, launch counter, CUDA source, TPU kernel replaced)
+    "int8_matmul": ("int8_matmul", "launches", "csrc/int8_matmul.cu",
                     "physics_llm_inference_tpu/kernels/int8_matmul.py:52"),
     "int8_kv_decode_attention": (
-        "int8_kv_attention", "csrc/int8_kv_attention.cu",
+        "int8_kv_attention", "launches", "csrc/int8_kv_attention.cu",
         "physics_llm_inference_tpu/kernels/int8_kv_attention.py:148"),
-    "lmhead_greedy": ("lmhead", "csrc/lmhead.cu",
+    "lmhead_greedy": ("lmhead", "launches", "csrc/lmhead.cu",
                       "physics_llm_inference_tpu/kernels/lmhead.py:92"),
     "fused_decode_step": (
-        "fused_decode", "csrc/fused_decode.cu",
+        "fused_decode", "launches", "csrc/fused_decode.cu",
         "physics_llm_inference_tpu/kernels/fused_decode.py:1200"),
     "flash_attention": (
-        "flash_attention", "csrc/flash_attention.cu",
+        "flash_attention", "launches", "csrc/flash_attention.cu",
         "physics_llm_inference_tpu/kernels/flash_attention.py:310"),
+    "int8_paged_decode_attention": (
+        "paged_attention", "int8_paged_launches", "csrc/paged_attention.cu",
+        "physics_llm_inference_tpu/kernels/paged_attention.py:223"),
+    "paged_decode_attention": (
+        "paged_attention", "paged_launches", "csrc/paged_attention.cu",
+        "physics_llm_inference_tpu/kernels/paged_attention.py:81"),
+    "fused_paged_decode_step": (
+        "fused_decode", "paged_launches", "csrc/fused_decode.cu",
+        "physics_llm_inference_tpu/kernels/fused_decode.py:1002"),
 }
 
 
@@ -112,11 +130,12 @@ def kernel_module(name):
 
 def reset_launches():
     for name in KERNELS:
-        kernel_module(name).launches = 0
+        setattr(kernel_module(name), KERNELS[name][1], 0)
 
 
 def read_launches() -> dict:
-    return {name: kernel_module(name).launches for name in KERNELS}
+    return {name: getattr(kernel_module(name), KERNELS[name][1])
+            for name in KERNELS}
 
 
 def row_rel(a, b) -> float:
@@ -232,6 +251,8 @@ def check_kernels(dev, flush) -> dict:
     out["lmhead_greedy"] = (err, ms, pms)
     out["fused_decode_step"] = check_fused(dev, flush)
     out["flash_attention"] = check_flash(dev, flush)
+    out.update(check_paged_attention(dev, flush))
+    out["fused_paged_decode_step"] = check_fused_paged(dev, flush)
     return out
 
 
@@ -372,6 +393,185 @@ def check_flash(dev, flush):
     return first
 
 
+def _scattered_tables(g, dev, B, MB, NB, used, trash):
+    """Block tables drawn from a permutation of the pool's blocks: request
+    b's first used[b] columns; the other columns on the trash block."""
+    import torch
+
+    perm = torch.randperm(NB - 1, generator=g, device=dev)[:B * MB]
+    tables = perm.reshape(B, MB).to(torch.int32)
+    cols = torch.arange(MB, device=dev)[None, :]
+    return torch.where(cols < used[:, None], tables,
+                       torch.full_like(tables, trash))
+
+
+def check_paged_attention(dev, flush) -> dict:
+    """K6 (INT8 merged pools) and K7 (bf16 pools) at B = 64, Hq 32, Hkv 8,
+    d 128 over 2-layer pools, in the per-op route's geometry (BS 16, MB 64)
+    and the default one (BS 512, MB 2): scattered tables, ragged lengths
+    with 1, block boundaries and the whole table. Returns their entries,
+    from the per-op geometry that the engine's per-op routes run."""
+    import torch
+
+    from physics_llm_inference_tpu_torch.kernels import paged_attention as kp
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    B, hq, hkv, d, L = 64, 32, 8, 128, 2
+    out = {}
+    for bs, mb in ((16, 64), (512, 2)):
+        cap, NB = bs * mb, B * mb + 17
+        lens = torch.randint(1, cap + 1, (B,), generator=g, device=dev)
+        lens[:6] = torch.tensor([1, bs, bs + 1, cap - 1, cap, 2 * bs],
+                                device=dev)
+        tables = _scattered_tables(g, dev, B, mb, NB, -(-lens // bs), NB - 1)
+        ctx = lens.int()
+        q = torch.randn((B, hq, d), generator=g, device=dev).bfloat16()
+        kv = torch.randint(-127, 128, (L, NB, 2, bs, hkv * d),
+                           dtype=torch.int8, generator=g, device=dev)
+        kvs = torch.rand((L, NB, 2, hkv, bs), generator=g, device=dev) * 0.03
+        kpool = torch.randn((L, NB, bs, hkv, d), generator=g,
+                            device=dev).bfloat16()
+        vpool = torch.randn((L, NB, bs, hkv, d), generator=g,
+                            device=dev).bfloat16()
+        cases = (("int8_paged_decode_attention", "K6", kv, kvs, 1),
+                 ("paged_decode_attention", "K7", kpool, vpool, 2))
+        for name, tag, a, b, elt in cases:
+            fn, plain = getattr(kp, name), getattr(kp, f"{name}_plain")
+            args = (q, a, b, tables, ctx)
+            got = fn(*args, layer=1).float()
+            want = plain(*args, layer=1).float()
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            # other f32 summation orders, a tile-wise online softmax (K6:
+            # p * v_scale rounded to bf16 against its running max), bf16 out
+            if not bool(torch.isfinite(got).all()) or err > 2e-2:
+                raise AssertionError(f"{tag} BS={bs}: max abs err {err:.4g} "
+                                     "> 2e-2")
+            if not torch.equal(fn(*args, layer=1).float(), got):
+                raise AssertionError(f"{tag} BS={bs}: two launches differ")
+            ms = time_ms(lambda f=fn, x=args: f(*x, layer=1), flush)
+            pms = time_ms(lambda f=plain, x=args: f(*x, layer=1), flush)
+            live = int(lens.sum()) * hkv * d * 2 * elt
+            log(f"{tag} {name} B={B} Hq={hq} Hkv={hkv} d={d} BS={bs} MB={mb} "
+                f"(scattered tables, ragged lengths): max_abs_err {err:.4g} "
+                f"(atol 2e-2), two launches bit-equal, kernel {ms:.4f} ms "
+                f"({live / ms / 1e6:.0f} GB/s of live KV), plain {pms:.4f} ms")
+            if bs == 16:
+                out[name] = (err, ms, pms)
+    return out
+
+
+def check_fused_paged(dev, flush):
+    """K8 at the 7B widths, 2 layers, in the engine's default geometry:
+    B = 64, BS = 512, MB = 2, NB = 161 (160 blocks + the trash block), in
+    place. Scattered tables covering each active row's write position,
+    ragged lengths with block-boundary rows, and 8 inactive rows on the
+    trash block with stale lengths (up to past the table). Returns
+    (max_abs_err of x_out on the active rows, ms, plain_ms)."""
+    import torch
+
+    from physics_llm_inference_tpu_torch.kernels import fused_decode as kf
+    from physics_llm_inference_tpu_torch.kernels.paged_attention import \
+        write_position
+    from physics_llm_inference_tpu_torch.models.config import ModelConfig
+    from physics_llm_inference_tpu_torch.models.quant import init_params_int8
+    from physics_llm_inference_tpu_torch.ops.rope import rope_frequencies
+
+    cfg = ModelConfig(num_layers=2, **WIDTHS)
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    blocks = init_params_int8(g, cfg)["blocks"]
+    L, B, BS, MB, NB = 2, 64, 512, 2, 161
+    trash, cap = NB - 1, MB * BS
+    hkv, hd = cfg.num_kv_heads, cfg.head_dim
+    lens = torch.randint(1, cap, (B,), generator=g, device=dev)
+    lens[:6] = torch.tensor([BS - 1, BS, BS + 1, 1, cap - 1, 2 * BS - 2],
+                            device=dev)
+    active = torch.ones(B, dtype=torch.bool, device=dev)
+    active[-8:] = False
+    lens[-8:] = torch.tensor([0, 5, BS, cap - 1, cap, cap + 3, 700, 1],
+                             device=dev)
+    used = torch.where(active, lens // BS + 1, torch.zeros_like(lens))
+    tables = _scattered_tables(g, dev, B, MB, NB, used, trash)
+    kv = torch.randint(-127, 128, (L, NB, 2, BS, hkv * hd), dtype=torch.int8,
+                       generator=g, device=dev)
+    kvs = torch.rand((L, NB, 2, hkv, BS), generator=g, device=dev) * 0.03
+    x = (torch.randn((B, cfg.hidden_dim), generator=g, device=dev)
+         * cfg.hidden_dim ** -0.5).bfloat16()
+    cos, sin = rope_frequencies(hd, cfg.max_seq_len, device=dev)
+    pos = lens.clamp(max=cfg.max_seq_len - 1)
+    args = (tables, lens.int(), cos[pos], sin[pos], cfg)
+    got_p, want_p = [kv.clone(), kvs.clone()], [kv.clone(), kvs.clone()]
+    got = kf.fused_paged_decode_step(blocks, x, *got_p, *args, inplace=True)
+    want = kf.fused_paged_decode_step_plain(blocks, x, *want_p, *args,
+                                            inplace=True)
+    torch.cuda.synchronize()
+    xa, xw = got[0].float()[active], want[0].float()[active]
+    rel = row_rel(xa, xw)
+    if not bool(torch.isfinite(got[0]).all()) or rel > 2e-2:
+        raise AssertionError(f"K8: x_out row-wise relative error {rel:.4g} "
+                             "> 2e-2 on the active rows")
+    codes = []
+    for i, name in ((1, "k"), (3, "v")):
+        d = (got[i].int() - want[i].int()).abs()
+        # layer 0 sees the same x on every row; the kernel's f32 sums and
+        # cuBLAS's run in other orders, so a bf16 rounding of qkv can flip
+        l0 = float((d[0] == 0).float().mean())
+        deep = float((d[1:][:, active] <= 1).float().mean())
+        if int(d[0].max()) > 1 or l0 < 0.999 or deep < 0.99:
+            raise AssertionError(f"K8: {name} codes: layer 0 max diff "
+                                 f"{int(d[0].max())}, equal {l0:.5f}; deeper "
+                                 f"within one level {deep:.5f}")
+        codes.append(f"{name} layer-0 codes equal {l0:.5f}, deeper within "
+                     f"one level {deep:.5f}")
+    # the pools: unchanged outside the written slots and the trash block;
+    # each active row's slot holds the codes the launch returned
+    blk, off = write_position(tables, lens, BS)
+    keep = torch.ones((NB, BS), dtype=torch.bool, device=dev)
+    keep[blk, off] = False
+    keep[trash] = False
+    for p in (got_p, want_p):
+        if not (torch.equal(p[0].transpose(2, 3)[:, keep],
+                            kv.transpose(2, 3)[:, keep])
+                and torch.equal(p[1].permute(0, 1, 4, 2, 3)[:, keep],
+                                kvs.permute(0, 1, 4, 2, 3)[:, keep])):
+            raise AssertionError("K8: the pools changed outside the written "
+                                 "slots and the trash block")
+    ba, oa = blk[active], off[active]
+    if not (torch.equal(got_p[0][:, ba, 0, oa], got[1][:, active])
+            and torch.equal(got_p[0][:, ba, 1, oa], got[3][:, active])
+            and torch.equal(got_p[1][:, ba, 0, :, oa],
+                            got[2][:, active].transpose(0, 1))
+            and torch.equal(got_p[1][:, ba, 1, :, oa],
+                            got[4][:, active].transpose(0, 1))):
+        raise AssertionError("K8: a written slot differs from the returned "
+                             "codes")
+    # fixed-order sums, no float atomics: a second launch on the same
+    # inputs gives the same bits on the active rows and outside the trash
+    again_p = [kv.clone(), kvs.clone()]
+    again = kf.fused_paged_decode_step(blocks, x, *again_p, *args,
+                                       inplace=True)
+    if not torch.equal(again[0][active], got[0][active]) or not all(
+            torch.equal(a[:, :trash], b[:, :trash])
+            for a, b in zip(again_p, got_p)):
+        raise AssertionError("K8: two launches on the same inputs differ")
+    err = float((xa - xw).abs().max())
+    ms = time_ms(lambda: kf.fused_paged_decode_step(blocks, x, *got_p, *args,
+                                                    inplace=True), flush)
+    pms = time_ms(lambda: kf.fused_paged_decode_step_plain(
+        blocks, x, *want_p, *args, inplace=True), flush)
+    wbytes = sum(blocks[n].q.numel() for n in ("wqkv", "wo", "w_gate_up",
+                                               "w_down"))
+    live = int(lens[active].sum()) * L * hkv * hd * 2
+    log(f"K8 fused_paged_decode_step 7B widths L={L} B={B} BS={BS} MB={MB} "
+        f"NB={NB}, in place, 8 inactive rows on the trash block: x_out "
+        f"row-wise rel err {rel:.4g} (2e-2) on the active rows, max abs "
+        f"{err:.4g}; {'; '.join(codes)}; pools unchanged outside the written "
+        f"slots and the trash block; two launches bit-equal; kernel "
+        f"{ms:.4f} ms ({(wbytes + live) / ms / 1e6:.0f} GB/s of weights + "
+        f"live KV), plain {pms:.4f} ms")
+    return err, ms, pms
+
+
 def run_slice(params, cfg, prompts, steps_tokens, dev):
     """Prefill + teacher-forced decode steps; returns the prefill logits and,
     per step, the final hidden state handed to the greedy head and the
@@ -434,13 +634,15 @@ def slice_parity(dev, fused: bool):
             else ("int8_matmul", "int8_kv_decode_attention", "lmhead_greedy"))
     before = read_launches()
     logits_k, seen_k = run_slice(params, cfg, prompts, steps, dev)
-    used = {n: kernel_module(n).launches - before[n] for n in path}
+    after = read_launches()
+    used = {n: after[n] - before[n] for n in path}
     if min(used.values()) == 0:
         raise AssertionError(f"slice parity: kernels not all used {used}")
     # the transformer's references to every kernel entry point, swapped for
     # the plain versions
-    saved = {n: getattr(tf, n) for n in KERNELS}
-    for n in KERNELS:
+    names = [n for n in KERNELS if hasattr(tf, n)]
+    saved = {n: getattr(tf, n) for n in names}
+    for n in names:
         setattr(tf, n, getattr(kernel_module(n), f"{n}_plain"))
     try:
         logits_p, seen_p = run_slice(params, cfg, prompts, steps, dev)
@@ -475,6 +677,138 @@ def slice_parity(dev, fused: bool):
         f"widths, 2 layers, B={BATCH}, 8 decode steps): max row-wise "
         f"relative error {worst:.4g} (rtol 2e-2), tokens equal except "
         f"{ties} bf16 near-ties, kernel launches {used}")
+
+
+PAGED_SWAPS = {  # module of the paged path -> the kernel entry points it calls
+    "models.paged_transformer": ("flash_attention", "fused_paged_decode_step",
+                                 "int8_paged_decode_attention",
+                                 "paged_decode_attention"),
+    "models.transformer": ("int8_matmul",),
+}
+
+
+def run_paged_slice(params, cfg, prompts, steps, tables, dev):
+    """Chunked prefill of the prompts (chunks of 512, as the engine cuts
+    them) into fresh INT8 pools in the engine's default geometry (BS 512,
+    160 blocks and the trash block), then teacher-forced decode steps at its
+    width, with the rows past the prompts inactive on the trash block.
+    Returns the prefill logits (n, V) and each step's logits of the prompts'
+    rows."""
+    import torch
+
+    from physics_llm_inference_tpu_torch.models import paged_transformer as pt
+    from physics_llm_inference_tpu_torch.models.transformer import QuantKV
+
+    L, hkv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    B = tables.shape[0]
+    BS, NB = 512, 161
+    pools = QuantKV(torch.zeros((L, NB, 2, BS, hkv * hd), dtype=torch.int8,
+                                device=dev),
+                    torch.zeros((L, NB, 2, hkv, BS), device=dev))
+    n = len(prompts)
+    plen = torch.tensor([len(p) for p in prompts], device=dev)
+    first = torch.zeros((n, cfg.vocab_size), device=dev)
+    for start in range(0, int(plen.max()), BS):
+        rows = [i for i, p in enumerate(prompts) if len(p) > start]
+        ids = torch.zeros((len(rows), BS), dtype=torch.int64, device=dev)
+        nval = torch.zeros(len(rows), dtype=torch.int32, device=dev)
+        for j, i in enumerate(rows):
+            chunk = prompts[i][start:start + BS]
+            ids[j, :len(chunk)] = torch.tensor(chunk, device=dev)
+            nval[j] = len(chunk)
+        idx = torch.tensor(rows, device=dev)
+        logits, pools, _ = pt.paged_prefill_chunk_impl(
+            params, ids, pools, None, tables[idx],
+            torch.full((len(rows),), start, dtype=torch.int32, device=dev),
+            nval, cfg)
+        done = plen[idx] <= start + BS
+        first[idx[done]] = logits[done]
+    lens = torch.zeros(B, dtype=torch.int32, device=dev)
+    lens[:n] = plen.int()
+    seen = []
+    for tok in steps:
+        logits, pools, _ = pt.paged_decode_step(params, tok, pools, None,
+                                                tables, lens, cfg)
+        seen.append(logits[:n].clone())
+        lens[:n] += 1
+    torch.cuda.synchronize()
+    return first, seen
+
+
+def paged_slice_parity(dev):
+    """Phase 4, paged: kernels vs plain entry points on a 2-layer 7B-width
+    model, 16 requests, in the paged engine's default geometry."""
+    import importlib
+
+    import torch
+
+    from physics_llm_inference_tpu_torch.models.config import ModelConfig
+    from physics_llm_inference_tpu_torch.models.quant import init_params_int8
+
+    cfg = ModelConfig(num_layers=2, **dict(WIDTHS, max_seq_len=1024))
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    params = init_params_int8(g, cfg)
+    n, B, MB = 16, 64, 2
+    lens = torch.randint(64, 1024 - 16, (n,), generator=g, device=dev)
+    lens[:3] = torch.tensor([512, 513, 1000], device=dev)
+    prompts = [torch.randint(1, cfg.vocab_size, (int(k),), generator=g,
+                             device=dev).tolist() for k in lens]
+    perm = torch.randperm(160, generator=g, device=dev)[:n * MB]
+    tables = torch.full((B, MB), 160, dtype=torch.int32, device=dev)
+    tables[:n] = perm.reshape(n, MB).int()
+    steps = []
+    for _ in range(8):
+        tok = torch.zeros(B, dtype=torch.int64, device=dev)
+        tok[:n] = torch.randint(1, cfg.vocab_size, (n,), generator=g,
+                                device=dev)
+        steps.append(tok)
+
+    reset_launches()
+    first_k, seen_k = run_paged_slice(params, cfg, prompts, steps, tables, dev)
+    used = read_launches()
+    path = ("flash_attention", "fused_paged_decode_step", "int8_matmul")
+    if any(used[k] == 0 for k in path) or used["fused_paged_decode_step"] != 8:
+        raise AssertionError(f"paged slice parity: kernels not used as "
+                             f"expected {used}")
+    saved = []
+    for mod_name, names in PAGED_SWAPS.items():
+        mod = importlib.import_module(f"{PKG}.{mod_name}")
+        for name in names:
+            saved.append((mod, name, getattr(mod, name)))
+            setattr(mod, name, getattr(kernel_module(name), f"{name}_plain"))
+    try:
+        first_p, seen_p = run_paged_slice(params, cfg, prompts, steps, tables,
+                                          dev)
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+    worst, ties = 0.0, 0
+    pairs = [("prefill", first_k, first_p)] + [
+        (f"step {i}", a, b) for i, (a, b) in enumerate(zip(seen_k, seen_p))]
+    for what, a, b in pairs:
+        # row-wise relative error (rtol 2e-2): single logits differ by bf16
+        # ulps where an int8 level or a bf16 rounding flips between the runs
+        rel = row_rel(a, b)
+        if not bool(torch.isfinite(a).all()) or rel > 2e-2:
+            raise AssertionError(f"paged slice parity, {what}: row-wise "
+                                 f"relative error {rel:.4g} > 2e-2")
+        worst = max(worst, rel)
+        tk, tp = a.argmax(dim=-1), b.argmax(dim=-1)
+        # where the tokens differ, the kernel's token is a bf16 max of the
+        # plain run's logits
+        top = b.max(dim=-1).values
+        gap = top - b.gather(1, tk[:, None])[:, 0]
+        if bool((gap > bf16_ulp(top)).any()):
+            raise AssertionError(f"paged slice parity, {what}: token off the "
+                                 "max")
+        ties += int((tk != tp).sum())
+    log(f"slice parity, paged (7B widths, 2 layers, {n} requests of prompt "
+        f"{int(lens.min())}-{int(lens.max())} at decode width {B}, BS=512, "
+        f"MB=2; chunked flash prefill, 8 teacher-forced fused paged decode "
+        f"steps): max row-wise relative error {worst:.4g} (rtol 2e-2), "
+        f"tokens equal except {ties} bf16 near-ties, kernel launches "
+        f"{ {k: used[k] for k in path} }")
 
 
 def full_run(dev, params, prompt: int, fused: bool, layers: int,
@@ -559,7 +893,145 @@ def full_runs(dev) -> dict:
             full_run(dev, params, PROMPT, False, 32,
                      ("int8_matmul", "int8_kv_decode_attention",
                       "lmhead_greedy"))]
-    return {n: sum(r[n] for r in runs) for n in KERNELS}
+    return {n: sum(r[n] for r in runs) for n in KERNELS}, params
+
+
+def serve(dev, params, cfg, what: str, kw: dict, n: int, prompt: int,
+          tokens: int, expect, forbid, shared: bool = False,
+          warm: int = 0) -> dict:
+    """Phase 5, paged: one PagedInferenceEngine serving n greedy requests,
+    all submitted at once and run to the end, after a warm wave of `warm`
+    requests (16 tokens each, not measured). With `shared`, every fourth
+    prompt starts with one of SHARED_PREFIXES block-sized prefixes, as in
+    scripts/bench_serving7b.py. Returns the launch counts of the measured
+    wave."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from physics_llm_inference_tpu_torch.serve.engine import GenerationRequest
+    from physics_llm_inference_tpu_torch.serve.paged_engine import (
+        PagedEngineConfig, PagedInferenceEngine)
+
+    pc = PagedEngineConfig(**kw)
+    eng = PagedInferenceEngine(params, cfg, pc)
+    rng = np.random.default_rng(SEED)
+    prefixes = [rng.integers(1, cfg.vocab_size, pc.block_size).tolist()
+                for _ in range(SHARED_PREFIXES)]
+
+    def wave(count, max_tokens):
+        rids = []
+        for i in range(count):
+            pre = (prefixes[(i // 4) % SHARED_PREFIXES]
+                   if shared and i % 4 == 0 else [])
+            p = pre + rng.integers(1, cfg.vocab_size,
+                                   prompt - len(pre)).tolist()
+            rids.append(eng.submit_request(GenerationRequest(
+                prompt_tokens=p, max_tokens=max_tokens, temperature=0.0)))
+        eng.run_until_done(rids)
+        torch.cuda.synchronize()
+        return rids
+
+    t0 = time.perf_counter()
+    if warm:
+        wave(warm, 16)
+    warm_s = time.perf_counter() - t0
+    hits0 = eng.stats()["radix_hit_tokens"]
+    pre0 = eng.scheduler.num_preempted
+    # host time of the prefill and decode dispatches, each ended by a
+    # synchronize (both already wait for the device: the tokens come back)
+    spent = {"prefill": 0.0, "decode": 0.0}
+
+    def timed(kind, fn):
+        def run(*a, **k):
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            spent[kind] += time.perf_counter() - t
+            return out
+        return run
+
+    eng._prefill = timed("prefill", eng._prefill)
+    eng._decode = timed("decode", eng._decode)
+    torch.cuda.reset_peak_memory_stats()
+    eng.dispatch_trace = []
+    reset_launches()
+    t0 = time.perf_counter()
+    rids = wave(n, tokens)
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    res = [eng.get_result(r) for r in rids]
+    bad = [r.request_id for r in res if len(r.tokens) != tokens
+           or min(r.tokens) < 0 or max(r.tokens) >= cfg.vocab_size]
+    if bad:
+        raise AssertionError(f"{what}: requests with wrong tokens: {bad[:5]}")
+    steps = sum(t[1] for t in eng.dispatch_trace if t[0] == "decode")
+    missing = [k for k in expect if counts[k] == 0]
+    wrong = [k for k in forbid if counts[k] != 0]
+    if missing or wrong or ("fused_paged_decode_step" in expect
+                            and counts["fused_paged_decode_step"] != steps):
+        raise AssertionError(f"{what}: kernels not launched as expected "
+                             f"({steps} decode steps): {counts}")
+    ttft = sorted(r.ttft_s for r in res)
+    hits = eng.stats()["radix_hit_tokens"] - hits0
+    preempt = eng.scheduler.num_preempted - pre0
+    if shared and hits <= 0:
+        raise AssertionError(f"{what}: no radix hit")
+    prefills = sum(1 for t in eng.dispatch_trace if t[0] == "prefill")
+    log(f"{what}: {n} requests x prompt {prompt} -> {tokens} greedy tokens"
+        f"{', every 4th behind a shared prefix' if shared else ''}; warm "
+        f"wave {warm} requests {warm_s:.1f} s; measured wall {wall:.3f} s, "
+        f"{n * tokens / wall:.1f} output tok/s, {n / wall:.2f} requests/s, "
+        f"TTFT p50 {ttft[len(ttft) // 2] * 1e3:.1f} ms p90 "
+        f"{ttft[int(len(ttft) * 0.9)] * 1e3:.1f} ms; radix cache "
+        f"{type(eng.radix).__name__ if eng.radix else 'off'}, "
+        f"radix_hit_tokens {hits}, preemptions {preempt}; {prefills} "
+        f"prefill and "
+        f"{len(eng.dispatch_trace) - prefills} decode dispatches, {steps} "
+        f"decode steps; prefill dispatches {spent['prefill']:.3f} s, decode "
+        f"dispatches {spent['decode']:.3f} s, the rest (scheduling, prefill "
+        f"sampling) {wall - sum(spent.values()):.3f} s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def serving_runs(dev, params) -> dict:
+    """Phase 5, paged: the bench_serving7b configuration (K8 decode, K5
+    prefill), then the per-op routes at full width with fewer requests:
+    INT8 pools at block size 16 (K6) and bf16 pools (K7). Returns each
+    kernel's launches summed over the measured waves."""
+    from physics_llm_inference_tpu_torch.models.config import ModelConfig
+
+    cfg = ModelConfig(num_layers=32, **dict(WIDTHS, max_seq_len=1024))
+    small = dict(max_batch=64, block_size=16, max_blocks_per_request=64,
+                 num_blocks=64 * 64 + 16, decode_horizon=8,
+                 prefill_tokens_per_iter=2048)
+    runs = [
+        serve(dev, params, cfg, "paged engine, bench_serving7b configuration",
+              dict(max_batch=64, kv_dtype="int8", decode_horizon=8,
+                   enable_radix=True, prefill_tokens_per_iter=2048),
+              SERVE_REQUESTS, SERVE_PROMPT, SERVE_TOKENS,
+              expect=("fused_paged_decode_step", "flash_attention",
+                      "int8_matmul"),
+              forbid=("int8_paged_decode_attention",
+                      "paged_decode_attention"), shared=True, warm=64),
+        serve(dev, params, cfg, "paged engine, per-op route, INT8 pools, "
+              "BS=16", dict(small, kv_dtype="int8"), 64, 128, 16,
+              expect=("int8_paged_decode_attention", "flash_attention",
+                      "int8_matmul"), forbid=("fused_paged_decode_step",)),
+        serve(dev, params, cfg, "paged engine, per-op route, bf16 pools, "
+              "BS=16", dict(small, kv_dtype=None), 64, 128, 16,
+              expect=("paged_decode_attention", "flash_attention",
+                      "int8_matmul"),
+              forbid=("fused_paged_decode_step",
+                      "int8_paged_decode_attention")),
+    ]
+    return {k: sum(r[k] for r in runs) for k in KERNELS}
 
 
 def main() -> int:
@@ -594,12 +1066,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     slice_parity(dev, fused=False)
     slice_parity(dev, fused=True)
+    paged_slice_parity(dev)
     torch.cuda.empty_cache()
-    counts = full_runs(dev)
+    dense, params = full_runs(dev)
+    paged = serving_runs(dev, params)
+    counts = {k: dense[k] + paged[k] for k in KERNELS}
 
     rows = []
     for name, (err, ms, pms) in kernels.items():
-        _, src, replaces = KERNELS[name]
+        _, _, src, replaces = KERNELS[name]
         rows.append({"name": name, "route": "cuda", "source": f"{PKG}/{src}",
                      "replaces": replaces, "launches": counts[name],
                      "max_abs_err": err, "ms": ms, "plain_ms": pms})

@@ -3,7 +3,8 @@
 `params_from_jax` takes the JAX parameter pytree with numpy leaves (e.g.
 `jax.tree_util.tree_map(np.asarray, params)`) and returns the port's dict
 with the same keys and layouts. Quantized leaves are recognised by their
-`.q`/`.s` attributes, so this module never imports jax.
+`.q`/`.s` attributes, so this module never imports jax. `kv_from_jax`
+carries a slot KV cache, `paged_kv_from_jax` the paged engine's pools.
 """
 from __future__ import annotations
 
@@ -59,3 +60,14 @@ def kv_from_jax(cache, device="cpu") -> KVCache:
         return _tensor(part, device)
 
     return KVCache(k=conv(cache.k), v=conv(cache.v), length=int(cache.length))
+
+
+def paged_kv_from_jax(k_pools, v_pools=None, device="cpu"):
+    """The paged engine's pools (numpy leaves) -> the port's (k, v): the
+    merged QuantKV pools (L, NB+1, 2, BS, Hkv·hd) int8 and
+    (L, NB+1, 2, Hkv, BS) f32 with v None, or the plain
+    (L, NB+1, BS, Hkv, hd) K and V pools."""
+    if _is_quant(k_pools):
+        return QuantKV(_tensor(k_pools.q, device),
+                       _tensor(k_pools.s, device)), None
+    return _tensor(k_pools, device), _tensor(v_pools, device)

@@ -1,8 +1,18 @@
-// K4: the whole INT8 W+KV decode step for all layers, in one launch.
+// K4 and K8: the whole INT8 W+KV decode step for all layers, in one launch.
 //
-// Replaces the TPU kernel physics_llm_inference_tpu/kernels/fused_decode.py
-// (fused_decode_step -> _kernel) in its default configuration (K-blocked
-// weight tiles, silu per DOWN tile, bf16 activations). Per layer: RMSNorm,
+// K4 replaces the TPU kernel physics_llm_inference_tpu/kernels/
+// fused_decode.py (fused_decode_step -> _kernel) in its default configuration
+// (K-blocked weight tiles, silu per DOWN tile, bf16 activations). K8 replaces
+// fused_paged_decode_step -> _paged_kernel_r5 of the same file: the same
+// kernel with a paged address mode in the attention phase only (the
+// fused_decode_kernel<true> instance). Its KV lives in the merged INT8 block
+// pools (L, NB, 2, BS, Hkv*d) / (L, NB, 2, Hkv, BS) f32 reached through the
+// block table; request b attends its keys [0, lengths[b]) plus the current
+// token and, in place, writes the new codes and scales at position
+// lengths[b] of block tables[b, min(lengths[b] / BS, MB - 1)], after that
+// item's own reads. Of the TPU kernel's machinery (request groups, rotating
+// value rings, the layer-resident scale copy, DMA semaphores, 8-slot write
+// windows) nothing is needed here: a pool row is addressed directly. Per layer: RMSNorm,
 // QKV, RoPE, KV quantize and write, attention over the INT8 cache plus the
 // current token, WO, RMSNorm, gate/up, silu * up, down. The numerics are the
 // TPU kernel's: the residual stream stays f32 across all layers and is cast
@@ -22,9 +32,10 @@
 //   2. per (request, kv head): fixed-order sum of the partials, bf16, RoPE,
 //      quantize K/V into the new-KV buffers;
 //   3. per (request, kv head): attention over the cache slots
-//      [valid_from, q_slot) (kv_attn::attend_cache, shared with K2), merged
-//      with the current token, then the in-place cache write at `slot`
-//      after this item's own reads of that cache row;
+//      [valid_from, q_slot) (kv_attn::attend, shared with K2; K8: the
+//      request's pool blocks through the table), merged with the current
+//      token, then the in-place cache write at `slot` (K8: the request's
+//      own write position) after this item's own reads of that cache row;
 //   4. WO partials;  5. per request: x += sum * scale, then RMSNorm -> h;
 //   6. gate/up partials;  7. silu(gate) * up -> ff;
 //   8. DOWN partials;  9. per request: x += sum * scale, then the next
@@ -63,9 +74,12 @@ struct Params {
   const int8_t* wgu; const float* sgu;     // (L, D, 2F), (L, 2F)
   const int8_t* wdn; const float* sdn;     // (L, F, D), (L, D)
   int8_t* kq; float* ks;                   // (L, B, S, HKV*HD), (L, B, HKV, S)
-  int8_t* vq; float* vs;
+  int8_t* vq; float* vs;                   // K8: kq/ks are the merged pools
+                                           // (L, NB, 2, BS, HKV*HD) and
+                                           // (L, NB, 2, HKV, BS); vq/vs unused
+  const int* tables;                       // K8: (B, MB) block table
   const float* cos; const float* sin;      // (B, HD/2)
-  const int* q_slot; const int* valid_from;  // (B,)
+  const int* q_slot; const int* valid_from;  // (B,); K8: q_slot = lengths
   int8_t* k_new; float* ks_new;            // (L, B, HKV*HD), (L, B, HKV)
   int8_t* v_new; float* vs_new;
   __nv_bfloat16* x_out;                    // (B, D)
@@ -76,6 +90,7 @@ struct Params {
   __nv_bfloat16* ff;                       // (B, F)
   float* ws;                               // (splits, B, N) f32 partials
   int L, B, S, D, F, HQ, HKV, HD;
+  int NB, MB, BS;                          // K8: pool blocks, table width, block size
   int slot, write_cache;
   int split_qkv, split_wo, split_gu, split_dn;
   float eps, scale;
@@ -231,25 +246,63 @@ static __device__ void qkv_phase(const Params& p, int l, float* red, float* kv_s
 }
 
 // Per (request, kv head): attention over the cache slots [valid_from,
-// q_slot) merged with the current token, -> attn (bf16); then, with
-// write_cache, the new K/V land at `slot` of this cache row.
+// q_slot) (K8: the request's keys [0, lengths[b]) through its block table)
+// merged with the current token, -> attn (bf16); then, with write_cache,
+// the new K/V land at `slot` of this cache row (K8: at the request's own
+// write position).
+template <bool kPaged>
 static __device__ void attention_phase(const Params& p, int l, kv_attn::Smem& sm) {
   using kv_attn::GMAX;
-  const int HD = p.HD, group = p.HQ / p.HKV, S = p.S;
+  const int HD = p.HD, group = p.HQ / p.HKV;
   const int QH = p.HQ * HD, KH = p.HKV * HD;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   for (int it = blockIdx.x; it < p.B * p.HKV; it += gridDim.x) {
     const int b = it / p.HKV, g = it % p.HKV;
     const size_t lb = (size_t)l * p.B + b;
-    int8_t* kbase = p.kq + lb * S * KH + (size_t)g * HD;
-    int8_t* vbase = p.vq + lb * S * KH + (size_t)g * HD;
-    float* ksb = p.ks + (lb * p.HKV + g) * S;
-    float* vsb = p.vs + (lb * p.HKV + g) * S;
+    const __nv_bfloat16* qg = p.qbuf + (size_t)b * QH + (size_t)g * group * HD;
     float acc[GMAX];
-    kv_attn::attend_cache<true>(p.qbuf + (size_t)b * QH + (size_t)g * group * HD,
-                                kbase, vbase, ksb, vsb, KH,
-                                max(p.valid_from[b], 0), min(p.q_slot[b] - 1, S - 1),
-                                group, HD, p.scale, sm, acc);
+    bool write = false;
+    int8_t* kw = nullptr;   // this item's write position: K, V codes, scales
+    int8_t* vw = nullptr;
+    float* ksw = nullptr;
+    float* vsw = nullptr;
+    if constexpr (kPaged) {
+      const size_t page = (size_t)p.BS * KH, spage = (size_t)p.HKV * p.BS;
+      int8_t* kv = p.kq + (size_t)l * p.NB * 2 * page + (size_t)g * HD;
+      float* kvs = p.ks + (size_t)l * p.NB * 2 * spage + (size_t)g * p.BS;
+      const int* table = p.tables + (size_t)b * p.MB;
+      const kv_attn::PagedAddr addr{kv, kvs, table, p.BS, p.MB, (size_t)KH, page, spage};
+      const int len = p.q_slot[b];
+      kv_attn::attend<true>(qg, addr, 0, min(len, p.MB * p.BS) - 1, group, HD,
+                            p.scale, sm, acc);
+      if (p.write_cache) {
+        // a stale length past the table (a retired row inside a horizon)
+        // stays inside the request's own table row, as JAX clamps
+        const size_t blk = (size_t)__ldg(table + min(len / p.BS, p.MB - 1));
+        const int off = len % p.BS;
+        write = true;
+        kw = kv + blk * 2 * page + (size_t)off * KH;
+        vw = kw + page;
+        ksw = kvs + blk * 2 * spage + off;
+        vsw = ksw + spage;
+      }
+    } else {
+      const int S = p.S;
+      int8_t* kbase = p.kq + lb * S * KH + (size_t)g * HD;
+      int8_t* vbase = p.vq + lb * S * KH + (size_t)g * HD;
+      float* ksb = p.ks + (lb * p.HKV + g) * S;
+      float* vsb = p.vs + (lb * p.HKV + g) * S;
+      const kv_attn::SlotAddr addr{kbase, vbase, ksb, vsb, (size_t)KH};
+      kv_attn::attend<true>(qg, addr, max(p.valid_from[b], 0),
+                            min(p.q_slot[b] - 1, S - 1), group, HD, p.scale, sm, acc);
+      if (p.write_cache && p.slot >= 0 && p.slot < S) {
+        write = true;
+        kw = kbase + (size_t)p.slot * KH;
+        vw = vbase + (size_t)p.slot * KH;
+        ksw = ksb + p.slot;
+        vsw = vsb + p.slot;
+      }
+    }
 
     // the current token, dequantized from the int8 values the cache holds
     const int8_t* kn = p.k_new + lb * KH + (size_t)g * HD;
@@ -283,14 +336,14 @@ static __device__ void attention_phase(const Params& p, int l, kv_attn::Smem& sm
         }
       }
     }
-    if (p.write_cache && p.slot >= 0 && p.slot < S) {
+    if (write) {
       for (int c = tid; c < HD; c += THREADS) {
-        kbase[(size_t)p.slot * KH + c] = __ldcg(kn + c);
-        vbase[(size_t)p.slot * KH + c] = __ldcg(vn + c);
+        kw[c] = __ldcg(kn + c);
+        vw[c] = __ldcg(vn + c);
       }
       if (tid == 0) {
-        ksb[p.slot] = ksc;
-        vsb[p.slot] = vsc;
+        *ksw = ksc;
+        *vsw = vsc;
       }
     }
     __syncthreads();
@@ -311,6 +364,7 @@ static __device__ void silu_phase(const Params& p, int l) {
   }
 }
 
+template <bool kPaged>
 __global__ void __launch_bounds__(THREADS) fused_decode_kernel(Params p) {
   __shared__ __align__(128) unsigned char smem_raw[SMEM_BYTES];
   __shared__ float red[NWARPS];
@@ -328,7 +382,7 @@ __global__ void __launch_bounds__(THREADS) fused_decode_kernel(Params p) {
     grid.sync();
     qkv_phase(p, l, red, kv_sm);
     grid.sync();
-    attention_phase(p, l, att);
+    attention_phase<kPaged>(p, l, att);
     grid.sync();
     gemm_partials(p.attn, p.wo + (size_t)l * QH * D, p.ws, p.B, D, QH, p.split_wo, tile);
     grid.sync();
@@ -346,25 +400,74 @@ __global__ void __launch_bounds__(THREADS) fused_decode_kernel(Params p) {
   }
 }
 
+static const void* kernel_of(int paged) {
+  return paged ? reinterpret_cast<const void*>(&fused_decode_kernel<true>)
+               : reinterpret_cast<const void*>(&fused_decode_kernel<false>);
+}
+
+static int launch(Params& p, int paged, int grid, void* stream) {
+  void* args[] = {&p};
+  cudaError_t err = cudaLaunchCooperativeKernel(kernel_of(paged), dim3(grid),
+                                                dim3(THREADS), args, 0,
+                                                static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The weights, workspaces and outputs shared by K4 and K8.
+static void set_common(Params& p, const void* x0, const void* ln1, const void* ln2,
+                       const void* wqkv, const void* sqkv, const void* wo,
+                       const void* swo, const void* wgu, const void* sgu,
+                       const void* wdn, const void* sdn, const void* cos,
+                       const void* sin, void* k_new, void* ks_new, void* v_new,
+                       void* vs_new, void* x_out, void* xf, void* h, void* qbuf,
+                       void* attn, void* ff, void* ws) {
+  p.x0 = static_cast<const __nv_bfloat16*>(x0);
+  p.ln1 = static_cast<const __nv_bfloat16*>(ln1);
+  p.ln2 = static_cast<const __nv_bfloat16*>(ln2);
+  p.wqkv = static_cast<const int8_t*>(wqkv);
+  p.sqkv = static_cast<const float*>(sqkv);
+  p.wo = static_cast<const int8_t*>(wo);
+  p.swo = static_cast<const float*>(swo);
+  p.wgu = static_cast<const int8_t*>(wgu);
+  p.sgu = static_cast<const float*>(sgu);
+  p.wdn = static_cast<const int8_t*>(wdn);
+  p.sdn = static_cast<const float*>(sdn);
+  p.cos = static_cast<const float*>(cos);
+  p.sin = static_cast<const float*>(sin);
+  p.k_new = static_cast<int8_t*>(k_new);
+  p.ks_new = static_cast<float*>(ks_new);
+  p.v_new = static_cast<int8_t*>(v_new);
+  p.vs_new = static_cast<float*>(vs_new);
+  p.x_out = static_cast<__nv_bfloat16*>(x_out);
+  p.xf = static_cast<float*>(xf);
+  p.h = static_cast<__nv_bfloat16*>(h);
+  p.qbuf = static_cast<__nv_bfloat16*>(qbuf);
+  p.attn = static_cast<__nv_bfloat16*>(attn);
+  p.ff = static_cast<__nv_bfloat16*>(ff);
+  p.ws = static_cast<float*>(ws);
+}
+
 }  // namespace
 
-// The grid of one launch: SMs x resident blocks of the kernel (a cooperative
-// launch needs the whole grid resident). Returns cudaSuccess or the error.
-extern "C" int pli_fused_decode_grid(int* grid) {
+// The grid of one launch of K4 (paged = 0) or K8 (paged = 1): SMs x
+// resident blocks of the kernel (a cooperative launch needs the whole grid
+// resident). Returns cudaSuccess or the error.
+extern "C" int pli_fused_decode_grid(int paged, int* grid) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_decode_kernel,
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel_of(paged),
                                                         THREADS, 0);
   if (err == cudaSuccess && per_sm < 1) err = cudaErrorCooperativeLaunchTooLarge;
   *grid = sms * per_sm;
   return static_cast<int>(err);
 }
 
-// Every pointer is contiguous on one device in the layouts of Params; the
-// int8 cache rows and weight rows are 16-byte aligned, HD % 16 == 0,
+// K4. Every pointer is contiguous on one device in the layouts of Params;
+// the int8 cache rows and weight rows are 16-byte aligned, HD % 16 == 0,
 // HD <= 128, HQ / HKV <= 8 (checked by the Python wrapper). splits are the
 // k-splits of the four GEMM phases, ws holds max(split * B * N) floats.
 // `grid` comes from pli_fused_decode_grid. Returns the launch's error code.
@@ -380,46 +483,55 @@ extern "C" int pli_fused_decode_step(
     int split_gu, int split_dn, float eps, float scale, int grid,
     void* stream) {
   Params p;
-  p.x0 = static_cast<const __nv_bfloat16*>(x0);
-  p.ln1 = static_cast<const __nv_bfloat16*>(ln1);
-  p.ln2 = static_cast<const __nv_bfloat16*>(ln2);
-  p.wqkv = static_cast<const int8_t*>(wqkv);
-  p.sqkv = static_cast<const float*>(sqkv);
-  p.wo = static_cast<const int8_t*>(wo);
-  p.swo = static_cast<const float*>(swo);
-  p.wgu = static_cast<const int8_t*>(wgu);
-  p.sgu = static_cast<const float*>(sgu);
-  p.wdn = static_cast<const int8_t*>(wdn);
-  p.sdn = static_cast<const float*>(sdn);
+  set_common(p, x0, ln1, ln2, wqkv, sqkv, wo, swo, wgu, sgu, wdn, sdn, cos, sin,
+             k_new, ks_new, v_new, vs_new, x_out, xf, h, qbuf, attn, ff, ws);
   p.kq = static_cast<int8_t*>(kq);
   p.ks = static_cast<float*>(ks);
   p.vq = static_cast<int8_t*>(vq);
   p.vs = static_cast<float*>(vs);
-  p.cos = static_cast<const float*>(cos);
-  p.sin = static_cast<const float*>(sin);
+  p.tables = nullptr;
   p.q_slot = static_cast<const int*>(q_slot);
   p.valid_from = static_cast<const int*>(valid_from);
-  p.k_new = static_cast<int8_t*>(k_new);
-  p.ks_new = static_cast<float*>(ks_new);
-  p.v_new = static_cast<int8_t*>(v_new);
-  p.vs_new = static_cast<float*>(vs_new);
-  p.x_out = static_cast<__nv_bfloat16*>(x_out);
-  p.xf = static_cast<float*>(xf);
-  p.h = static_cast<__nv_bfloat16*>(h);
-  p.qbuf = static_cast<__nv_bfloat16*>(qbuf);
-  p.attn = static_cast<__nv_bfloat16*>(attn);
-  p.ff = static_cast<__nv_bfloat16*>(ff);
-  p.ws = static_cast<float*>(ws);
   p.L = L; p.B = B; p.S = S; p.D = D; p.F = F;
   p.HQ = HQ; p.HKV = HKV; p.HD = HD;
+  p.NB = 0; p.MB = 0; p.BS = 0;
   p.slot = slot; p.write_cache = write_cache;
   p.split_qkv = split_qkv; p.split_wo = split_wo;
   p.split_gu = split_gu; p.split_dn = split_dn;
   p.eps = eps; p.scale = scale;
-  void* args[] = {&p};
-  cudaError_t err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(fused_decode_kernel), dim3(grid), dim3(THREADS),
-      args, 0, static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return launch(p, 0, grid, stream);
+}
+
+// K8. As K4, with the merged pools kv (L, NB, 2, BS, HKV*HD) int8 and kvs
+// (L, NB, 2, HKV, BS) f32, lengths (B,) >= 0 and tables (B, MB) int32 whose
+// entries are < NB; the pool rows are 16-byte aligned (HD % 16 == 0).
+// inplace writes the new K/V into the pools. Returns the launch's error.
+extern "C" int pli_fused_paged_decode_step(
+    const void* x0, const void* ln1, const void* ln2, const void* wqkv,
+    const void* sqkv, const void* wo, const void* swo, const void* wgu,
+    const void* sgu, const void* wdn, const void* sdn, void* kv, void* kvs,
+    const void* cos, const void* sin, const void* lengths, const void* tables,
+    void* k_new, void* ks_new, void* v_new, void* vs_new, void* x_out,
+    void* xf, void* h, void* qbuf, void* attn, void* ff, void* ws, int L,
+    int B, int NB, int MB, int BS, int D, int F, int HQ, int HKV, int HD,
+    int inplace, int split_qkv, int split_wo, int split_gu, int split_dn,
+    float eps, float scale, int grid, void* stream) {
+  Params p;
+  set_common(p, x0, ln1, ln2, wqkv, sqkv, wo, swo, wgu, sgu, wdn, sdn, cos, sin,
+             k_new, ks_new, v_new, vs_new, x_out, xf, h, qbuf, attn, ff, ws);
+  p.kq = static_cast<int8_t*>(kv);
+  p.ks = static_cast<float*>(kvs);
+  p.vq = nullptr;
+  p.vs = nullptr;
+  p.tables = static_cast<const int*>(tables);
+  p.q_slot = static_cast<const int*>(lengths);
+  p.valid_from = nullptr;
+  p.L = L; p.B = B; p.S = 0; p.D = D; p.F = F;
+  p.HQ = HQ; p.HKV = HKV; p.HD = HD;
+  p.NB = NB; p.MB = MB; p.BS = BS;
+  p.slot = -1; p.write_cache = inplace;
+  p.split_qkv = split_qkv; p.split_wo = split_wo;
+  p.split_gu = split_gu; p.split_dn = split_dn;
+  p.eps = eps; p.scale = scale;
+  return launch(p, 1, grid, stream);
 }

@@ -12,8 +12,8 @@
 // and feeds 2 flop per query row of its group). One block per (kv head,
 // request) walks the cache only over [valid_from, q_slot] -- the Hopper form
 // of the TPU kernel's clamped index map: masked tiles are never read at all.
-// The loop itself is kv_attn::attend_cache (int8_kv_attention.cuh), which
-// the fused decode kernel shares.
+// The loop itself is kv_attn::attend (int8_kv_attention.cuh), which the
+// fused decode kernels and the paged kernel share.
 
 #include <cuda_runtime.h>
 
@@ -39,12 +39,13 @@ int8_kv_decode_attention_kernel(
   const size_t row = (size_t)Hkv * d;             // bytes between keys
   const size_t qrow = ((size_t)b * Hq + (size_t)h * group) * d;
 
+  const kv_attn::SlotAddr addr{kq + (size_t)b * S * row + (size_t)h * d,
+                               vq + (size_t)b * S * row + (size_t)h * d,
+                               ks + ((size_t)b * Hkv + h) * S,
+                               vs + ((size_t)b * Hkv + h) * S, row};
   float acc[GMAX];
-  kv_attn::attend_cache<false>(
-      q + qrow, kq + (size_t)b * S * row + (size_t)h * d,
-      vq + (size_t)b * S * row + (size_t)h * d, ks + ((size_t)b * Hkv + h) * S,
-      vs + ((size_t)b * Hkv + h) * S, row, max(valid_from[b], 0),
-      min(q_slot[b], S - 1), group, d, scale, sm, acc);
+  kv_attn::attend<false>(q + qrow, addr, max(valid_from[b], 0),
+                         min(q_slot[b], S - 1), group, d, scale, sm, acc);
 
   if (tid < d) {
 #pragma unroll

@@ -1,13 +1,16 @@
-// The attention loop over the INT8 KV cache for one (request, kv head).
+// The attention loop over an INT8 KV cache for one (request, kv head).
 //
-// Shared by int8_kv_attention.cu (K2) and fused_decode.cu (K4). One block of
-// THREADS threads loads its `group` query rows once and walks the cache in
-// tiles of TILE keys over [k_first, k_last] only: masked slots are never
-// read. Each tile is staged into shared memory with 16-byte loads (one key
-// row of one head is d contiguous bytes), scores are one thread per key,
-// P@V is one thread per output dimension. K and V stay bare int8: the
-// k-scale multiplies the score row and the v-scale the probability row. The
-// softmax is an f32 online softmax.
+// Shared by int8_kv_attention.cu (K2), fused_decode.cu (K4 and K8) and
+// paged_attention.cu (K6). One block of THREADS threads loads its `group`
+// query rows once and walks the live keys [k_first, k_last] in tiles of TILE
+// keys: masked keys are never read. Where key j lives is the addressor's
+// business: SlotAddr for a slot cache row (K2, K4), PagedAddr for a block
+// pool reached through a block table (K6, K8), so a tile may span several
+// blocks. Each tile is staged into shared memory with 16-byte loads (one key
+// row of one head is d contiguous bytes), scores are one thread per key, P@V
+// is one thread per output dimension. K and V stay bare int8: the k-scale
+// multiplies the score row and the v-scale the probability row. The softmax
+// is an f32 online softmax.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -43,20 +46,63 @@ static __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
-// q: the group's `group` query rows (group * d bf16, contiguous). kbase/vbase
-// point at slot 0 of this head's cache row, `row` bytes between slots;
-// ksb/vsb at slot 0 of this head's scales. On return (all threads past a
+// Key j of a slot cache row: kbase/vbase point at slot 0 of this head's
+// cache row, `row` bytes between slots; ksb/vsb at slot 0 of its scales.
+struct SlotAddr {
+  const int8_t* kbase;
+  const int8_t* vbase;
+  const float* ksb;
+  const float* vsb;
+  size_t row;
+  __device__ __forceinline__ const int8_t* k(int j) const { return kbase + (size_t)j * row; }
+  __device__ __forceinline__ const int8_t* v(int j) const { return vbase + (size_t)j * row; }
+  __device__ __forceinline__ float ks(int j) const { return ksb[j]; }
+  __device__ __forceinline__ float vs(int j) const { return vsb[j]; }
+};
+
+// Key j of one request in the merged paged pools of one layer: values
+// (NB, 2, BS, Hkv*d) int8 with K at page 0 and V at page 1 of each block,
+// scales (NB, 2, Hkv, BS) f32. kv points at block 0, page 0, position 0,
+// column g*d of this head; kvs at block 0, page 0, head g, position 0.
+// table is the request's row of the block table (MB entries, written by
+// the host and only read here, hence __ldg); the column is clamped to MB-1
+// as JAX clamps an out-of-range gather.
+struct PagedAddr {
+  const int8_t* kv;
+  const float* kvs;
+  const int* table;
+  int bs, mb;
+  size_t row;        // bytes between positions of a page (Hkv * d)
+  size_t page;       // bytes of one page (BS * row)
+  size_t spage;      // floats of one scale page (Hkv * BS)
+  __device__ __forceinline__ size_t blk(int j) const {
+    return (size_t)__ldg(table + min(j / bs, mb - 1));
+  }
+  __device__ __forceinline__ const int8_t* k(int j) const {
+    return kv + blk(j) * 2 * page + (size_t)(j % bs) * row;
+  }
+  __device__ __forceinline__ const int8_t* v(int j) const {
+    return kv + (blk(j) * 2 + 1) * page + (size_t)(j % bs) * row;
+  }
+  __device__ __forceinline__ float ks(int j) const {
+    return kvs[blk(j) * 2 * spage + j % bs];
+  }
+  __device__ __forceinline__ float vs(int j) const {
+    return kvs[(blk(j) * 2 + 1) * spage + j % bs];
+  }
+};
+
+// q: the group's `group` query rows (group * d bf16, contiguous); `a` the
+// addressor of this (request, kv head)'s keys. On return (all threads past a
 // __syncthreads) sm.q holds the query rows in f32, sm.m / sm.l each row's
 // running max and denominator (m = -inf, l = 0 when no slot is live), and
 // acc[r] of thread tid < d the unnormalised output of row r, dimension tid.
 // kRoundP rounds p * v_scale to bf16 before P@V (the fused kernel's
 // numerics); otherwise it stays f32.
-template <bool kRoundP>
-static __device__ void attend_cache(
-    const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ kbase,
-    const int8_t* __restrict__ vbase, const float* __restrict__ ksb,
-    const float* __restrict__ vsb, size_t row, int k_first, int k_last,
-    int group, int d, float scale, Smem& sm, float (&acc)[GMAX]) {
+template <bool kRoundP, class Addr>
+static __device__ void attend(const __nv_bfloat16* __restrict__ q, const Addr& a,
+                              int k_first, int k_last, int group, int d,
+                              float scale, Smem& sm, float (&acc)[GMAX]) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   for (int i = tid; i < group * d; i += THREADS) sm.q[i / d][i % d] = ldcg_bf16(q + i);
   if (tid < GMAX) {
@@ -72,15 +118,14 @@ static __device__ void attend_cache(
     const int n = min(TILE, k_last - j0 + 1);
     for (int c = tid; c < n * cpk; c += THREADS) {
       const int key = c / cpk, part = c % cpk;
-      const size_t off = (size_t)(j0 + key) * row + part * 16;
       *reinterpret_cast<uint4*>(&sm.k[key * KLD + part * 16]) =
-          *reinterpret_cast<const uint4*>(kbase + off);
+          *reinterpret_cast<const uint4*>(a.k(j0 + key) + part * 16);
       *reinterpret_cast<uint4*>(&sm.v[key * KLD + part * 16]) =
-          *reinterpret_cast<const uint4*>(vbase + off);
+          *reinterpret_cast<const uint4*>(a.v(j0 + key) + part * 16);
     }
     for (int t = tid; t < n; t += THREADS) {
-      sm.ks[t] = ksb[j0 + t];
-      sm.vs[t] = vsb[j0 + t];
+      sm.ks[t] = a.ks(j0 + t);
+      sm.vs[t] = a.vs(j0 + t);
     }
     __syncthreads();
 

@@ -45,13 +45,22 @@ SIGNATURES = {
     # causal, the (b, h, s) element strides of q, k and v, scale * log2(e),
     # stream
     "pli_flash_attention": [_P] * 6 + [_I] * 8 + [_L] * 9 + [_F, _P],
-    # out: blocks of one cooperative launch
-    "pli_fused_decode_grid": [_P],
+    # paged (0: K4, 1: K8), out: blocks of one cooperative launch
+    "pli_fused_decode_grid": [_I, _P],
     # x0, ln1, ln2, wqkv, sqkv, wo, swo, wgu, sgu, wdn, sdn, k_q, k_s, v_q,
     # v_s, cos, sin, q_slot, valid_from, k_new, ks_new, v_new, vs_new, x_out,
     # then the workspaces xf, h, qbuf, attn, ff, ws; L, B, S, D, F, Hq, Hkv,
     # hd, slot, write_cache, the four k-splits; eps, scale; grid, stream
     "pli_fused_decode_step": [_P] * 30 + [_I] * 14 + [_F, _F, _I, _P],
+    # x0, ln1, ln2, wqkv, sqkv, wo, swo, wgu, sgu, wdn, sdn, kv, kvs, cos,
+    # sin, lengths, tables, k_new, ks_new, v_new, vs_new, x_out, then the
+    # workspaces xf, h, qbuf, attn, ff, ws; L, B, NB, MB, BS, D, F, Hq, Hkv,
+    # hd, inplace, the four k-splits; eps, scale; grid, stream
+    "pli_fused_paged_decode_step": [_P] * 28 + [_I] * 15 + [_F, _F, _I, _P],
+    # q, kv (k), kvs (v), tables, lens, out, B, MB, BS, Hq, Hkv, d, scale,
+    # stream
+    "pli_int8_paged_decode_attention": [_P] * 6 + [_I] * 6 + [_F, _P],
+    "pli_paged_decode_attention": [_P] * 6 + [_I] * 6 + [_F, _P],
 }
 
 _lock = threading.Lock()

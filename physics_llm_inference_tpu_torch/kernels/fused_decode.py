@@ -1,4 +1,4 @@
-"""K4: the whole INT8 W+KV decode step, all layers, in one launch.
+"""K4 and K8: the whole INT8 W+KV decode step, all layers, in one launch.
 
 Replaces the TPU kernel `physics_llm_inference_tpu/kernels/fused_decode.py`
 `fused_decode_step` (`_kernel`, `_fused_decode_step`) in its default
@@ -20,6 +20,14 @@ against the per-op path: the two differ at bf16 near-ties.
 
 `fused_decode_step` is the entry point: a CPU tensor goes to
 `fused_decode_step_plain`; a CUDA tensor goes to the kernel or raises.
+
+K8 `fused_paged_decode_step` replaces the TPU kernel
+`fused_paged_decode_step` (`_paged_kernel_r5`) of the same file: the same
+CUDA kernel in its paged address mode, over the merged INT8 block pools
+(kernels/paged_attention.py), with the new K/V written into the pools in
+place. Its attention math is the slot kernel's, so its plain twin gathers
+each request's blocks into a slot view and runs `fused_decode_step_plain`.
+`fused_paged_decode_ok` is the reference's gate without its VMEM budget.
 """
 from __future__ import annotations
 
@@ -32,13 +40,15 @@ import torch.nn.functional as F
 from ..ops.norms import rms_norm
 from . import _build
 from .int8_matmul import int8_matmul_plain
+from .paged_attention import write_position
 
-launches = 0  # kernel launches made by fused_decode_step
+launches = 0        # kernel launches made by fused_decode_step
+paged_launches = 0  # kernel launches made by fused_paged_decode_step
 
 _NEG_INF = -1e30
 _BM = _BN = _BK = 64    # the W8A16 tile
 _DMAX, _GMAX = 128, 8   # the attention loop's head_dim and group limits
-_grid: dict[int, int] = {}          # device index -> blocks of one launch
+_grid: dict[tuple, int] = {}  # (device index, paged) -> blocks of one launch
 _workspaces: dict[tuple, dict] = {}  # (device, shapes) -> scratch tensors
 
 
@@ -150,16 +160,16 @@ def _splits(m: int, n: int, k: int, grid: int) -> int:
     return -(-k_tiles // per)
 
 
-def _launch_grid(device: torch.device) -> int:
+def _launch_grid(device: torch.device, paged: bool = False) -> int:
     idx = device.index if device.index is not None \
         else torch.cuda.current_device()
-    if idx not in _grid:
+    if (idx, paged) not in _grid:
         n = ctypes.c_int(0)
         with torch.cuda.device(idx):
-            _build.check(_build.lib().pli_fused_decode_grid(ctypes.byref(n)),
-                         "fused_decode_step (occupancy)")
-        _grid[idx] = n.value
-    return _grid[idx]
+            _build.check(_build.lib().pli_fused_decode_grid(
+                int(paged), ctypes.byref(n)), "fused decode (occupancy)")
+        _grid[idx, paged] = n.value
+    return _grid[idx, paged]
 
 
 def _workspace(device, L, B, D, F_, QH, KH, HKV, ws_floats) -> dict:
@@ -176,6 +186,66 @@ def _workspace(device, L, B, D, F_, QH, KH, HKV, ws_floats) -> dict:
             v_new=e(L, B, KH, dtype=torch.int8),
             vs_new=e(L, B, HKV, dtype=torch.float32))
     return _workspaces[key]
+
+
+def _weights(blocks, x, L: int, cfg, name: str):
+    """Check the stacked INT8 block weights, activations and norms the
+    kernel takes; returns (wqkv, wo, w_gate_up, w_down)."""
+    D = x.shape[1]
+    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    F_, QH = cfg.intermediate_dim, hq * hd
+    QO = QH + 2 * hkv * hd
+    want = {"wqkv": (L, D, QO), "wo": (L, QH, D), "w_gate_up": (L, D, 2 * F_),
+            "w_down": (L, F_, D)}
+    for n, shape in want.items():
+        w = blocks[n]
+        if tuple(w.q.shape) != shape or tuple(w.s.shape) != (L, 1, shape[2]):
+            raise ValueError(f"{name}: {n} is {tuple(w.q.shape)}, expected "
+                             f"{shape}")
+        if w.q.dtype != torch.int8 or w.s.dtype != torch.float32:
+            raise TypeError(f"{name} takes int8 weights, f32 scales")
+    if hd % 16 or hd > _DMAX or hq % hkv or hq // hkv > _GMAX:
+        raise ValueError(f"kernel takes head_dim % 16 == 0, <= {_DMAX} and "
+                         f"<= {_GMAX} query heads per kv head")
+    if x.dtype != torch.bfloat16 or blocks["ln1"].dtype != torch.bfloat16 \
+            or blocks["ln2"].dtype != torch.bfloat16:
+        raise TypeError(f"{name} on CUDA takes bf16 activations and norm "
+                        "weights")
+    ws = tuple(blocks[n] for n in want)
+    for t in (x, blocks["ln1"], blocks["ln2"], *(w.q for w in ws),
+              *(w.s for w in ws)):
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError("kernel needs contiguous tensors on one device")
+    if any(w.q.data_ptr() % 16 for w in ws):
+        raise ValueError("int8 weights must be 16-byte aligned")
+    return ws
+
+
+def _scratch(x, L: int, cfg, paged: bool):
+    """(grid, k-splits, workspace) of one launch."""
+    B, D = x.shape
+    hkv, hd = cfg.num_kv_heads, cfg.head_dim
+    F_, QH = cfg.intermediate_dim, cfg.num_heads * hd
+    QO = QH + 2 * hkv * hd
+    grid = _launch_grid(x.device, paged)
+    splits = (_splits(B, QO, D, grid), _splits(B, D, QH, grid),
+              _splits(B, 2 * F_, D, grid), _splits(B, D, F_, grid))
+    ws_floats = B * max(splits[0] * QO, splits[1] * D, splits[2] * 2 * F_,
+                        splits[3] * D)
+    return grid, splits, _workspace(x.device, L, B, D, F_, QH, hkv * hd, hkv,
+                                    ws_floats)
+
+
+def _new_kv(L: int, B: int, KH: int, hkv: int, device):
+    """Fresh (k_new, ks, v_new, vs) buffers of one launch."""
+    return (torch.empty((L, B, KH), dtype=torch.int8, device=device),
+            torch.empty((L, B, hkv), dtype=torch.float32, device=device),
+            torch.empty((L, B, KH), dtype=torch.int8, device=device),
+            torch.empty((L, B, hkv), dtype=torch.float32, device=device))
+
+
+def _stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
 
 
 def fused_decode_step(blocks, x, k_q, k_s, v_q, v_s, q_slot, valid_from,
@@ -203,31 +273,14 @@ def fused_decode_step(blocks, x, k_q, k_s, v_q, v_s, q_slot, valid_from,
     B, D = x.shape
     L, _, S, KH = k_q.shape
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    F_, QH = cfg.intermediate_dim, hq * hd
-    QO = QH + 2 * hkv * hd
-    wqkv, wo = blocks["wqkv"], blocks["wo"]
-    wgu, wdn = blocks["w_gate_up"], blocks["w_down"]
-    want = {"wqkv": (wqkv, (L, D, QO)), "wo": (wo, (L, QH, D)),
-            "w_gate_up": (wgu, (L, D, 2 * F_)), "w_down": (wdn, (L, F_, D))}
-    for name, (w, shape) in want.items():
-        if tuple(w.q.shape) != shape or tuple(w.s.shape) != (L, 1, shape[2]):
-            raise ValueError(f"fused_decode_step: {name} is {tuple(w.q.shape)}"
-                             f", expected {shape}")
-        if w.q.dtype != torch.int8 or w.s.dtype != torch.float32:
-            raise TypeError("fused_decode_step takes int8 weights, f32 scales")
+    F_ = cfg.intermediate_dim
+    wqkv, wo, wgu, wdn = _weights(blocks, x, L, cfg, "fused_decode_step")
     if (KH != hkv * hd or k_s.shape != (L, B, hkv, S) or v_q.shape != k_q.shape
             or v_s.shape != k_s.shape or k_q.shape[1] != B
             or rope_cos_g.shape != (B, hd // 2)
             or rope_sin_g.shape != (B, hd // 2)):
         raise ValueError("fused_decode_step: inconsistent cache or rope "
                          "shapes")
-    if hd % 16 or hd > _DMAX or hq % hkv or hq // hkv > _GMAX:
-        raise ValueError(f"kernel takes head_dim % 16 == 0, <= {_DMAX} and "
-                         f"<= {_GMAX} query heads per kv head")
-    if x.dtype != torch.bfloat16 or blocks["ln1"].dtype != torch.bfloat16 \
-            or blocks["ln2"].dtype != torch.bfloat16:
-        raise TypeError("fused_decode_step on CUDA takes bf16 activations "
-                        "and norm weights")
     if k_q.dtype != torch.int8 or v_q.dtype != torch.int8 \
             or k_s.dtype != torch.float32 or v_s.dtype != torch.float32:
         raise TypeError("fused_decode_step takes the INT8 cache, f32 scales")
@@ -236,28 +289,18 @@ def fused_decode_step(blocks, x, k_q, k_s, v_q, v_s, q_slot, valid_from,
              else valid_from.reshape(B).to(torch.int32).contiguous())
     cos = rope_cos_g.float().contiguous()
     sin = rope_sin_g.float().contiguous()
-    wide = (k_q, v_q, *(w.q for w, _ in want.values()))  # read 16 B a load
-    for t in (x, blocks["ln1"], blocks["ln2"], k_s, v_s, cos, sin, qslot,
-              vfrom, *wide, *(w.s for w, _ in want.values())):
+    for t in (k_q, k_s, v_q, v_s, cos, sin, qslot, vfrom):
         if t.device != x.device or not t.is_contiguous():
             raise ValueError("kernel needs contiguous tensors on one device")
-    if any(t.data_ptr() % 16 for t in wide):
-        raise ValueError("int8 weights and cache must be 16-byte aligned")
+    if k_q.data_ptr() % 16 or v_q.data_ptr() % 16:
+        raise ValueError("the int8 cache must be 16-byte aligned")
 
-    grid = _launch_grid(x.device)
-    splits = (_splits(B, QO, D, grid), _splits(B, D, QH, grid),
-              _splits(B, 2 * F_, D, grid), _splits(B, D, F_, grid))
-    ws_floats = B * max(splits[0] * QO, splits[1] * D, splits[2] * 2 * F_,
-                        splits[3] * D)
-    w = _workspace(x.device, L, B, D, F_, QH, KH, hkv, ws_floats)
+    grid, splits, w = _scratch(x, L, cfg, paged=False)
     if write_cache:
         new = (w["k_new"], w["ks_new"], w["v_new"], w["vs_new"])
         slot = int(slot)
     else:
-        new = (torch.empty((L, B, KH), dtype=torch.int8, device=x.device),
-               torch.empty((L, B, hkv), dtype=torch.float32, device=x.device),
-               torch.empty((L, B, KH), dtype=torch.int8, device=x.device),
-               torch.empty((L, B, hkv), dtype=torch.float32, device=x.device))
+        new = _new_kv(L, B, KH, hkv, x.device)
         slot = -1
     x_out = torch.empty_like(x)
     ptr = [t.data_ptr() for t in (
@@ -266,10 +309,133 @@ def fused_decode_step(blocks, x, k_q, k_s, v_q, v_s, q_slot, valid_from,
         x_out, w["xf"], w["h"], w["qbuf"], w["attn"], w["ff"], w["ws"])]
     err = _build.lib().pli_fused_decode_step(
         *ptr, L, B, S, D, F_, hq, hkv, hd, slot, int(write_cache), *splits,
-        cfg.norm_eps, 1.0 / math.sqrt(hd), grid,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        cfg.norm_eps, 1.0 / math.sqrt(hd), grid, _stream(x))
     _build.check(err, "fused_decode_step")
     launches += 1
     if write_cache:
         return x_out, k_q, k_s, v_q, v_s
+    return (x_out, *new)
+
+
+def fused_paged_decode_ok(cfg, B: int, MB: int, BS: int,
+                          NB: int | None = None) -> bool:
+    """The JAX package's gate for its fused paged kernel (fused_decode.py:
+    968-987 with `_paged_rbp`): dense FFN, no activation quantization,
+    head_dim and hidden_dim multiples of 128, block size a multiple of 128,
+    batch a multiple of 8. Its VMEM ring budget (`_paged_ring_slots`) is TPU
+    machinery and is dropped, so MB and NB do not limit the gate."""
+    if cfg.num_experts > 0 or cfg.act_quant != "none":
+        return False
+    if cfg.head_dim % 128 or cfg.hidden_dim % 128:
+        return False
+    return BS % 128 == 0 and B % 8 == 0
+
+
+def _gather_pages(kv_pool, kvs_pool, tables, page: int):
+    """Each request's blocks of one page (0: K, 1: V) as a slot cache:
+    values (L, B, MB·BS, Hkv·hd), scales (L, B, Hkv, MB·BS)."""
+    L, _, _, BS, flat = kv_pool.shape
+    B, MB = tables.shape
+    t = tables.long()
+    q = kv_pool.select(2, page)[:, t].reshape(L, B, MB * BS, flat)
+    s = kvs_pool.select(2, page)[:, t]                  # (L, B, MB, Hkv, BS)
+    s = s.transpose(2, 3).reshape(L, B, s.shape[3], MB * BS)
+    return q, s
+
+
+def _paged_scatter(kv_pool, kvs_pool, tables, lengths, new):
+    """Write each layer's new K/V codes (L, B, Hkv·hd) and scales (L, B, Hkv)
+    at every request's write position, in place."""
+    k_new, ks, v_new, vs = new
+    blk, off = write_position(tables, lengths, kv_pool.shape[3])
+    for l in range(kv_pool.shape[0]):
+        kv_pool[l, blk, 0, off] = k_new[l]
+        kv_pool[l, blk, 1, off] = v_new[l]
+        # advanced indices around a slice put their axis first: (B, Hkv)
+        kvs_pool[l, blk, 0, :, off] = ks[l]
+        kvs_pool[l, blk, 1, :, off] = vs[l]
+
+
+def fused_paged_decode_step_plain(blocks, x, kv_pool, kvs_pool, tables,
+                                  lengths, rope_cos_g, rope_sin_g, cfg,
+                                  inplace: bool = False):
+    """Plain torch: every request's blocks gathered into a slot view, then
+    `fused_decode_step_plain` with q_slot = lengths (cut at MB·BS) and
+    valid_from = 0, then, with inplace, the codes scattered into the pools.
+    Arguments and results as `fused_paged_decode_step`."""
+    B, MB = tables.shape
+    lens = lengths.reshape(B).long()
+    k_q, k_s = _gather_pages(kv_pool, kvs_pool, tables, 0)
+    v_q, v_s = _gather_pages(kv_pool, kvs_pool, tables, 1)
+    x_out, *new = fused_decode_step_plain(
+        blocks, x, k_q, k_s, v_q, v_s, lens.clamp(max=MB * kv_pool.shape[3]),
+        None, rope_cos_g, rope_sin_g, cfg)
+    if not inplace:
+        return (x_out, *new)
+    _paged_scatter(kv_pool, kvs_pool, tables, lens, new)
+    return (x_out, *new, kv_pool, kvs_pool)
+
+
+def fused_paged_decode_step(blocks, x, kv_pool, kvs_pool, tables, lengths,
+                            rope_cos_g, rope_sin_g, cfg,
+                            inplace: bool = False):
+    """One decode step over all layers, KV in the merged paged INT8 pools.
+
+    blocks, x, rope_cos_g, rope_sin_g: as `fused_decode_step`. kv_pool:
+    (L, NB, 2, BS, Hkv·hd) int8, each block's K page at index 0 and V page
+    at index 1 of axis 2; kvs_pool: (L, NB, 2, Hkv, BS) f32. tables:
+    (B, MB) block ids < NB; lengths: (B,) >= 0 tokens already cached; the
+    new token lands at position lengths[b], in block
+    tables[b, min(lengths[b] // BS, MB - 1)].
+
+    Returns (x_out, k_new (L, B, Hkv·hd) int8, ks (L, B, Hkv) f32, v_new,
+    vs); with inplace=True the new K/V are also written into the pools IN
+    PLACE and (…, kv_pool, kvs_pool) appended, as the JAX kernel returns its
+    aliased pools. Which of several writes to one block position lands (the
+    trash block that inactive rows share) is unspecified."""
+    global paged_launches
+    if not x.is_cuda:
+        return fused_paged_decode_step_plain(blocks, x, kv_pool, kvs_pool,
+                                             tables, lengths, rope_cos_g,
+                                             rope_sin_g, cfg, inplace)
+    B, D = x.shape
+    L, NB, two, BS, KH = kv_pool.shape
+    MB = tables.shape[1]
+    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    F_ = cfg.intermediate_dim
+    wqkv, wo, wgu, wdn = _weights(blocks, x, L, cfg,
+                                  "fused_paged_decode_step")
+    if (two != 2 or KH != hkv * hd
+            or tuple(kvs_pool.shape) != (L, NB, 2, hkv, BS)
+            or tables.shape[0] != B or rope_cos_g.shape != (B, hd // 2)
+            or rope_sin_g.shape != (B, hd // 2)):
+        raise ValueError("fused_paged_decode_step: inconsistent pool, table "
+                         "or rope shapes")
+    if kv_pool.dtype != torch.int8 or kvs_pool.dtype != torch.float32:
+        raise TypeError("fused_paged_decode_step takes int8 pools, f32 "
+                        "scales")
+    lens = lengths.reshape(B).to(torch.int32).contiguous()
+    tbl = tables.to(torch.int32).contiguous()
+    cos = rope_cos_g.float().contiguous()
+    sin = rope_sin_g.float().contiguous()
+    for t in (kv_pool, kvs_pool, lens, tbl, cos, sin):
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError("kernel needs contiguous tensors on one device")
+    if kv_pool.data_ptr() % 16:
+        raise ValueError("the int8 pools must be 16-byte aligned")
+
+    grid, splits, w = _scratch(x, L, cfg, paged=True)
+    new = _new_kv(L, B, KH, hkv, x.device)
+    x_out = torch.empty_like(x)
+    ptr = [t.data_ptr() for t in (
+        x, blocks["ln1"], blocks["ln2"], wqkv.q, wqkv.s, wo.q, wo.s, wgu.q,
+        wgu.s, wdn.q, wdn.s, kv_pool, kvs_pool, cos, sin, lens, tbl, *new,
+        x_out, w["xf"], w["h"], w["qbuf"], w["attn"], w["ff"], w["ws"])]
+    err = _build.lib().pli_fused_paged_decode_step(
+        *ptr, L, B, NB, MB, BS, D, F_, hq, hkv, hd, int(inplace), *splits,
+        cfg.norm_eps, 1.0 / math.sqrt(hd), grid, _stream(x))
+    _build.check(err, "fused_paged_decode_step")
+    paged_launches += 1
+    if inplace:
+        return (x_out, *new, kv_pool, kvs_pool)
     return (x_out, *new)

@@ -229,3 +229,137 @@ def test_prefill_linear_is_exact_in_f32(dev):
     assert got.dtype == torch.float32
     assert _row_rel(got.double(), ref) < 1e-5
     assert _row_rel((x @ w.dequantize(torch.bfloat16)).double(), ref) > 1e-5
+
+
+def _paged_tables(g, dev, B, MB, NB, lens, bs, trash):
+    """Scattered tables: each request's live blocks from a permutation of
+    the pool, dead columns and inactive rows (length < 0 here) at trash."""
+    perm = torch.randperm(NB - 1, generator=g, device=dev)
+    perm = perm[perm != trash][:B * MB].reshape(B, MB).to(torch.int32)
+    tables = torch.full((B, MB), trash, dtype=torch.int32, device=dev)
+    for b, n in enumerate(lens):
+        used = min(-(-max(n, 0) // bs), MB)
+        tables[b, :used] = perm[b, :used]
+    return tables
+
+
+@pytest.mark.parametrize("bs,mb", [(16, 8), (128, 2)])
+def test_paged_attention_kernels_match_plain(dev, bs, mb):
+    from physics_llm_inference_tpu_torch.kernels import paged_attention as t_pa
+
+    g = _gen(dev, 7)
+    lens = [0, 1, bs, bs + 1, mb * bs, mb * bs + 9, 37]
+    B = len(lens)
+    L, NB, hq, hkv, d = 2, B * mb + 2, 8, 2, 128
+    tables = _paged_tables(g, dev, B, mb, NB, lens, bs, NB - 1)
+    ctx = torch.tensor(lens, dtype=torch.int32, device=dev)
+    q = torch.randn((B, hq, d), generator=g, device=dev).bfloat16()
+    kv = torch.randint(-127, 128, (L, NB, 2, bs, hkv * d), dtype=torch.int8,
+                       generator=g, device=dev)
+    kvs = torch.rand((L, NB, 2, hkv, bs), generator=g, device=dev) * 0.02
+    kp = torch.randn((L, NB, bs, hkv, d), generator=g, device=dev).bfloat16()
+    vp = torch.randn((L, NB, bs, hkv, d), generator=g, device=dev).bfloat16()
+    b6, b7 = t_pa.int8_paged_launches, t_pa.paged_launches
+    got6 = t_pa.int8_paged_decode_attention(q, kv, kvs, tables, ctx, layer=1)
+    got7 = t_pa.paged_decode_attention(q, kp, vp, tables, ctx, layer=1)
+    torch.cuda.synchronize()
+    assert (t_pa.int8_paged_launches, t_pa.paged_launches) == (b6 + 1, b7 + 1)
+    want6 = t_pa.int8_paged_decode_attention_plain(q, kv, kvs, tables, ctx,
+                                                   layer=1)
+    want7 = t_pa.paged_decode_attention_plain(q, kp, vp, tables, ctx, layer=1)
+    # other f32 summation orders and tile-wise online softmax; K6 rounds
+    # p * v_scale to bf16 against its running max; outputs in bf16
+    torch.testing.assert_close(got6.float(), want6.float(), rtol=0, atol=2e-2)
+    torch.testing.assert_close(got7.float(), want7.float(), rtol=0, atol=2e-2)
+    assert not got6[0].any() and not got7[0].any()       # no key: zeros
+
+
+@pytest.mark.parametrize("inplace", [False, True])
+def test_fused_paged_decode_kernel_matches_plain(dev, inplace):
+    cfg, B, bs, mb = FUSED, 8, 16, 4
+    g = _gen(dev, 8)
+    blocks = init_params_int8(g, cfg)["blocks"]
+    L, hkv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    NB = B * mb + 4
+    trash = NB - 1
+    lens = [0, 15, 16, 17, 63, 64, 30, 5]                 # 64 = MB·BS: stale
+    active = torch.tensor([n < mb * bs for n in lens], device=dev)
+    lens[7] = -1                                          # marks row 7
+    tables = _paged_tables(g, dev, B, mb, NB, lens, bs, trash)
+    lens[7] = 5                                           # inactive: trash
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    kv = torch.randint(-127, 128, (L, NB, 2, bs, hkv * hd), dtype=torch.int8,
+                       generator=g, device=dev)
+    kvs = torch.rand((L, NB, 2, hkv, bs), generator=g, device=dev) * 0.05
+    x = torch.randn((B, cfg.hidden_dim), generator=g, device=dev).bfloat16()
+    cos, sin = rope_frequencies(hd, cfg.max_seq_len, device=dev)
+    pos = lengths.long().clamp(max=cfg.max_seq_len - 1)
+    pools = [kv.clone(), kvs.clone()]
+    before = t_fd.paged_launches
+    got = t_fd.fused_paged_decode_step(blocks, x, *pools, tables, lengths,
+                                       cos[pos], sin[pos], cfg,
+                                       inplace=inplace)
+    torch.cuda.synchronize()
+    assert t_fd.paged_launches == before + 1
+    plain = [kv.clone(), kvs.clone()]
+    want = t_fd.fused_paged_decode_step_plain(blocks, x, *plain, tables,
+                                              lengths, cos[pos], sin[pos],
+                                              cfg, inplace=inplace)
+    # different f32 summation orders over two layers of an f32 residual
+    assert _row_rel(got[0].float(), want[0].float()) < 2e-2
+    for a, b in ((got[1], want[1]), (got[3], want[3])):
+        d = (a.int() - b.int()).abs()
+        assert int(d.max()) <= 1 and float((d == 0).float().mean()) > 0.99
+    if inplace:
+        # outside the written slots and the trash block nothing changed;
+        # at them the codes are the returned ones
+        from physics_llm_inference_tpu_torch.kernels.paged_attention import \
+            write_position
+        blk, off = write_position(tables, lengths, bs)
+        mask = torch.zeros((NB, bs), dtype=torch.bool, device=dev)
+        mask[blk, off] = True
+        mask[trash] = True
+        assert torch.equal(pools[0].transpose(2, 3)[:, ~mask],
+                           kv.transpose(2, 3)[:, ~mask])
+        for r in range(B):
+            if bool(active[r]) and int(tables[r, 0]) != trash:
+                assert torch.equal(pools[0][:, blk[r], 0, off[r]], got[1][:, r])
+                assert torch.equal(pools[1][:, blk[r], 1, :, off[r]],
+                                   got[4][:, r])
+    # fixed-order sums: a second launch on the same inputs, the same bits
+    again = t_fd.fused_paged_decode_step(blocks, x, kv.clone(), kvs.clone(),
+                                         tables, lengths, cos[pos], sin[pos],
+                                         cfg, inplace=inplace)
+    assert torch.equal(again[0], got[0])
+
+
+def test_paged_engine_routes_through_the_kernels(dev):
+    from physics_llm_inference_tpu_torch.kernels import paged_attention as t_pa
+    from physics_llm_inference_tpu_torch.serve.engine import GenerationRequest
+    from physics_llm_inference_tpu_torch.serve.paged_engine import (
+        PagedEngineConfig, PagedInferenceEngine)
+
+    cfg = ModelConfig(vocab_size=512, hidden_dim=512, num_layers=2,
+                      num_heads=4, num_kv_heads=2, intermediate_dim=768,
+                      max_seq_len=256)
+    params = init_params_int8(_gen(dev, 9), cfg)
+    routes = {  # engine geometry -> the decode kernel it must launch
+        "fused": (dict(block_size=128, max_blocks_per_request=2,
+                       kv_dtype="int8"), t_fd, "paged_launches"),
+        "int8": (dict(block_size=16, max_blocks_per_request=16,
+                      kv_dtype="int8"), t_pa, "int8_paged_launches"),
+        "bf16": (dict(block_size=16, max_blocks_per_request=16), t_pa,
+                 "paged_launches"),
+    }
+    for name, (kw, mod, counter) in routes.items():
+        eng = PagedInferenceEngine(params, cfg, PagedEngineConfig(
+            num_blocks=40, max_batch=8, prompt_buckets=(16, 32, 64), **kw))
+        before = getattr(mod, counter)
+        rids = [eng.submit_request(GenerationRequest(
+            prompt_tokens=[3 + i] * (5 + 7 * i), max_tokens=9,
+            temperature=0.0)) for i in range(6)]
+        eng.run_until_done(rids)
+        assert getattr(mod, counter) > before, name
+        for r in rids:
+            toks = eng.get_result(r).tokens
+            assert len(toks) == 9 and 0 <= min(toks) and max(toks) < 512

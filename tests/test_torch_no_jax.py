@@ -21,7 +21,11 @@ def test_walk_finds_every_module():
     for expected in ("models.transformer", "kernels.int8_matmul",
                      "kernels.int8_kv_attention", "kernels.lmhead",
                      "kernels.fused_decode", "kernels.flash_attention",
-                     "runtime.generate", "convert", "specs.gpu"):
+                     "runtime.generate", "convert", "specs.gpu",
+                     "kernels.paged_attention", "models.paged_transformer",
+                     "runtime.paged_kv", "runtime.radix_cache", "native",
+                     "sched.request", "sched.scheduler", "serve.engine",
+                     "serve.paged_engine"):
         assert f"{port.__name__}.{expected}" in names
 
 
