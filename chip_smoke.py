@@ -10,9 +10,11 @@ Phases, each of which raises on failure (exit code != 0, no final line):
 3. each CUDA kernel (K1 int8_matmul, K2 int8_kv_decode_attention, K3
    lmhead_greedy, K4 fused_decode_step, K5 flash_attention, K6
    int8_paged_decode_attention, K7 paged_decode_attention, K8
-   fused_paged_decode_step) against its plain torch version at the main
+   fused_paged_decode_step, K9 tiled_matmul, K10 stream_copy, K11
+   strided_copy, K12 vector_add) against its plain torch version at the main
    paths' shapes, with the tolerance stated, and both timed with CUDA
-   events;
+   events, beside the kernel's bound at that shape and, where one PyTorch
+   call computes the same function, that call's time;
 4. slice parity: a model at the 7B widths with 2 layers runs prefill plus 8
    teacher-forced decode steps with the kernels and again with the kernels'
    entry points swapped for their plain versions (here, not in the package),
@@ -29,8 +31,17 @@ Phases, each of which raises on failure (exit code != 0, no final line):
    prompt 576 (every fourth behind one of 8 shared 512-token prefixes) for 64
    greedy tokens each after a warm wave, which decodes through K8; then its
    per-op routes, INT8 pools at block size 16 (K6) and bf16 pools (K7). Every
-   kernel of each path must have launched during that path's timed run.
-Then one JSON line with each kernel's numbers, and the last line
+   kernel of each path must have launched during that path's timed run;
+6. the kernel microbenchmark path at the JAX package's default sizes, through
+   its public functions: bench_gemm with K9 and with torch.matmul (4096^3
+   bf16), bench_gemv (8 x 4096 x 4096, bf16 and K1 int8), bench_attention
+   (seq 2048, K5 and the grouped SDPA), bench_precision,
+   measure_access_patterns (K10, K11), vector_add (K12), then
+   bench.suite.main in full. K9-K12, K1 and K5 must have launched, the
+   suite must give the JAX suite's keys, and no roofline_fraction may
+   exceed 1.05.
+Then one JSON line with each kernel's numbers (launches summed over the
+timed runs of phases 5 and 6), and the last line
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -75,7 +86,18 @@ KERNELS = {  # name: (module, launch counter, CUDA source, TPU kernel replaced)
     "fused_paged_decode_step": (
         "fused_decode", "paged_launches", "csrc/fused_decode.cu",
         "physics_llm_inference_tpu/kernels/fused_decode.py:1002"),
+    "tiled_matmul": ("matmul", "launches", "csrc/tiled_matmul.cu",
+                     "physics_llm_inference_tpu/kernels/matmul.py:42"),
+    "stream_copy": ("membench", "stream_launches", "csrc/membench.cu",
+                    "physics_llm_inference_tpu/kernels/membench.py:29"),
+    "strided_copy": ("membench", "strided_launches", "csrc/membench.cu",
+                     "physics_llm_inference_tpu/kernels/membench.py:44"),
+    "vector_add": ("hello_pallas", "launches", "csrc/vector_add.cu",
+                   "physics_llm_inference_tpu/kernels/hello_pallas.py:23"),
 }
+# the microbenchmark path (phase 6) must launch these
+MICRO_KERNELS = ("tiled_matmul", "stream_copy", "strided_copy", "vector_add",
+                 "int8_matmul", "flash_attention")
 
 
 def log(*a):
@@ -144,8 +166,49 @@ def row_rel(a, b) -> float:
                   / b.norm(dim=-1).clamp_min(1e-30)).max())
 
 
+def entry(err, ms, pms, nbytes, flops, peak="bf16", library_ms=None) -> dict:
+    """A kernel's row: its numbers, and its bound at the row's shape: the
+    larger of the bytes it must move (each input read once, each output
+    written once) over the H100 SXM's 3.35 TB/s and its operations over the
+    data-sheet peak of their type (bf16 989 TFLOP/s, f32 67)."""
+    from physics_llm_inference_tpu_torch.specs.gpu import H100_SXM as spec
+
+    t_bytes = nbytes / spec.hbm_bandwidth * 1e3
+    rate = {"bf16": spec.peak_flops, "fp32": spec.fp32_tflops * 1e12}[peak]
+    t_ops = flops / rate * 1e3
+    return {"max_abs_err": err, "ms": ms, "plain_ms": pms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms}
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def int8pack_ms(x, wq, s, want, flush):
+    """Time of torch._weight_int8pack_mm (x @ w.T * scales, w (N, K) int8)
+    on the same function, or None where the installed torch does not run it
+    on CUDA or it disagrees with the plain version."""
+    import torch
+
+    wt, sc = wq.t().contiguous(), s.reshape(-1).to(x.dtype)
+    try:
+        got = torch._weight_int8pack_mm(x, wt, sc)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError, AttributeError) as e:
+        log(f"torch._weight_int8pack_mm not run on CUDA: "
+            f"{str(e).splitlines()[0][:120]}")
+        return None
+    rel = row_rel(got.float(), want)
+    if rel > 2e-2:
+        log(f"torch._weight_int8pack_mm disagrees (row-wise {rel:.3g})")
+        return None
+    return time_ms(lambda: torch._weight_int8pack_mm(x, wt, sc), flush)
+
+
 def check_kernels(dev, flush) -> dict:
-    """Phase 3. Returns {kernel: (max_abs_err, ms, plain_ms)}."""
+    """Phase 3. Returns {kernel: entry}."""
     import torch
 
     from physics_llm_inference_tpu_torch.kernels import int8_kv_attention as ka
@@ -164,7 +227,8 @@ def check_kernels(dev, flush) -> dict:
     shapes = {"wqkv": (64, d, (hq + 2 * hkv) * hd), "wo": (64, hq * hd, d),
               "w_gate_up": (64, d, 2 * f), "w_down": (64, f, d),
               "lm_head": (64, d, v), "ragged": (7, d, (hq + 2 * hkv) * hd + 64)}
-    k1_err, k1_ms, k1_plain = 0.0, 0.0, 0.0
+    k1_err, k1_ms, k1_plain, k1_lib = 0.0, 0.0, 0.0, 0.0
+    k1_bytes = k1_flops = 0
     for name, (m, k, n) in shapes.items():
         x = torch.randn((m, k), generator=g, device=dev).bfloat16()
         wq = torch.randint(-127, 128, (2, k, n), dtype=torch.int8,
@@ -190,9 +254,16 @@ def check_kernels(dev, flush) -> dict:
         if name in ("wqkv", "wo", "w_gate_up", "w_down"):
             k1_ms += ms
             k1_plain += pms
+            k1_bytes += nbytes(x, wq[1], s[1]) + m * n * 2
+            k1_flops += 2 * m * k * n
+            lib = int8pack_ms(x, wq[1], s[1], want, flush) \
+                if k1_lib is not None else None
+            k1_lib = None if lib is None else k1_lib + lib
     log(f"K1 one decode layer (wqkv+wo+gate_up+down): kernel {k1_ms:.4f} ms, "
-        f"plain {k1_plain:.4f} ms")
-    out["int8_matmul"] = (k1_err, k1_ms, k1_plain)
+        f"plain {k1_plain:.4f} ms, torch._weight_int8pack_mm "
+        f"{'none' if k1_lib is None else f'{k1_lib:.4f} ms'}")
+    out["int8_matmul"] = entry(k1_err, k1_ms, k1_plain, k1_bytes, k1_flops,
+                               library_ms=k1_lib)
 
     # K2 at B=64, S=256, Hq=32, Hkv=8, d=128, ragged q_slot / valid_from
     L, B, S = 2, 64, 256
@@ -219,7 +290,10 @@ def check_kernels(dev, flush) -> dict:
     log(f"K2 int8_kv_decode_attention B={B} S={S} Hq={hq} Hkv={hkv} d={hd}: "
         f"max_abs_err {err:.4g} (atol 2e-2), kernel {ms:.4f} ms "
         f"({live / ms / 1e6:.0f} GB/s of live KV), plain {pms:.4f} ms")
-    out["int8_kv_decode_attention"] = (err, ms, pms)
+    keys = int((qslot - vfrom + 1).sum())  # live keys, one layer
+    out["int8_kv_decode_attention"] = entry(
+        err, ms, pms, keys * hkv * (2 * hd + 2 * 4) + 2 * nbytes(q)
+        + nbytes(qslot, vfrom), 4 * hq * hd * keys)
 
     # K3 at B=64, D=4096, V=32000: the kernel's token must carry a plain
     # logit within one bf16 ulp of the plain row maximum
@@ -248,18 +322,34 @@ def check_kernels(dev, flush) -> dict:
     log(f"K3 lmhead_greedy B=64 D={d} V={v}: {same}/64 tokens equal to plain, "
         f"max gap to the row max {err:.4g} (<= 1 bf16 ulp), kernel "
         f"{ms:.4f} ms ({d * v / ms / 1e6:.0f} GB/s of head), plain {pms:.4f} ms")
-    out["lmhead_greedy"] = (err, ms, pms)
+    out["lmhead_greedy"] = entry(err, ms, pms, nbytes(x, nw, lq, ls, tok.int()),
+                                 2 * 64 * d * v)
     out["fused_decode_step"] = check_fused(dev, flush)
     out["flash_attention"] = check_flash(dev, flush)
     out.update(check_paged_attention(dev, flush))
     out["fused_paged_decode_step"] = check_fused_paged(dev, flush)
+    out.update(check_teaching(dev, flush))
     return out
+
+
+def fused_bound(blocks, x, L, hkv, hd, hq, read_keys, written):
+    """(bytes, flops) of one fused decode step: every weight, scale and
+    norm once, the live K/V codes and scales read, the new ones written,
+    x in and out."""
+    wts = [blocks[n] for n in ("wqkv", "wo", "w_gate_up", "w_down")]
+    weights = sum(nbytes(w.q, w.s) for w in wts) + nbytes(blocks["ln1"],
+                                                          blocks["ln2"])
+    per_key = L * hkv * (2 * hd + 2 * 4)
+    flops = 2 * x.shape[0] * sum(w.q[0].numel() for w in wts) * L \
+        + 4 * hq * hd * L * (read_keys + written)
+    return (weights + per_key * (read_keys + written) + 2 * nbytes(x),
+            flops)
 
 
 def check_fused(dev, flush):
     """K4 at the 7B widths, 2 layers, B = 64, S = 256, ragged valid_from,
-    the generate path's in-place write at slot == q_slot. Returns
-    (max_abs_err of x_out, ms, plain_ms)."""
+    the generate path's in-place write at slot == q_slot. Returns its
+    entry (max_abs_err of x_out)."""
     import torch
 
     from physics_llm_inference_tpu_torch.kernels import fused_decode as kf
@@ -345,14 +435,19 @@ def check_fused(dev, flush):
         f"{ms:.4f} ms "
         f"({(wbytes + live) / ms / 1e6:.0f} GB/s of weights + live KV), "
         f"plain {pms:.4f} ms")
-    return err, ms, pms
+    return entry(err, ms, pms, *fused_bound(
+        blocks, x, L, hkv, hd, cfg.num_heads, int((qslot - vfrom).sum()), B))
 
 
 def check_flash(dev, flush):
     """K5 at B = 64, Hq = 32, Hkv = 8, d = 128: square Sq = Sk = 512 and the
     rectangular Sq = 128, q_offset = 512, Sk = 640, ragged valid_from.
-    Returns (max_abs_err on live rows, ms, plain_ms) of the square case."""
+    Returns the square case's entry (max_abs_err on live rows), with the
+    time of scaled_dot_product_attention(attn_mask=K5's mask,
+    enable_gqa=True) as its library call."""
     import torch
+
+    import torch.nn.functional as F
 
     from physics_llm_inference_tpu_torch.kernels import flash_attention as kfa
 
@@ -383,13 +478,26 @@ def check_flash(dev, flush):
                       reps=5, warmup=1)
         pairs = (qpos[None, :] - vfrom[:, None] + 1).clamp_min(0).sum()
         flop = 4 * d * hq * int(pairs)
+        kpos = torch.arange(sk, device=dev)
+        mask = ((kpos[None, None, :] <= qpos[None, :, None])
+                & (kpos[None, None, :] >= vfrom[:, None, None]))[:, None]
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            *args, attn_mask=mask, enable_gqa=True), flush)
+        # the same call on K/V expanded to the query heads outside the
+        # timed region, where the memory-efficient backend takes the mask
+        kx, vx = (t.repeat_interleave(hq // hkv, dim=1) for t in args[1:])
+        lib_x = time_ms(lambda: F.scaled_dot_product_attention(
+            args[0], kx, vx, attn_mask=mask), flush)
+        del kx, vx
         log(f"K5 flash_attention B={B} Hq={hq} Hkv={hkv} d={d} Sq={sq} "
             f"Sk={sk} q_offset={qoff}, ragged valid_from: max abs err on "
             f"live rows {err:.4g} (atol 2e-2), two launches bit-equal, "
             f"kernel {ms:.4f} ms "
             f"({flop / ms / 1e9:.1f} TFLOP/s of live causal work), plain "
-            f"{pms:.4f} ms")
-        first = first or (err, ms, pms)
+            f"{pms:.4f} ms; scaled_dot_product_attention(mask, enable_gqa) "
+            f"{lib:.4f} ms, on K/V expanded to {hq} heads {lib_x:.4f} ms")
+        first = first or entry(err, ms, pms, nbytes(q, k, v, q, vfrom), flop,
+                               library_ms=lib)
     return first
 
 
@@ -457,7 +565,11 @@ def check_paged_attention(dev, flush) -> dict:
                 f"(atol 2e-2), two launches bit-equal, kernel {ms:.4f} ms "
                 f"({live / ms / 1e6:.0f} GB/s of live KV), plain {pms:.4f} ms")
             if bs == 16:
-                out[name] = (err, ms, pms)
+                keys = int(lens.sum())
+                out[name] = entry(
+                    err, ms, pms, keys * hkv * (2 * d * elt + (8 if elt == 1
+                                                               else 0))
+                    + 2 * nbytes(q) + nbytes(tables, ctx), 4 * hq * d * keys)
     return out
 
 
@@ -466,8 +578,8 @@ def check_fused_paged(dev, flush):
     B = 64, BS = 512, MB = 2, NB = 161 (160 blocks + the trash block), in
     place. Scattered tables covering each active row's write position,
     ragged lengths with block-boundary rows, and 8 inactive rows on the
-    trash block with stale lengths (up to past the table). Returns
-    (max_abs_err of x_out on the active rows, ms, plain_ms)."""
+    trash block with stale lengths (up to past the table). Returns its
+    entry (max_abs_err of x_out on the active rows)."""
     import torch
 
     from physics_llm_inference_tpu_torch.kernels import fused_decode as kf
@@ -569,7 +681,104 @@ def check_fused_paged(dev, flush):
         f"slots and the trash block; two launches bit-equal; kernel "
         f"{ms:.4f} ms ({(wbytes + live) / ms / 1e6:.0f} GB/s of weights + "
         f"live KV), plain {pms:.4f} ms")
-    return err, ms, pms
+    b, f = fused_bound(blocks, x, L, hkv, hd, cfg.num_heads,
+                       int(lens[active].sum()), int(active.sum()))
+    return entry(err, ms, pms, b + nbytes(tables, lens.int()), f)
+
+
+def check_teaching(dev, flush) -> dict:
+    """K9 at 4096^3 bf16 (and 2048^3 f32), K10 and K11 at the membench
+    default of 256 MiB (K11 also at 2 GiB) and K12 at (524288, 128) f32 (and
+    bf16), each against its plain version and timed beside its library
+    call. Returns the entries of the microbenchmark path's shapes."""
+    import torch
+
+    from physics_llm_inference_tpu_torch.kernels import hello_pallas as kv
+    from physics_llm_inference_tpu_torch.kernels import matmul as kt
+    from physics_llm_inference_tpu_torch.kernels import membench as kb
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    out = {}
+    # K9: another f32 summation order, then one cast: bf16 rtol 1e-2 plus
+    # 1e-3 of the output's max (as K1); f32 in full f32 on both sides
+    # (allow_tf32 off) rtol 1e-4 plus 1e-4 of the max
+    for size, dtype, rtol, atol in ((4096, torch.bfloat16, 1e-2, 1e-3),
+                                    (2048, torch.float32, 1e-4, 1e-4)):
+        a = torch.randn((size, size), generator=g, device=dev).to(dtype)
+        b = torch.randn((size, size), generator=g, device=dev).to(dtype)
+        got = kt.tiled_matmul(a, b).float()
+        want = kt.tiled_matmul_plain(a, b).float()
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        bound = rtol * want.abs() + atol * float(want.abs().max())
+        if not bool(torch.isfinite(got).all()) or bool((err > bound).any()):
+            raise AssertionError(f"K9 {size}^3 {dtype}: max err "
+                                 f"{float(err.max()):.4g} exceeds rtol {rtol}")
+        ms = time_ms(lambda: kt.tiled_matmul(a, b), flush)
+        pms = time_ms(lambda: kt.tiled_matmul_plain(a, b), flush)
+        lib = time_ms(lambda: torch.matmul(a, b), flush)
+        flop = 2 * size ** 3
+        log(f"K9 tiled_matmul {size}^3 {str(dtype)[6:]}: max_abs_err "
+            f"{float(err.max()):.4g} (rtol {rtol} + {atol} of the max), "
+            f"kernel {ms:.4f} ms ({flop / ms / 1e9:.1f} TFLOP/s), plain "
+            f"{pms:.4f} ms, torch.matmul {lib:.4f} ms "
+            f"({flop / lib / 1e9:.1f} TFLOP/s)")
+        if "tiled_matmul" not in out:
+            out["tiled_matmul"] = entry(
+                float(err.max()), ms, pms, 3 * nbytes(a), flop,
+                "bf16" if dtype == torch.bfloat16 else "fp32", lib)
+        del a, b, got, want, err, bound
+
+    # K10/K11 at 256 MiB (K11 also at 2 GiB), f32 (N, 128): bit-equal
+    for mib in (256, 2048):
+        x = torch.randn((mib * (1 << 20) // 512, 128), generator=g,
+                        device=dev)
+        cases = [("strided_copy", "K11", kb._strided_copy,
+                  kb._strided_copy_plain,
+                  lambda: x.view(-1, 32, 8, 128)[:, 0].contiguous().view(-1, 128),
+                  32)]
+        if mib == 256:
+            cases.insert(0, ("stream_copy", "K10", kb._stream_copy,
+                             kb._stream_copy_plain, x.clone, 1))
+        for name, tag, fn, plain, library, stride in cases:
+            got = fn(x)
+            if not torch.equal(got, plain(x)) or not torch.equal(got,
+                                                                 library()):
+                raise AssertionError(f"{tag} at {mib} MiB: not bit-equal")
+            ms = time_ms(lambda: fn(x), flush)
+            pms = time_ms(lambda: plain(x), flush)
+            lib = time_ms(library, flush)
+            moved = 2 * nbytes(got)
+            log(f"{tag} {name} {mib} MiB stride {stride}: bit-equal to plain "
+                f"and library, kernel {ms:.4f} ms ({moved / ms / 1e6:.0f} "
+                f"GB/s read + write), plain {pms:.4f} ms, library "
+                f"{lib:.4f} ms ({moved / lib / 1e6:.0f} GB/s)")
+            if mib == 256:
+                out[name] = entry(0.0, ms, pms, moved, 0, library_ms=lib)
+            del got
+        del x
+        torch.cuda.empty_cache()
+
+    # K12 at (524288, 128) f32 and bf16: bit-equal to a + b and torch.add
+    for dtype in (torch.float32, torch.bfloat16):
+        a = torch.randn((524288, 128), generator=g, device=dev).to(dtype)
+        b = torch.randn((524288, 128), generator=g, device=dev).to(dtype)
+        got = kv.vector_add(a, b)
+        if not (torch.equal(got, kv.vector_add_plain(a, b))
+                and torch.equal(got, torch.add(a, b))):
+            raise AssertionError(f"K12 {dtype}: not bit-equal to a + b")
+        ms = time_ms(lambda: kv.vector_add(a, b), flush)
+        pms = time_ms(lambda: kv.vector_add_plain(a, b), flush)
+        lib = time_ms(lambda: torch.add(a, b), flush)
+        moved = 3 * nbytes(a)
+        log(f"K12 vector_add (524288, 128) {str(dtype)[6:]}: bit-equal to "
+            f"a + b and torch.add, kernel {ms:.4f} ms ({moved / ms / 1e6:.0f}"
+            f" GB/s), plain {pms:.4f} ms, torch.add {lib:.4f} ms")
+        if "vector_add" not in out:
+            out["vector_add"] = entry(0.0, ms, pms, moved, a.numel(), "fp32",
+                                      lib)
+        del a, b, got
+    return out
 
 
 def run_slice(params, cfg, prompts, steps_tokens, dev):
@@ -1034,6 +1243,74 @@ def serving_runs(dev, params) -> dict:
     return {k: sum(r[k] for r in runs) for k in KERNELS}
 
 
+SUITE_KEYS = ("mha_vs_gqa", "swiglu_fusion", "naive_vs_cached", "gemm",
+              "gemv_bf16", "gemv_int8", "attn_flash", "attn_naive",
+              "static_batching")
+
+
+def fractions(tree):
+    """Every roofline_fraction in a nested result."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            if k == "roofline_fraction":
+                yield v
+            else:
+                yield from fractions(v)
+
+
+def micro_path(dev) -> dict:
+    """Phase 6: the microbenchmark path through its public functions at the
+    JAX package's default sizes, then the suite in full. Returns the launch
+    counts of the run."""
+    import math
+
+    import torch
+
+    from physics_llm_inference_tpu_torch.bench import micro, suite
+    from physics_llm_inference_tpu_torch.kernels.hello_pallas import \
+        vector_add
+    from physics_llm_inference_tpu_torch.kernels.membench import \
+        measure_access_patterns
+
+    t0 = time.perf_counter()
+    reset_launches()
+    res = {
+        "gemm_kernel": micro.bench_gemm(use_kernel=True),
+        "gemm": micro.bench_gemm(),
+        "gemv_bf16": micro.bench_gemv(8, 4096, 4096),
+        "gemv_int8": micro.bench_gemv(8, 4096, 4096, int8_weights=True),
+        "attn_flash": micro.bench_attention(seq=2048),
+        "attn_naive": micro.bench_attention(seq=2048, use_flash=False),
+        "precision": micro.bench_precision(),
+        "access_patterns": measure_access_patterns(),
+    }
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    a = torch.randn((524288, 128), generator=g, device=dev)
+    if not torch.equal(vector_add(a, a), a + a):
+        raise AssertionError("phase 6: vector_add differs from a + a")
+    for name, r in res.items():
+        log(f"phase 6 {name}: {json.dumps(r, default=float)}")
+    log(micro.roofline_report([res[k] for k in ("gemm_kernel", "gemm",
+                                                "gemv_bf16", "gemv_int8",
+                                                "attn_flash", "attn_naive")]))
+    res["suite"] = suite.main([])
+    counts = read_launches()
+    log(f"phase 6 (microbenchmark path): {time.perf_counter() - t0:.1f} s; "
+        f"launches {counts}")
+    missing = [k for k in MICRO_KERNELS if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"phase 6: kernels not launched: {missing}")
+    if set(res["suite"]) != set(SUITE_KEYS):
+        raise AssertionError(f"phase 6: suite keys {sorted(res['suite'])}")
+    values = list(fractions(res))
+    if not values or not all(math.isfinite(v) and 0 < v <= 1.05
+                             for v in values):
+        raise AssertionError(f"phase 6: roofline fractions {values} outside "
+                             "(0, 1.05]: the bytes or operations counted are "
+                             "wrong")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -1070,14 +1347,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     dense, params = full_runs(dev)
     paged = serving_runs(dev, params)
-    counts = {k: dense[k] + paged[k] for k in KERNELS}
+    del params
+    torch.cuda.empty_cache()
+    micro = micro_path(dev)
+    counts = {k: dense[k] + paged[k] + micro[k] for k in KERNELS}
 
     rows = []
-    for name, (err, ms, pms) in kernels.items():
+    for name, row in kernels.items():
         _, _, src, replaces = KERNELS[name]
         rows.append({"name": name, "route": "cuda", "source": f"{PKG}/{src}",
-                     "replaces": replaces, "launches": counts[name],
-                     "max_abs_err": err, "ms": ms, "plain_ms": pms})
+                     "replaces": replaces, "launches": counts[name], **row})
     log(nvidia_smi())
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

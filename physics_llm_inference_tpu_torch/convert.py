@@ -5,6 +5,8 @@
 with the same keys and layouts. Quantized leaves are recognised by their
 `.q`/`.s` attributes, so this module never imports jax. `kv_from_jax`
 carries a slot KV cache, `paged_kv_from_jax` the paged engine's pools.
+Each puts its tensors on the card (`device=None` means "cuda") unless the
+caller names another device, e.g. `device="cpu"`.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ def _tensor(a, device, dtype=None) -> torch.Tensor:
         t = torch.from_numpy(np.array(a, copy=True))
     if dtype is not None and t.is_floating_point():
         t = t.to(dtype)
-    return t.to(device)
+    return t.to("cuda" if device is None else device)
 
 
 def _is_quant(leaf) -> bool:
@@ -38,7 +40,7 @@ def _leaf(leaf, device, dtype):
     return _tensor(leaf, device, dtype)
 
 
-def params_from_jax(tree: dict, device="cpu", dtype=None) -> dict:
+def params_from_jax(tree: dict, device=None, dtype=None) -> dict:
     """JAX param pytree (numpy leaves) -> the port's parameter dict.
     `dtype` casts the floating non-quantized leaves (embed, norms, dense
     weights); None keeps their dtypes."""
@@ -51,7 +53,7 @@ def params_from_jax(tree: dict, device="cpu", dtype=None) -> dict:
     }
 
 
-def kv_from_jax(cache, device="cpu") -> KVCache:
+def kv_from_jax(cache, device=None) -> KVCache:
     """A JAX KVCache with numpy leaves -> the port's KVCache.
     QuantKV keeps its flat int8 values and transposed f32 scales."""
     def conv(part):
@@ -62,7 +64,7 @@ def kv_from_jax(cache, device="cpu") -> KVCache:
     return KVCache(k=conv(cache.k), v=conv(cache.v), length=int(cache.length))
 
 
-def paged_kv_from_jax(k_pools, v_pools=None, device="cpu"):
+def paged_kv_from_jax(k_pools, v_pools=None, device=None):
     """The paged engine's pools (numpy leaves) -> the port's (k, v): the
     merged QuantKV pools (L, NB+1, 2, BS, Hkv·hd) int8 and
     (L, NB+1, 2, Hkv, BS) f32 with v None, or the plain

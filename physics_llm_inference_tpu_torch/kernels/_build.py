@@ -61,6 +61,12 @@ SIGNATURES = {
     # stream
     "pli_int8_paged_decode_attention": [_P] * 6 + [_I] * 6 + [_F, _P],
     "pli_paged_decode_attention": [_P] * 6 + [_I] * 6 + [_F, _P],
+    # a, b, c, M, N, K, dtype (0 f32, 1 bf16), out_bf16, vec_a, vec_b, stream
+    "pli_tiled_matmul": [_P] * 3 + [_I] * 7 + [_P],
+    # x, out, num_blocks, block_bytes, stride, vec, stream
+    "pli_row_block_copy": [_P, _P, _L, _L, _L, _I, _P],
+    # a, b, out, n, dtype (0 f32, 1 bf16), vec, stream
+    "pli_vector_add": [_P, _P, _P, _L, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -17,11 +17,18 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .quant import quantize_int8
 
 launches = 0  # kernel launches made by int8_matmul (the chip smoke reads it)
 
 _BM = _BN = _BK = 64
 _SMS = 132  # H100 SXM streaming multiprocessors
+
+
+def quantize_weights_int8(w: torch.Tensor):
+    """Per-output-channel weight quantization: (K, N) -> int8 (K, N) + f32
+    scales (1, N)."""
+    return quantize_int8(w, axis=0)
 
 
 def int8_matmul_plain(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,

@@ -1,1 +1,1 @@
-"""Plain tensor ops: norms, RoPE, grouped attention, sampling."""
+"""Plain tensor ops: norms, RoPE, grouped attention, FFNs, sampling."""

@@ -1,4 +1,5 @@
-"""KV-cached two-phase generation (counterpart: physics_llm_inference_tpu/runtime/generate.py:36-225).
+"""KV-cached two-phase generation and the no-cache loop (counterpart:
+physics_llm_inference_tpu/runtime/generate.py:36-269).
 
 Prompts are LEFT-padded to a bucket so every request's next slot is the same
 integer; RoPE positions and `valid_from` are per request. Prefill is one
@@ -171,3 +172,34 @@ def cached_generate(params, cfg: ModelConfig, prompts, max_new_tokens: int,
                             prompt_lens=lens.cpu().numpy().astype(np.int32),
                             gen_lens=gen_lens, prefill_s=prefill_s,
                             decode_s=decode_s)
+
+
+def naive_generate(params, cfg: ModelConfig, prompt_ids, max_new_tokens: int,
+                   generator: torch.Generator | None = None,
+                   temperature: float = 1.0, top_k: int = 0,
+                   top_p: float = 1.0) -> np.ndarray:
+    """No-cache autoregressive loop (counterpart: generate.py:228-269): every
+    step re-runs the full uncached forward over the P+N buffer, padded up
+    front as in the JAX package, and reads the logits at slot p + i - 1, so
+    the total attention work is O(n^2). Equal-length prompts only. Runs on
+    the device of `params["embed"]`; `generator` replaces the PRNG key.
+    Returns the generated tokens (B, max_new_tokens) int32."""
+    device = params["embed"].device
+    ids = (prompt_ids if isinstance(prompt_ids, torch.Tensor)
+           else torch.as_tensor(np.asarray(prompt_ids))).to(device)
+    b, p = ids.shape
+    buf = torch.zeros((b, p + max_new_tokens), dtype=torch.int64,
+                      device=device)
+    buf[:, :p] = ids
+    has_top_p = top_p < 1.0
+    toks = []
+    for i in range(max_new_tokens):
+        logits, _ = forward(params, buf, cfg)
+        tok = sample_token(logits[:, p + i - 1], generator,
+                           temperature=temperature, top_k=top_k,
+                           top_p=top_p if has_top_p else None)
+        buf[:, p + i] = tok
+        toks.append(tok)
+    if not toks:
+        return np.zeros((b, 0), dtype=np.int32)
+    return torch.stack(toks, dim=1).cpu().numpy().astype(np.int32)

@@ -1,1 +1,1 @@
-"""Device specs and the roofline floor."""
+"""Device specs and the roofline model."""

@@ -4,7 +4,10 @@
 Values are the published data-sheet numbers of the H100 SXM (dense, no
 sparsity) at its full 700 W power limit; a card set below it runs slower
 under load. `get_gpu_spec` raises on a card it does not know rather than
-guessing (an H100 PCIe or NVL has other bandwidth).
+guessing (an H100 PCIe or NVL has other bandwidth). `GPUSpec` carries the
+fields and properties of the JAX package's `TPUSpec` that the roofline
+reads (`peak_flops`, `peak_int8_ops`, `fp32_tflops`, `hbm_bandwidth`,
+`ridge_point`), so the JAX roofline functions accept it too.
 """
 from __future__ import annotations
 
@@ -14,20 +17,34 @@ from dataclasses import dataclass
 @dataclass(frozen=True)
 class GPUSpec:
     name: str
-    bf16_tflops: float
+    bf16_tflops: float   # dense tensor-core bf16
+    int8_tops: float     # dense tensor-core int8
+    fp32_tflops: float   # f32 outside the tensor cores
     hbm_gbps: float      # GB/s (1e9 bytes/s)
 
     @property
     def peak_flops(self) -> float:
+        """Peak bf16 FLOP/s."""
         return self.bf16_tflops * 1e12
+
+    @property
+    def peak_int8_ops(self) -> float:
+        return self.int8_tops * 1e12
 
     @property
     def hbm_bandwidth(self) -> float:
         """Bytes/s."""
         return self.hbm_gbps * 1e9
 
+    def ridge_point(self, dtype: str = "bf16") -> float:
+        """FLOP/byte at which the card goes memory- -> compute-bound."""
+        peak = {"bf16": self.peak_flops, "int8": self.peak_int8_ops,
+                "fp32": self.fp32_tflops * 1e12}[dtype]
+        return peak / self.hbm_bandwidth
 
-H100_SXM = GPUSpec(name="H100 SXM", bf16_tflops=989.0, hbm_gbps=3350.0)
+
+H100_SXM = GPUSpec(name="H100 SXM", bf16_tflops=989.0, int8_tops=1979.0,
+                   fp32_tflops=67.0, hbm_gbps=3350.0)
 
 # torch.cuda.get_device_name() substrings of the known cards
 GPU_SPECS: dict[str, GPUSpec] = {"H100 80GB HBM3": H100_SXM}

@@ -53,7 +53,7 @@ def _pairs(jtree, ttree):
 def test_params_round_trip(dtype):
     cfg = JConfig(dtype=dtype, **DIMS)
     jparams = j_quantize(init_params(jax.random.PRNGKey(0), cfg))
-    tparams = params_from_jax(to_numpy(jparams))
+    tparams = params_from_jax(to_numpy(jparams), device="cpu")
     for name, jl, tl in _pairs(jparams, tparams):
         assert tuple(tl.shape) == jl.shape, name
         assert str(tl.dtype).removeprefix("torch.") == str(jl.dtype), name
@@ -73,7 +73,7 @@ def test_int8_kv_cache_round_trip():
         v=jcache.v._replace(s=jnp.asarray(
             rng.uniform(0, 1, jcache.v.s.shape), jnp.float32)),
         length=jnp.int32(5))
-    tcache = kv_from_jax(to_numpy(jcache))
+    tcache = kv_from_jax(to_numpy(jcache), device="cpu")
     assert isinstance(tcache.k, QuantKV) and tcache.length == 5
     for jpart, tpart in ((jcache.k, tcache.k), (jcache.v, tcache.v)):
         for jl, tl in zip(jpart, tpart):
@@ -92,7 +92,7 @@ def test_quantize_params_int8_matches_reference():
     cfg = JConfig(**DIMS)
     dense = init_params(jax.random.PRNGKey(1), cfg)
     jq = j_quantize(dense)
-    tq = quantize_params_int8(params_from_jax(to_numpy(dense)))
+    tq = quantize_params_int8(params_from_jax(to_numpy(dense), device="cpu"))
     for name, jl, tl in _pairs(jq, tq):
         np.testing.assert_allclose(t2n(tl), np.asarray(jl, np.float32),
                                    rtol=1e-6, atol=0, err_msg=name)

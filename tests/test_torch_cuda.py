@@ -363,3 +363,97 @@ def test_paged_engine_routes_through_the_kernels(dev):
         for r in rids:
             toks = eng.get_result(r).tokens
             assert len(toks) == 9 and 0 <= min(toks) and max(toks) < 512
+
+
+@pytest.mark.parametrize("dtype,m,k,n", [
+    (torch.bfloat16, 256, 512, 768),
+    (torch.bfloat16, 100, 72, 200),      # ragged for the 128 x 128 tile
+    (torch.float32, 256, 512, 768),
+    (torch.float32, 100, 72, 200),
+])
+def test_tiled_matmul_kernel_matches_plain(dev, dtype, m, k, n):
+    from physics_llm_inference_tpu_torch.kernels import matmul as t_tm
+
+    g = _gen(dev, 10)
+    a = torch.randn((m, k), generator=g, device=dev).to(dtype)
+    b = torch.randn((k, n), generator=g, device=dev).to(dtype)
+    before = t_tm.launches
+    for out_dtype in (None, torch.float32):
+        got = t_tm.tiled_matmul(a, b, out_dtype=out_dtype).float()
+        want = t_tm.tiled_matmul_plain(a, b, out_dtype).float()
+        # another f32 summation order, then one cast: bf16 rtol 1e-2, f32
+        # (full f32 on both sides, allow_tf32 off) rtol 1e-4
+        rtol = 1e-2 if dtype == torch.bfloat16 and out_dtype is None else 1e-4
+        torch.testing.assert_close(got, want, rtol=rtol,
+                                   atol=rtol * float(want.abs().max()))
+    assert t_tm.launches == before + 2
+
+
+@pytest.mark.parametrize("rows,block_rows,stride", [(4096, 2048, 1),
+                                                   (4096, 8, 32),
+                                                   (1000, 8, 4)])
+def test_membench_copies_match_plain(dev, rows, block_rows, stride):
+    from physics_llm_inference_tpu_torch.kernels import membench as t_mem
+
+    x = torch.randn((rows, 128), generator=_gen(dev, 11), device=dev)
+    if stride == 1:
+        got = t_mem._stream_copy(x, block_rows=block_rows)
+        want = t_mem._stream_copy_plain(x, block_rows)
+    else:
+        got = t_mem._strided_copy(x, block_rows=block_rows, stride=stride)
+        want = t_mem._strided_copy_plain(x, block_rows, stride)
+    assert torch.equal(got, want)
+
+
+def test_measure_access_patterns_launches_both_copies(dev):
+    from physics_llm_inference_tpu_torch.kernels import membench as t_mem
+
+    before = (t_mem.stream_launches, t_mem.strided_launches)
+    out = t_mem.measure_access_patterns(total_mb=16, iters=2)
+    assert out["stream_gbps"] > 0 and out["strided_gbps"] > 0
+    assert t_mem.stream_launches > before[0]
+    assert t_mem.strided_launches > before[1]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(512, 128), (300, 100)])
+def test_vector_add_kernel_is_bit_equal_to_torch_add(dev, dtype, shape):
+    from physics_llm_inference_tpu_torch.kernels import hello_pallas as t_va
+
+    g = _gen(dev, 12)
+    a = torch.randn(shape, generator=g, device=dev).to(dtype)
+    b = torch.randn(shape, generator=g, device=dev).to(dtype)
+    before = t_va.launches
+    got = t_va.vector_add(a, b, block_rows=100 if shape[0] == 300 else 256)
+    assert t_va.launches == before + 1
+    assert torch.equal(got, t_va.vector_add_plain(a, b))
+    assert torch.equal(got, torch.add(a, b))
+
+
+def test_weight_carriers_default_to_the_card(dev):
+    """params_from_jax, kv_from_jax and paged_kv_from_jax put their tensors
+    on the card unless the caller names another device."""
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    from physics_llm_inference_tpu_torch import convert
+
+    rng = np.random.default_rng(0)
+    quant = SimpleNamespace(
+        q=rng.integers(-127, 128, (2, 4, 6)).astype(np.int8),
+        s=rng.random((2, 1, 6)).astype(np.float32))
+    tree = {"embed": rng.random((8, 4)).astype(np.float32),
+            "norm": np.ones(4, np.float32), "lm_head": quant,
+            "blocks": {"wqkv": quant, "ln1": np.ones((2, 4), np.float32)}}
+    params = convert.params_from_jax(tree)
+    assert params["embed"].is_cuda and params["lm_head"].q.is_cuda
+    assert params["blocks"]["wqkv"].s.is_cuda
+    cache = SimpleNamespace(k=quant, v=quant, length=3)
+    kv = convert.kv_from_jax(cache)
+    assert kv.k.q.is_cuda and kv.v.s.is_cuda
+    pk, pv = convert.paged_kv_from_jax(quant)
+    assert pk.q.is_cuda and pv is None
+    k, v = convert.paged_kv_from_jax(tree["embed"], tree["embed"])
+    assert k.is_cuda and v.is_cuda
+    assert not convert.params_from_jax(tree, device="cpu")["embed"].is_cuda

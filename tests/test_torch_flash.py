@@ -78,7 +78,7 @@ def test_prefill_through_flash_matches_jax():
     jcfg = jcfg_mod.ModelConfig(**slice_cfg)
     tcfg = tcfg_mod.ModelConfig(**slice_cfg)
     jparams = quantize_params_int8(init_params(jax.random.PRNGKey(0), jcfg))
-    tparams = params_from_jax(to_numpy(jparams))
+    tparams = params_from_jax(to_numpy(jparams), device="cpu")
     rng = np.random.default_rng(0)
     prompts = [list(rng.integers(1, 512, n)) for n in (9, 30, 32)]
     jids, jlens = jgen.pad_and_stack(prompts)

@@ -51,7 +51,8 @@ def _setup(hq, hkv, B, S, seed=1):
                                       cache.as_slice())
     tok = np.asarray(jnp.argmax(logits, -1), np.int64)
     return dict(jcfg=jcfg, tcfg=tcfg, jparams=jparams,
-                tparams=params_from_jax(to_numpy(jparams)), kv=kv,
+                tparams=params_from_jax(to_numpy(jparams), device="cpu"),
+                kv=kv,
                 lens=np.array(jlens), vfrom=np.array(vfrom), tok=tok,
                 P=ids.shape[1])
 

@@ -48,7 +48,8 @@ def _setup(seed=0):
            * 0.05 + 0.01).astype(np.float32)
     x0 = rng.normal(size=(B, jcfg.hidden_dim)).astype(np.float32)
     return dict(jcfg=jcfg, tcfg=TConfig(**CFG), jparams=jparams,
-                tblocks=params_from_jax(to_numpy(jparams))["blocks"],
+                tblocks=params_from_jax(to_numpy(jparams),
+                                        device="cpu")["blocks"],
                 lens=lens, tables=tables, kv=kv, kvs=kvs, x0=x0)
 
 

@@ -34,7 +34,7 @@ def _models(dtype: str):
     jcfg = jcfg_mod.ModelConfig(dtype=dtype, **SLICE)
     tcfg = tcfg_mod.ModelConfig(dtype=dtype, **SLICE)
     jparams = quantize_params_int8(init_params(jax.random.PRNGKey(0), jcfg))
-    tparams = params_from_jax(to_numpy(jparams))
+    tparams = params_from_jax(to_numpy(jparams), device="cpu")
     return jcfg, tcfg, jparams, tparams
 
 

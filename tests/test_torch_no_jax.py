@@ -25,7 +25,10 @@ def test_walk_finds_every_module():
                      "kernels.paged_attention", "models.paged_transformer",
                      "runtime.paged_kv", "runtime.radix_cache", "native",
                      "sched.request", "sched.scheduler", "serve.engine",
-                     "serve.paged_engine"):
+                     "serve.paged_engine", "kernels.matmul",
+                     "kernels.membench", "kernels.hello_pallas",
+                     "specs.roofline", "utils.timing", "ops.ffn",
+                     "sched.static_batcher", "bench.micro", "bench.suite"):
         assert f"{port.__name__}.{expected}" in names
 
 

@@ -175,7 +175,8 @@ def test_dynamic_top_k_matches_reference(k):
 def toy():
     jcfg = JConfig(**TOY)
     jparams = j_init(jax.random.PRNGKey(0), jcfg)
-    return jcfg, TConfig(**TOY), jparams, params_from_jax(to_numpy(jparams))
+    return jcfg, TConfig(**TOY), jparams, params_from_jax(to_numpy(jparams),
+                                                          device="cpu")
 
 
 def _stream(seed: int, n: int):

@@ -33,7 +33,8 @@ TRASH = NB
 def model():
     jcfg = JConfig(**TOY)
     jparams = j_init(jax.random.PRNGKey(1), jcfg)
-    return jcfg, TConfig(**TOY), jparams, params_from_jax(to_numpy(jparams))
+    return jcfg, TConfig(**TOY), jparams, params_from_jax(to_numpy(jparams),
+                                                          device="cpu")
 
 
 def _pools(quantized: bool):
@@ -83,7 +84,7 @@ def _prefill_both(model, quantized):
     tables = np.full((4, MB), TRASH, np.int32)
     tables[:3, :3] = (rng.permutation(NB)[:9]).reshape(3, 3)
     jk, jv = _pools(quantized)
-    tk, tv = paged_kv_from_jax(*_np(jk, jv))
+    tk, tv = paged_kv_from_jax(*_np(jk, jv), device="cpu")
     logits = []
     for start, c in ((0, 8), (8, 16)):
         ids = np.zeros((4, c), np.int32)
@@ -159,6 +160,7 @@ def test_moe_and_tp_raise(model):
         cfg = dataclasses.replace(tcfg, **kw)
         with pytest.raises(NotImplementedError):
             tpt.paged_decode_step(tparams, torch.zeros(1, dtype=torch.int32),
-                                  *paged_kv_from_jax(*_np(*_pools(False))),
+                                  *paged_kv_from_jax(*_np(*_pools(False)),
+                                                     device="cpu"),
                                   torch.zeros((1, MB), dtype=torch.int32),
                                   torch.zeros(1, dtype=torch.int32), cfg)
