@@ -8,24 +8,27 @@ Phases, each of which raises on failure (exit code != 0, no final line):
 2. build: nvcc compiles csrc/*.cu into build/, one process per source, all
    in parallel (kernels/_build.py);
 3. each CUDA kernel (K1 int8_matmul, K2 int8_kv_decode_attention, K3
-   lmhead_greedy, K4 fused_decode_step, K5 flash_attention, K6
-   int8_paged_decode_attention, K7 paged_decode_attention, K8
-   fused_paged_decode_step, K9 tiled_matmul, K10 stream_copy, K11
-   strided_copy, K12 vector_add) against its plain torch version at the main
-   paths' shapes, with the tolerance stated, and both timed with CUDA
-   events, beside the kernel's bound at that shape and, where one PyTorch
-   call computes the same function, that call's time;
+   lmhead_greedy, K4 fused_decode_step in its modes W8A16, W4A16 and W8A8,
+   K5 flash_attention, K6 int8_paged_decode_attention, K7
+   paged_decode_attention, K8 fused_paged_decode_step, K9 tiled_matmul, K10
+   stream_copy, K11 strided_copy, K12 vector_add) against its plain torch
+   version at the main paths' shapes, with the tolerance stated, and both
+   timed with CUDA events, beside the kernel's bound at that shape and,
+   where one PyTorch call computes the same function, that call's time;
 4. slice parity: a model at the 7B widths with 2 layers runs prefill plus 8
    teacher-forced decode steps with the kernels and again with the kernels'
    entry points swapped for their plain versions (here, not in the package),
-   on the per-op and the fused dense decode paths and on the paged path in
-   the paged engine's default geometry (chunked flash prefill into INT8
-   block pools, fused paged decode); final hidden states or logits and
+   on the per-op and the fused dense decode paths (the fused one in W8A16,
+   W4A16 with INT4 weights and W8A8 with act_quant="int8") and on the paged
+   path in the paged engine's default geometry (chunked flash prefill into
+   INT8 block pools, fused paged decode); final hidden states or logits and
    greedy tokens are compared;
 5. the main paths at full size, on the 7B-class config (32 layers)
    initialized on the card from a seed: cached_generate at batch 64 with 128
    greedy tokens over an INT8 KV cache in the default ModelConfig at prompt
-   128 and 512, then on the per-op decode path (K2); then the paged serving
+   128 and 512, then on the per-op decode path (K2), then at prompt 128 in
+   W4A16 (INT4 block weights) and in W8A8, each of which must launch its K4
+   mode once a decode step; then the paged serving
    engine in the scripts/bench_serving7b.py configuration (INT8 pools, 512-
    token blocks, batch 64, horizon 8, radix on) serving 128 requests of
    prompt 576 (every fourth behind one of 8 shared 512-token prefixes) for 64
@@ -74,6 +77,14 @@ KERNELS = {  # name: (module, launch counter, CUDA source, TPU kernel replaced)
     "fused_decode_step": (
         "fused_decode", "launches", "csrc/fused_decode.cu",
         "physics_llm_inference_tpu/kernels/fused_decode.py:1200"),
+    # the same TPU kernel's other two bodies, each its own template instance
+    # and launch counter
+    "fused_decode_step_w4a16": (
+        "fused_decode", "w4a16_launches", "csrc/fused_decode.cu",
+        "physics_llm_inference_tpu/kernels/fused_decode.py:1200"),
+    "fused_decode_step_w8a8": (
+        "fused_decode", "w8a8_launches", "csrc/fused_decode.cu",
+        "physics_llm_inference_tpu/kernels/fused_decode.py:1200"),
     "flash_attention": (
         "flash_attention", "launches", "csrc/flash_attention.cu",
         "physics_llm_inference_tpu/kernels/flash_attention.py:310"),
@@ -95,6 +106,13 @@ KERNELS = {  # name: (module, launch counter, CUDA source, TPU kernel replaced)
     "vector_add": ("hello_pallas", "launches", "csrc/vector_add.cu",
                    "physics_llm_inference_tpu/kernels/hello_pallas.py:23"),
 }
+# K4's modes: the block weights' init, cfg.act_quant, the KERNELS entry
+# whose counter the mode's launches go to, the weight bits of the HBM floor
+FUSED_MODES = {"w8a16": ("init_params_int8", "none", "fused_decode_step", 8),
+               "w4a16": ("init_params_int4", "none",
+                         "fused_decode_step_w4a16", 4),
+               "w8a8": ("init_params_int8", "int8",
+                        "fused_decode_step_w8a8", 8)}
 # the microbenchmark path (phase 6) must launch these
 MICRO_KERNELS = ("tiled_matmul", "stream_copy", "strided_copy", "vector_add",
                  "int8_matmul", "flash_attention")
@@ -160,22 +178,29 @@ def read_launches() -> dict:
             for name in KERNELS}
 
 
+def rows_rel(a, b):
+    """Each row's relative error ||a - b|| / ||b||."""
+    return (a - b).norm(dim=-1) / b.norm(dim=-1).clamp_min(1e-30)
+
+
 def row_rel(a, b) -> float:
-    """Row-wise relative error ||a - b|| / ||b||, the worst row."""
-    return float(((a - b).norm(dim=-1)
-                  / b.norm(dim=-1).clamp_min(1e-30)).max())
+    """Row-wise relative error, the worst row."""
+    return float(rows_rel(a, b).max())
 
 
 def entry(err, ms, pms, nbytes, flops, peak="bf16", library_ms=None) -> dict:
     """A kernel's row: its numbers, and its bound at the row's shape: the
     larger of the bytes it must move (each input read once, each output
     written once) over the H100 SXM's 3.35 TB/s and its operations over the
-    data-sheet peak of their type (bf16 989 TFLOP/s, f32 67)."""
+    data-sheet peak of their type (bf16 989 TFLOP/s, int8 1,979 TOP/s, f32
+    67). `flops` is a count of `peak`'s type, or {type: count}."""
     from physics_llm_inference_tpu_torch.specs.gpu import H100_SXM as spec
 
     t_bytes = nbytes / spec.hbm_bandwidth * 1e3
-    rate = {"bf16": spec.peak_flops, "fp32": spec.fp32_tflops * 1e12}[peak]
-    t_ops = flops / rate * 1e3
+    rate = {"bf16": spec.peak_flops, "int8": spec.peak_int8_ops,
+            "fp32": spec.fp32_tflops * 1e12}
+    ops = flops if isinstance(flops, dict) else {peak: flops}
+    t_ops = sum(n / rate[kind] for kind, n in ops.items()) * 1e3
     return {"max_abs_err": err, "ms": ms, "plain_ms": pms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -324,7 +349,8 @@ def check_kernels(dev, flush) -> dict:
         f"{ms:.4f} ms ({d * v / ms / 1e6:.0f} GB/s of head), plain {pms:.4f} ms")
     out["lmhead_greedy"] = entry(err, ms, pms, nbytes(x, nw, lq, ls, tok.int()),
                                  2 * 64 * d * v)
-    out["fused_decode_step"] = check_fused(dev, flush)
+    for mode, (_, _, name, _) in FUSED_MODES.items():
+        out[name] = check_fused(dev, flush, mode)
     out["flash_attention"] = check_flash(dev, flush)
     out.update(check_paged_attention(dev, flush))
     out["fused_paged_decode_step"] = check_fused_paged(dev, flush)
@@ -332,34 +358,198 @@ def check_kernels(dev, flush) -> dict:
     return out
 
 
-def fused_bound(blocks, x, L, hkv, hd, hq, read_keys, written):
-    """(bytes, flops) of one fused decode step: every weight, scale and
-    norm once, the live K/V codes and scales read, the new ones written,
-    x in and out."""
+def fused_bound(blocks, x, L, hkv, hd, hq, read_keys, written,
+                act_quant="none"):
+    """(bytes, {type: operations}) of one fused decode step: every weight
+    (INT4: the packed codes), scale (INT4: the group scales) and norm once,
+    the live K/V codes and scales read, the new ones written, x in and out.
+    The block matmuls count K·N multiply-adds a row whatever the packing,
+    in int8 under W8A8 and bf16 otherwise; attention is bf16."""
+    from physics_llm_inference_tpu_torch.models.quant import QuantizedTensor4
+
     wts = [blocks[n] for n in ("wqkv", "wo", "w_gate_up", "w_down")]
     weights = sum(nbytes(w.q, w.s) for w in wts) + nbytes(blocks["ln1"],
                                                           blocks["ln2"])
     per_key = L * hkv * (2 * hd + 2 * 4)
-    flops = 2 * x.shape[0] * sum(w.q[0].numel() for w in wts) * L \
-        + 4 * hq * hd * L * (read_keys + written)
-    return (weights + per_key * (read_keys + written) + 2 * nbytes(x),
-            flops)
+    macs = sum(w.q[0].numel() * (2 if isinstance(w, QuantizedTensor4) else 1)
+               for w in wts)
+    matmul = 2 * x.shape[0] * macs * L
+    attn = 4 * hq * hd * L * (read_keys + written)
+    ops = ({"int8": matmul, "bf16": attn} if act_quant == "int8"
+           else {"bf16": matmul + attn})
+    return weights + per_key * (read_keys + written) + 2 * nbytes(x), ops
 
 
-def check_fused(dev, flush):
-    """K4 at the 7B widths, 2 layers, B = 64, S = 256, ragged valid_from,
-    the generate path's in-place write at slot == q_slot. Returns its
-    entry (max_abs_err of x_out)."""
+# W8A8's rules for a row-wise comparison of the kernel with the plain
+# version, each a (median row, worst row) limit on rows_rel. The kernel's
+# attention (an online softmax over key tiles) and the plain version's (one
+# softmax over all keys) round p * v_scale to bf16 apart. A bf16 attention
+# value that rounds apart can flip its int8 activation code, and a flipped
+# row maximum moves every code of its row, so single rows move by a few
+# percent: W8A8_TILED. Where no cached key is live, attention is the current
+# token's V in both versions, every product is exact in int32 and the norms
+# are correctly rounded, so most rows agree to the last bits; a code that
+# rounds apart at a near-tie in layer 0 still moves its row by up to ~1%
+# through layer 1's quantizers: W8A8_OWN_TOKEN. Each rule is checked against
+# controls, the plain version with one of its four activation quantization
+# points left out, which a sound rule must refuse.
+W8A8_TILED, W8A8_OWN_TOKEN = (2e-2, 1e-1), (1e-4, 2e-2)
+QUANT_POINTS = ("ln1", "attention", "ln2", "silu")
+
+
+def w8a8_rows_ok(rel, controls: dict, what: str, rule=W8A8_TILED) -> str:
+    """Hold `rel` (rows_rel of the kernel against the plain version) to
+    `rule`, and every control ({point: rows_rel of the plain version
+    without that quantization point, against the same plain run}) to
+    failing it. Returns the readings."""
+    import torch
+
+    said = f"median <= {rule[0]:g}, worst <= {rule[1]:g}"
+
+    def passes(r):
+        return (bool(torch.isfinite(r).all()) and float(r.median()) <= rule[0]
+                and float(r.max()) <= rule[1])
+
+    def reading(r):
+        return f"median {float(r.median()):.4g}, worst {float(r.max()):.4g}"
+
+    if not passes(rel):
+        raise AssertionError(f"{what}: {reading(rel)}, outside {said}")
+    for point, r in controls.items():
+        if passes(r):
+            raise AssertionError(
+                f"{what}: the control without the {point} quantization "
+                f"passes {said} too ({reading(r)}): the rule cannot tell a "
+                "kernel that skips it")
+    return (f"{reading(rel)} ({said}); controls without a quantization "
+            "point: " + ", ".join(f"{p} {reading(r)}"
+                                  for p, r in controls.items()))
+
+
+class quant_point_off:
+    """The plain fused step with one W8A8 activation quantization point
+    (QUANT_POINTS) left out: that point's f32 row goes into its product
+    unquantized. fused_decode_step_plain quantizes, in each layer, the ln1
+    row, k, v, the attention row, the ln2 row and the silu row, in that
+    order; a run that makes another number of calls raises."""
+
+    def __init__(self, point: str, layers: int):
+        self.at = {"ln1": 0, "attention": 3, "ln2": 4, "silu": 5}[point]
+        self.layers = layers
+        self.kf = kernel_module("fused_decode_step")
+
+    def __enter__(self):
+        import torch
+
+        quant = self.quant = self.kf._quant
+        self.calls = 0
+
+        def off(t):
+            at, self.calls = self.calls % 6, self.calls + 1
+            if at == self.at:
+                return t.float(), torch.ones_like(t[..., :1], dtype=torch.float32)
+            return quant(t)
+
+        self.kf._quant = off
+
+    def __exit__(self, *exc):
+        self.kf._quant = self.quant
+        if exc[0] is None and self.calls != 6 * self.layers:
+            raise AssertionError(f"quant_point_off: {self.calls} quantizer "
+                                 f"calls, expected {6 * self.layers}")
+
+
+def w8a8_controls(run, want, layers: int) -> dict:
+    """{point: rows_rel(run() without that quantization point, want)}."""
+    out = {}
+    for point in QUANT_POINTS:
+        with quant_point_off(point, layers):
+            out[point] = rows_rel(run(), want)
+    return out
+
+
+def slot_codes(got_c, want_c, slot: int, what: str, deep: bool = True,
+               strict: int = 1) -> list:
+    """The new K/V codes at `slot` of the kernel's cache against the plain
+    version's. The first `strict` layers: within one level, >= 99.9% equal
+    (layer 0 sees the same input, but the kernel's f32 sums, in WMMA tiles
+    and k-splits, and the plain version's run in other orders, so a bf16
+    rounding of qkv can flip); with `deep`, the later ones within one level
+    on >= 99%. Returns the readings, with the scales' relative error."""
+    notes = []
+    for i, name in ((0, "k"), (2, "v")):
+        d = (got_c[i][:, :, slot].int() - want_c[i][:, :, slot].int()).abs()
+        eq = float((d[:strict] == 0).float().mean())
+        if int(d[:strict].max()) > 1 or eq < 0.999:
+            raise AssertionError(f"{what}: {name} codes of layers < {strict}: "
+                                 f"max diff {int(d[:strict].max())}, equal "
+                                 f"{eq:.5f}")
+        note = f"{name} codes of layers < {strict} equal {eq:.5f}"
+        if deep and strict < d.shape[0]:
+            near = float((d[strict:] <= 1).float().mean())
+            if near < 0.99:
+                raise AssertionError(f"{what}: {name} codes of deeper layers "
+                                     f"within one level {near:.5f}")
+            note += f", deeper within one level {near:.5f}"
+        notes.append(note)
+    for i in (1, 3):
+        sr = ((got_c[i][..., slot] - want_c[i][..., slot]).abs()
+              / want_c[i][..., slot].abs()).max()
+        notes.append(f"scale rel err {float(sr):.3g}")
+    return notes
+
+
+def check_w8a8_exact(blocks, x, cache, cfg, slot: int) -> str:
+    """K4 W8A8 where no cached key is live (valid_from = q_slot): each row
+    attends to its own token alone, so attention returns that token's V in
+    both versions: the step is held to W8A8_OWN_TOKEN, the new codes of
+    every layer to layer 0's rule, and the controls to failing the first."""
     import torch
 
     from physics_llm_inference_tpu_torch.kernels import fused_decode as kf
-    from physics_llm_inference_tpu_torch.models.config import ModelConfig
-    from physics_llm_inference_tpu_torch.models.quant import init_params_int8
     from physics_llm_inference_tpu_torch.ops.rope import rope_frequencies
 
-    cfg = ModelConfig(num_layers=2, **WIDTHS)
+    B, dev = x.shape[0], x.device
+    qslot = torch.full((B,), slot, dtype=torch.int32, device=dev)
+    pos = torch.zeros(B, dtype=torch.long, device=dev)
+    cos, sin = rope_frequencies(cfg.head_dim, cfg.max_seq_len, device=dev)
+    args = (qslot, qslot.clone(), cos[pos], sin[pos], cfg)
+    kw = dict(slot=slot, write_cache=True)
+    got_c = [t.clone() for t in cache]
+    want_c = [t.clone() for t in cache]
+    got = kf.fused_decode_step(blocks, x, *got_c, *args, **kw)[0].float()
+    want = kf.fused_decode_step_plain(blocks, x, *want_c, *args,
+                                      **kw)[0].float()
+    torch.cuda.synchronize()
+
+    def plain():
+        return kf.fused_decode_step_plain(
+            blocks, x, *[t.clone() for t in cache], *args, **kw)[0].float()
+
+    what = "K4 W8A8, no cached key"
+    rows = w8a8_rows_ok(rows_rel(got, want),
+                        w8a8_controls(plain, want, cfg.num_layers), what,
+                        W8A8_OWN_TOKEN)
+    codes = slot_codes(got_c, want_c, slot, what, strict=cfg.num_layers)
+    return f"with no cached key x_out {rows}; {'; '.join(codes)}"
+
+
+def check_fused(dev, flush, mode="w8a16"):
+    """K4 in `mode` (FUSED_MODES) at the 7B widths, 2 layers, B = 64,
+    S = 256, ragged valid_from, the generate path's in-place write at
+    slot == q_slot. Returns its entry (max_abs_err of x_out)."""
+    import torch
+
+    from physics_llm_inference_tpu_torch.kernels import fused_decode as kf
+    from physics_llm_inference_tpu_torch.models import quant
+    from physics_llm_inference_tpu_torch.models.config import ModelConfig
+    from physics_llm_inference_tpu_torch.ops.rope import rope_frequencies
+
+    init, act, name, _ = FUSED_MODES[mode]
+    tag = "K4" if mode == "w8a16" else f"K4 {mode.upper()}"
+    cfg = ModelConfig(num_layers=2, act_quant=act, **WIDTHS)
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
-    blocks = init_params_int8(g, cfg)["blocks"]
+    blocks = getattr(quant, init)(g, cfg)["blocks"]
     L, B, S, slot = 2, 64, 256, 200
     hkv, hd = cfg.num_kv_heads, cfg.head_dim
     cache = []
@@ -377,13 +567,27 @@ def check_fused(dev, flush):
     kw = dict(slot=slot, write_cache=True)
     got_c = [t.clone() for t in cache]
     want_c = [t.clone() for t in cache]
+    counter = KERNELS[name][1]
+    before = getattr(kf, counter)
     got = kf.fused_decode_step(blocks, x, *got_c, *args, **kw)[0].float()
     want = kf.fused_decode_step_plain(blocks, x, *want_c, *args,
                                       **kw)[0].float()
     torch.cuda.synchronize()
+    if getattr(kf, counter) != before + 1:
+        raise AssertionError(f"{tag}: the launch did not go to {counter}")
     rel = row_rel(got, want)
-    if not bool(torch.isfinite(got).all()) or rel > 2e-2:
-        raise AssertionError(f"K4: x_out row-wise relative error {rel:.4g} "
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{tag}: x_out not finite")
+    if mode == "w8a8":
+        def plain():
+            return kf.fused_decode_step_plain(
+                blocks, x, *[t.clone() for t in cache], *args, **kw)[0].float()
+
+        rows = (w8a8_rows_ok(rows_rel(got, want), w8a8_controls(plain, want, L),
+                             f"{tag} x_out")
+                + "; " + check_w8a8_exact(blocks, x, cache, cfg, slot))
+    elif rel > 2e-2:
+        raise AssertionError(f"{tag}: x_out row-wise relative error {rel:.4g} "
                              "> 2e-2")
     for i, name in enumerate(("k", "k scale", "v", "v scale")):
         a, b, c = got_c[i], want_c[i], cache[i]
@@ -393,34 +597,18 @@ def check_fused(dev, flush):
                    else a[..., keep])
         ref = c[:, :, keep] if a.dtype == torch.int8 else c[..., keep]
         if not torch.equal(outside, ref):
-            raise AssertionError(f"K4: {name} cache changed outside the slot")
-    codes = []
-    for i, name in ((0, "k"), (2, "v")):
-        a = got_c[i][:, :, slot].int()
-        b = want_c[i][:, :, slot].int()
-        d = (a - b).abs()
-        l0 = float((d[0] == 0).float().mean())
-        deep = float((d[1:] <= 1).float().mean())
-        # layer 0 sees the same input, but the kernel's f32 sums (WMMA
-        # tiles, k-splits) and the plain version's (cuBLAS) run in other
-        # orders, so a bf16 rounding of qkv can flip: one level, rarely
-        if int(d[0].max()) > 1 or l0 < 0.999 or deep < 0.99:
-            raise AssertionError(f"K4: {name} codes: layer 0 max diff "
-                                 f"{int(d[0].max())}, equal {l0:.5f}; deeper "
-                                 f"within one level {deep:.5f}")
-        codes.append(f"{name} layer-0 codes equal {l0:.5f}, deeper within "
-                     f"one level {deep:.5f}")
-    for i in (1, 3):
-        sr = ((got_c[i][..., slot] - want_c[i][..., slot]).abs()
-              / want_c[i][..., slot].abs()).max()
-        codes.append(f"scale rel err {float(sr):.3g}")
+            raise AssertionError(f"{tag}: {name} cache changed outside the "
+                                 "slot")
+    # W8A8 holds its deeper layers' codes in check_w8a8_exact: here a flipped
+    # activation code of layer 0 reaches them
+    codes = slot_codes(got_c, want_c, slot, tag, deep=mode != "w8a8")
     # fixed-order sums, no float atomics: a second launch on the same
     # inputs gives the same bits
     again_c = [t.clone() for t in cache]
     again = kf.fused_decode_step(blocks, x, *again_c, *args, **kw)[0].float()
     if not torch.equal(again, got) or not all(
             torch.equal(a, b) for a, b in zip(again_c, got_c)):
-        raise AssertionError("K4: two launches on the same inputs differ")
+        raise AssertionError(f"{tag}: two launches on the same inputs differ")
     err = float((got - want).abs().max())
     ms = time_ms(lambda: kf.fused_decode_step(blocks, x, *got_c, *args, **kw),
                  flush)
@@ -429,14 +617,17 @@ def check_fused(dev, flush):
     wbytes = sum(blocks[n].q.numel() for n in ("wqkv", "wo", "w_gate_up",
                                                "w_down"))
     live = int((qslot - vfrom).sum()) * L * hkv * hd * 2
-    log(f"K4 fused_decode_step 7B widths L={L} B={B} S={S}: x_out row-wise "
-        f"rel err {rel:.4g} (2e-2), max abs {err:.4g}; {'; '.join(codes)}; "
-        f"cache outside the slot unchanged; two launches bit-equal; kernel "
-        f"{ms:.4f} ms "
+    bound = entry(err, ms, pms, *fused_bound(
+        blocks, x, L, hkv, hd, cfg.num_heads, int((qslot - vfrom).sum()), B,
+        act))
+    log(f"{tag} fused_decode_step 7B widths L={L} B={B} S={S}: x_out "
+        f"row-wise rel err {rel:.4g} "
+        f"({rows if mode == 'w8a8' else '2e-2'}), max abs {err:.4g}; "
+        f"{'; '.join(codes)}; cache outside the slot unchanged; two launches "
+        f"bit-equal; kernel {ms:.4f} ms "
         f"({(wbytes + live) / ms / 1e6:.0f} GB/s of weights + live KV), "
-        f"plain {pms:.4f} ms")
-    return entry(err, ms, pms, *fused_bound(
-        blocks, x, L, hkv, hd, cfg.num_heads, int((qslot - vfrom).sum()), B))
+        f"plain {pms:.4f} ms, bound {bound['bound_ms']:.4f} ms")
+    return bound
 
 
 def check_flash(dev, flush):
@@ -820,44 +1011,114 @@ def run_slice(params, cfg, prompts, steps_tokens, dev):
     return logits0, seen
 
 
-def slice_parity(dev, fused: bool):
-    """Phase 4: kernels vs plain entry points on a 2-layer 7B-width model,
-    on the fused (default) or the per-op decode path."""
+class plain_entry_points:
+    """Within the block, the transformer's references to every kernel entry
+    point are its plain version (here, not in the package)."""
+
+    def __enter__(self):
+        from physics_llm_inference_tpu_torch.models import transformer as tf
+
+        self.tf = tf
+        self.saved = {n: getattr(tf, n) for n in KERNELS if hasattr(tf, n)}
+        for n in self.saved:
+            setattr(tf, n, getattr(kernel_module(n), f"{n}_plain"))
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.tf, n, fn)
+
+
+def lockstep_slice(params, cfg, prompts, steps_tokens, dev):
+    """W8A8's phase 4: prefill with the kernels, then each teacher-forced
+    decode step from the same cache with the kernels, and with the plain
+    entry points on a copy of the cache as it was before the step: as they
+    are, and without each quantization point (the controls). Returns per
+    step ((hidden, token) of the kernels, (hidden, token) of the plain
+    versions, {point: hidden of its control})."""
     import torch
 
     from physics_llm_inference_tpu_torch.models import transformer as tf
-    from physics_llm_inference_tpu_torch.models.config import ModelConfig
-    from physics_llm_inference_tpu_torch.models.quant import init_params_int8
+    from physics_llm_inference_tpu_torch.runtime import generate as gen
+    from physics_llm_inference_tpu_torch.runtime.kv_cache import KVCache
 
-    km = kernel_module("int8_matmul")
-    cfg = ModelConfig(num_layers=2, fused_decode=fused, **WIDTHS)
+    ids, lens = gen.pad_and_stack(prompts, device=dev)
+    b, p = ids.shape
+    cache = KVCache.create(cfg, b, p + len(steps_tokens), dtype=torch.int8,
+                           device=dev)
+    _, kv, vfrom = gen._prefill(params, cfg, ids, lens, cache.as_slice())
+
+    def step(i, tok, k, v):
+        seen = []
+        head = tf.lmhead_greedy
+
+        def spy(x, *a, **kw):
+            t = head(x, *a, **kw)
+            seen.append((x.float().clone(), t.clone()))
+            return t
+
+        tf.lmhead_greedy = spy
+        try:
+            slot = p + i
+            tf.forward(params, tok[:, None], cfg, kv=tf.KVSlice(k, v, slot),
+                       positions=(lens + i)[:, None],
+                       slots=torch.full((b, 1), slot, dtype=torch.int32,
+                                        device=dev),
+                       valid_from=vfrom, last_only=True, greedy_head=True)
+            torch.cuda.synchronize()
+        finally:
+            tf.lmhead_greedy = head
+        return seen[0]
+
+    out = []
+    for i, tok in enumerate(steps_tokens):
+        was = [t.clone() for t in (kv.k.q, kv.k.s, kv.v.q, kv.v.s)]
+
+        def plain():
+            with plain_entry_points():
+                return step(i, tok, tf.QuantKV(was[0].clone(), was[1].clone()),
+                            tf.QuantKV(was[2].clone(), was[3].clone()))
+
+        got = step(i, tok, kv.k, kv.v)
+        want = plain()
+        controls = {}
+        for point in QUANT_POINTS:
+            with quant_point_off(point, cfg.num_layers):
+                controls[point] = plain()[0]
+        out.append((got, want, controls))
+    return out
+
+
+def slice_parity(dev, fused: bool, mode: str = "w8a16"):
+    """Phase 4: kernels vs plain entry points on a 2-layer 7B-width model,
+    on the fused decode path in `mode` (FUSED_MODES) or the per-op one."""
+    import torch
+
+    from physics_llm_inference_tpu_torch.models import quant
+    from physics_llm_inference_tpu_torch.models.config import ModelConfig
+
+    init, act, fused_name, _ = FUSED_MODES[mode]
+    cfg = ModelConfig(num_layers=2, fused_decode=fused, act_quant=act,
+                      **WIDTHS)
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
-    params = init_params_int8(g, cfg)
+    params = getattr(quant, init)(g, cfg)
     lens = torch.randint(64, PROMPT + 1, (BATCH,), generator=g, device=dev)
     prompts = [torch.randint(1, cfg.vocab_size, (int(n),), generator=g,
                              device=dev).tolist() for n in lens]
     steps = [torch.randint(1, cfg.vocab_size, (BATCH,), generator=g,
                            device=dev) for _ in range(8)]
 
-    path = (("int8_matmul", "fused_decode_step", "lmhead_greedy") if fused
+    path = (("int8_matmul", fused_name, "lmhead_greedy") if fused
             else ("int8_matmul", "int8_kv_decode_attention", "lmhead_greedy"))
+    if mode == "w8a8":
+        return lockstep_parity(dev, params, cfg, prompts, steps, path)
     before = read_launches()
     logits_k, seen_k = run_slice(params, cfg, prompts, steps, dev)
     after = read_launches()
     used = {n: after[n] - before[n] for n in path}
     if min(used.values()) == 0:
         raise AssertionError(f"slice parity: kernels not all used {used}")
-    # the transformer's references to every kernel entry point, swapped for
-    # the plain versions
-    names = [n for n in KERNELS if hasattr(tf, n)]
-    saved = {n: getattr(tf, n) for n in names}
-    for n in names:
-        setattr(tf, n, getattr(kernel_module(n), f"{n}_plain"))
-    try:
+    with plain_entry_points():
         logits_p, seen_p = run_slice(params, cfg, prompts, steps, dev)
-    finally:
-        for n, fn in saved.items():
-            setattr(tf, n, fn)
 
     def rel_check(a, b, what):
         # row-wise relative error ||a - b|| / ||b|| (rtol 2e-2): single
@@ -874,18 +1135,65 @@ def slice_parity(dev, fused: bool):
     for i, ((xk, tk), (xp, tp)) in enumerate(zip(seen_k, seen_p)):
         worst = max(worst, rel_check(xk, xp, f"step {i} hidden"))
         # the kernel's token must be a bf16 max of the plain run's logits
-        xn = tf.rms_norm(xp.bfloat16(), params["norm"], cfg.norm_eps)
-        lg = km.int8_matmul_plain(xn, params["lm_head"].q, params["lm_head"].s,
-                                  out_dtype=torch.float32).bfloat16().float()
-        top = lg.max(dim=-1).values
-        gap = top - lg.gather(1, tk.long()[:, None])[:, 0]
-        if bool((gap > bf16_ulp(top)).any()):
+        if bool(off_the_max(params, cfg, xp, tk).any()):
             raise AssertionError(f"slice parity step {i}: token off the max")
         ties += int((tk != tp).sum())
-    log(f"slice parity, {'fused' if fused else 'per-op'} decode (7B "
-        f"widths, 2 layers, B={BATCH}, 8 decode steps): max row-wise "
+    log(f"slice parity, {f'fused {mode.upper()}' if fused else 'per-op'} "
+        f"decode (7B widths, 2 layers, B={BATCH}, 8 decode steps): max row-wise "
         f"relative error {worst:.4g} (rtol 2e-2), tokens equal except "
         f"{ties} bf16 near-ties, kernel launches {used}")
+
+
+def off_the_max(params, cfg, xp, tk):
+    """Rows whose token `tk` lies more than one bf16 ulp below the row max
+    of the plain lm_head's logits of the hidden states `xp`."""
+    import torch
+
+    from physics_llm_inference_tpu_torch.models import transformer as tf
+
+    km = kernel_module("int8_matmul")
+    xn = tf.rms_norm(xp.bfloat16(), params["norm"], cfg.norm_eps)
+    lg = km.int8_matmul_plain(xn, params["lm_head"].q, params["lm_head"].s,
+                              out_dtype=torch.float32).bfloat16().float()
+    top = lg.max(dim=-1).values
+    return top - lg.gather(1, tk.long()[:, None])[:, 0] > bf16_ulp(top)
+
+
+def lockstep_parity(dev, params, cfg, prompts, steps, path):
+    """Phase 4 for W8A8 (`lockstep_slice`): each step's hidden state under
+    `w8a8_rows_ok`, with its controls. On the rows within 2e-3, at
+    least a quarter of all, the kernel's token must be a bf16 max of the
+    plain run's logits, as in the other modes; a row moved by a flipped
+    activation code may pick another token where the top logits are
+    close."""
+    before = read_launches()
+    pairs = lockstep_slice(params, cfg, prompts, steps, dev)
+    after = read_launches()
+    used = {n: after[n] - before[n] for n in path}
+    if min(used.values()) == 0 or used[path[1]] != len(steps):
+        raise AssertionError(f"slice parity W8A8: kernels not used as "
+                             f"expected {used}")
+    notes, near, differ, close_at = [], 0, 0, 2e-3
+    for i, ((xk, tk), (xp, tp), controls) in enumerate(pairs):
+        rel = rows_rel(xk, xp)
+        notes.append(w8a8_rows_ok(
+            rel, {p: rows_rel(c, xp) for p, c in controls.items()},
+            f"slice parity W8A8 step {i} hidden"))
+        close = rel <= close_at
+        if bool(off_the_max(params, cfg, xp, tk)[close].any()):
+            raise AssertionError(f"slice parity W8A8 step {i}: token off the "
+                                 f"max on a row within {close_at:g}")
+        near += int(close.sum())
+        differ += int((tk != tp).sum())
+    if near < len(pairs) * BATCH // 4:
+        raise AssertionError(f"slice parity W8A8: {near} of "
+                             f"{len(pairs) * BATCH} rows within "
+                             f"{close_at:g}, fewer than a quarter")
+    log(f"slice parity, fused W8A8 decode in lockstep (7B widths, 2 layers, "
+        f"B={BATCH}, 8 decode steps, each from the kernel run's cache): "
+        f"{' | '.join(notes)}; tokens a bf16 max of the plain logits on the "
+        f"{near} rows within {close_at:g}; tokens equal except {differ} of "
+        f"{len(pairs) * BATCH}; kernel launches {used}")
 
 
 PAGED_SWAPS = {  # module of the paged path -> the kernel entry points it calls
@@ -1021,9 +1329,10 @@ def paged_slice_parity(dev):
 
 
 def full_run(dev, params, prompt: int, fused: bool, layers: int,
-             expect) -> dict:
-    """Phase 5: one path of the main path at full width, `layers` deep.
-    Returns the launch counts of its timed run."""
+             expect, mode: str = "w8a16") -> dict:
+    """Phase 5: one path of the main path at full width, `layers` deep, the
+    fused decode in `mode` (FUSED_MODES). Returns the launch counts of its
+    timed run."""
     import torch
 
     from physics_llm_inference_tpu_torch.models.config import ModelConfig
@@ -1034,7 +1343,9 @@ def full_run(dev, params, prompt: int, fused: bool, layers: int,
     from physics_llm_inference_tpu_torch.specs.gpu import (decode_step_floor_s,
                                                            get_gpu_spec)
 
-    cfg = ModelConfig(num_layers=layers, fused_decode=fused, **WIDTHS)
+    _, act, fused_name, wbits = FUSED_MODES[mode]
+    cfg = ModelConfig(num_layers=layers, fused_decode=fused, act_quant=act,
+                      **WIDTHS)
     g = torch.Generator().manual_seed(SEED + prompt)
     prompts = torch.randint(1, cfg.vocab_size, (BATCH, prompt),
                             generator=g).tolist()
@@ -1051,11 +1362,13 @@ def full_run(dev, params, prompt: int, fused: bool, layers: int,
     out = run()
     counts = read_launches()
     what = (f"{layers}-layer 7B, prompt {prompt}, "
-            f"{'fused' if fused else 'per-op'} decode")
+            f"{f'fused {mode.upper()}' if fused else 'per-op'} decode")
     log(f"{what}: warm-up run {warm:.1f} s; launches during the timed run: "
         f"{counts}")
     missing = [n for n in expect if counts[n] == 0]
-    if missing or (fused and counts["fused_decode_step"] != NEW_TOKENS):
+    others = [FUSED_MODES[m][2] for m in FUSED_MODES if m != mode]
+    if missing or (fused and counts[fused_name] != NEW_TOKENS) or any(
+            counts[n] for n in others):
         raise AssertionError(f"{what}: kernels of the path not launched "
                              f"as expected: {counts}")
     toks = out.tokens
@@ -1067,10 +1380,14 @@ def full_run(dev, params, prompt: int, fused: bool, layers: int,
     spec = get_gpu_spec()
     kv = calculate_kv_cache_size(BATCH, prompt + NEW_TOKENS, cfg.num_layers,
                                  cfg.num_kv_heads, cfg.head_dim, 1)
-    floor_s = decode_step_floor_s(cfg.param_count(), kv["total_bytes"], spec)
+    # the weights at their width, as bench.py:120 counts them (INT4: half a
+    # byte a parameter; scales left out)
+    floor_s = decode_step_floor_s(cfg.param_count() * wbits // 8,
+                                  kv["total_bytes"], spec)
     tok_s = out.decode_tokens_per_s
     share = tok_s / (BATCH / floor_s)
-    log(f"{what} (B={BATCH}, {NEW_TOKENS} greedy tokens, INT8 W+KV): "
+    log(f"{what} (B={BATCH}, {NEW_TOKENS} greedy tokens, "
+        f"{mode.upper()} with INT8 KV): "
         f"prefill (TTFT) {out.prefill_s * 1e3:.1f} ms, decode "
         f"{out.decode_s * 1e3:.1f} ms, {tok_s:.1f} tok/s, "
         f"{out.time_per_output_token_s * 1e3:.2f} ms/step; HBM floor "
@@ -1082,11 +1399,13 @@ def full_run(dev, params, prompt: int, fused: bool, layers: int,
 
 def full_runs(dev) -> dict:
     """Phase 5: the default config at prompt 128 and 512, then the per-op
-    decode path. Returns each kernel's launches summed over the timed runs."""
+    decode path, then W8A8 and W4A16 at prompt 128. Returns each kernel's
+    launches summed over the timed runs."""
     import torch
 
     from physics_llm_inference_tpu_torch.models.config import ModelConfig
-    from physics_llm_inference_tpu_torch.models.quant import init_params_int8
+    from physics_llm_inference_tpu_torch.models.quant import (
+        init_params_int4, init_params_int8, quantized_param_bytes)
 
     cfg = ModelConfig(num_layers=32, **WIDTHS)
     t0 = time.perf_counter()
@@ -1101,7 +1420,23 @@ def full_runs(dev) -> dict:
                      fused + ("flash_attention",)),
             full_run(dev, params, PROMPT, False, 32,
                      ("int8_matmul", "int8_kv_decode_attention",
-                      "lmhead_greedy"))]
+                      "lmhead_greedy")),
+            # W8A8: the same INT8 weights, activations quantized in K4
+            full_run(dev, params, PROMPT, True, 32,
+                     ("int8_matmul", "fused_decode_step_w8a8",
+                      "lmhead_greedy"), mode="w8a8")]
+    # W4A16: INT4 block weights (the lm_head int8), prefill linears
+    # dequantized into a library GEMM, K1 on the lm_head, K3, K4 W4A16
+    t0 = time.perf_counter()
+    p4 = init_params_int4(torch.Generator(device=dev).manual_seed(SEED), cfg)
+    torch.cuda.synchronize()
+    log(f"7B INT4 init on the card: {time.perf_counter() - t0:.1f} s, "
+        f"{quantized_param_bytes(p4)}")
+    runs.append(full_run(dev, p4, PROMPT, True, 32,
+                         ("int8_matmul", "fused_decode_step_w4a16",
+                          "lmhead_greedy"), mode="w4a16"))
+    del p4
+    torch.cuda.empty_cache()
     return {n: sum(r[n] for r in runs) for n in KERNELS}, params
 
 
@@ -1342,7 +1677,8 @@ def main() -> int:
     del flush
     torch.cuda.empty_cache()
     slice_parity(dev, fused=False)
-    slice_parity(dev, fused=True)
+    for mode in FUSED_MODES:
+        slice_parity(dev, fused=True, mode=mode)
     paged_slice_parity(dev)
     torch.cuda.empty_cache()
     dense, params = full_runs(dev)

@@ -3,8 +3,11 @@
 `params_from_jax` takes the JAX parameter pytree with numpy leaves (e.g.
 `jax.tree_util.tree_map(np.asarray, params)`) and returns the port's dict
 with the same keys and layouts. Quantized leaves are recognised by their
-`.q`/`.s` attributes, so this module never imports jax. `kv_from_jax`
-carries a slot KV cache, `paged_kv_from_jax` the paged engine's pools.
+`.q`/`.s` attributes, so this module never imports jax: a JAX
+`QuantizedTensor4` (by its class name) becomes the port's
+`QuantizedTensor4`, a `QuantizedTensor` the port's `QuantizedTensor`, and a
+leaf whose shapes fit neither layout raises. `kv_from_jax` carries a slot
+KV cache, `paged_kv_from_jax` the paged engine's pools.
 Each puts its tensors on the card (`device=None` means "cuda") unless the
 caller names another device, e.g. `device="cpu"`.
 """
@@ -13,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .models.quant import QuantizedTensor
+from .models.quant import QuantizedTensor, QuantizedTensor4
 from .models.transformer import QuantKV
 from .runtime.kv_cache import KVCache
 
@@ -33,10 +36,31 @@ def _is_quant(leaf) -> bool:
     return hasattr(leaf, "q") and hasattr(leaf, "s")
 
 
+def _quant_leaf(leaf, device):
+    """A quantized JAX leaf as the port's type, its int8 values and f32
+    scales in their dtypes and layouts. INT8: q (..., K, N), s (..., 1, N)
+    (or (1, N) for a 2-D q). INT4: packed q (..., K, N/2), s (..., K/G, N)
+    with G dividing K. Anything else raises here, not at first use."""
+    int4 = type(leaf).__name__ == "QuantizedTensor4"
+    q, s = np.asarray(leaf.q), np.asarray(leaf.s)
+    ok = (q.dtype == np.int8 and s.dtype == np.float32 and q.ndim >= 2
+          and s.ndim == q.ndim and s.shape[:-2] == q.shape[:-2])
+    if ok and int4:
+        ok = (s.shape[-1] == 2 * q.shape[-1] and s.shape[-2] > 0
+              and q.shape[-2] % s.shape[-2] == 0)
+    elif ok:
+        ok = s.shape[-1] == q.shape[-1] and s.shape[-2] == 1
+    if not ok:
+        raise ValueError(f"{type(leaf).__name__} with q {q.dtype}{q.shape} and "
+                         f"s {s.dtype}{s.shape} fits neither the int8 nor the "
+                         "int4 layout")
+    cls = QuantizedTensor4 if int4 else QuantizedTensor
+    return cls(_tensor(q, device), _tensor(s, device))
+
+
 def _leaf(leaf, device, dtype):
     if _is_quant(leaf):
-        # int8 values and f32 scales keep their dtypes and layouts
-        return QuantizedTensor(_tensor(leaf.q, device), _tensor(leaf.s, device))
+        return _quant_leaf(leaf, device)
     return _tensor(leaf, device, dtype)
 
 

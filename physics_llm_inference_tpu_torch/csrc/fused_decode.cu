@@ -1,8 +1,25 @@
-// K4 and K8: the whole INT8 W+KV decode step for all layers, in one launch.
+// K4 and K8: the whole INT8-KV decode step for all layers, in one launch.
 //
 // K4 replaces the TPU kernel physics_llm_inference_tpu/kernels/
-// fused_decode.py (fused_decode_step -> _kernel) in its default configuration
-// (K-blocked weight tiles, silu per DOWN tile, bf16 activations). K8 replaces
+// fused_decode.py (fused_decode_step -> _kernel) in its three modes, each an
+// instance of fused_decode_kernel<false, kMode> (the mode is a template
+// parameter; no inner loop branches on it at run time):
+//  - W8A16, the default (K-blocked weight tiles, silu per DOWN tile, bf16
+//    activations): the W8A16 tile, f32 K-split partials, the per-channel
+//    scale after their sum;
+//  - W4A16: nibble-packed INT4 weights with group scales (w4a16_tile.cuh).
+//    A work item reads each packed byte once and makes both output columns
+//    it holds (j and N/2 + j); its K range is whole scale groups, and each
+//    group's f32 partial is scaled by the group's scale row and added in K
+//    order in registers (the TPU kernel's `acc += part * s` per K-tile), so
+//    the f32 workspace receives scaled partials;
+//  - W8A8 (act_quant = "int8"): each activation row is quantized to int8
+//    over its absmax after ln1, after attention (one more phase and barrier
+//    a layer), after ln2 and after silu (a per-request phase), into `a8`
+//    with its scale in `asc`; the int8 x int8 tile (w8a8_tile.cuh)
+//    accumulates exact int32 K-split partials, summed as integers, then
+//    (f32(sum) * row_scale) * w_scale.
+// K8 replaces
 // fused_paged_decode_step -> _paged_kernel_r5 of the same file: the same
 // kernel with a paged address mode in the attention phase only (the
 // fused_decode_kernel<true> instance). Its KV lives in the merged INT8 block
@@ -21,8 +38,9 @@
 // current token attends through the dequantized int8 values the cache will
 // hold; p * v_scale is rounded to bf16 before P@V.
 //
-// Bound on the H100: int8 weight bytes (at B = 64 every weight byte feeds 128
-// flop, far below the ~295 flop/byte ridge) plus the live KV bytes. The TPU
+// Bound on the H100: weight bytes (at B = 64 every int8 weight byte feeds 128
+// operations, every packed INT4 byte 256, far below the ~295 flop/byte bf16
+// and ~590 op/byte int8 ridges) plus the live KV bytes. The TPU
 // kernel keeps activations in VMEM and walks one sequential grid; here one
 // persistent cooperative launch covers the step (grid = SMs x resident
 // blocks), and the phases of a layer are separated by grid-wide barriers.
@@ -51,19 +69,28 @@
 #include <stdint.h>
 
 #include "int8_kv_attention.cuh"
+#include "w4a16_tile.cuh"
 #include "w8a16_tile.cuh"
+#include "w8a8_tile.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int THREADS = 128;
-static_assert(THREADS == w8a16::THREADS && THREADS == kv_attn::THREADS,
+static_assert(THREADS == w8a16::THREADS && THREADS == kv_attn::THREADS &&
+                  THREADS == w8a8::THREADS,
               "the phases share one block shape");
 constexpr int NWARPS = THREADS / 32;
+constexpr size_t cmax(size_t a, size_t b) { return a > b ? a : b; }
 constexpr size_t SMEM_BYTES =
-    sizeof(w8a16::Smem) > sizeof(kv_attn::Smem) ? sizeof(w8a16::Smem)
-                                                : sizeof(kv_attn::Smem);
+    cmax(cmax(sizeof(w8a16::Smem), sizeof(kv_attn::Smem)),
+         cmax(sizeof(w4a16::Smem), sizeof(w8a8::Smem)));
+
+// The K4 modes (kernels/fused_decode.py numbers them alike).
+constexpr int W8A16 = 0, W4A16 = 1, W8A8 = 2;
+// W8A8: the rows of `asc`, one per activation quantization point.
+constexpr int ASC_LN1 = 0, ASC_ATTN = 1, ASC_LN2 = 2, ASC_FF = 3;
 
 struct Params {
   const __nv_bfloat16* x0;                 // (B, D)
@@ -72,7 +99,9 @@ struct Params {
   const int8_t* wqkv; const float* sqkv;   // (L, D, QO), (L, QO)
   const int8_t* wo; const float* swo;      // (L, HQ*HD, D), (L, D)
   const int8_t* wgu; const float* sgu;     // (L, D, 2F), (L, 2F)
-  const int8_t* wdn; const float* sdn;     // (L, F, D), (L, D)
+  const int8_t* wdn; const float* sdn;     // (L, F, D), (L, D); W4A16: the
+                                           // packed (L, K, N/2) bytes and
+                                           // (L, K/G, N) group scales
   int8_t* kq; float* ks;                   // (L, B, S, HKV*HD), (L, B, HKV, S)
   int8_t* vq; float* vs;                   // K8: kq/ks are the merged pools
                                            // (L, NB, 2, BS, HKV*HD) and
@@ -89,10 +118,14 @@ struct Params {
   __nv_bfloat16* attn;                     // (B, HQ*HD)
   __nv_bfloat16* ff;                       // (B, F)
   float* ws;                               // (splits, B, N) f32 partials
+                                           // (W8A8: int32)
+  int8_t* a8;                              // W8A8: (B, K) int8 activation rows
+  float* asc;                              // W8A8: (4, B) their scales
   int L, B, S, D, F, HQ, HKV, HD;
   int NB, MB, BS;                          // K8: pool blocks, table width, block size
   int slot, write_cache;
   int split_qkv, split_wo, split_gu, split_dn;
+  int g_qkv, g_wo, g_gu, g_dn;             // W4A16: K rows of a scale group
   float eps, scale;
 };
 
@@ -103,6 +136,19 @@ static __device__ __forceinline__ float block_sum(float v, float* red) {
   if (lane == 0) red[warp] = v;
   __syncthreads();
   float t = 0.f;
+#pragma unroll
+  for (int w = 0; w < NWARPS; ++w) t += red[w];
+  __syncthreads();
+  return t;
+}
+
+static __device__ __forceinline__ double block_sum_d(double v, double* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  double t = 0.0;
 #pragma unroll
   for (int w = 0; w < NWARPS; ++w) t += red[w];
   __syncthreads();
@@ -132,6 +178,31 @@ static __device__ __forceinline__ float partial_sum(const float* ws, int splits,
   return acc;
 }
 
+// Int32 sum of the W8A8 k-split partials of output (b, n).
+static __device__ __forceinline__ int partial_isum(const float* ws, int splits,
+                                                  int B, int N, int b, int n) {
+  const int* wi = reinterpret_cast<const int*>(ws);
+  int acc = 0;
+  for (int s = 0; s < splits; ++s) acc += __ldcg(wi + ((size_t)s * B + b) * N + n);
+  return acc;
+}
+
+// Output (b, n) of a GEMM phase from its partials: W8A16 sum * scale[n];
+// W4A16 the sum (the partials carry their group scales); W8A8
+// (f32(integer sum) * rs) * scale[n], rs the input row's scale.
+template <int kMode>
+static __device__ __forceinline__ float gemm_out(const Params& p, int splits, int N,
+                                                 int b, int n, const float* scale,
+                                                 float rs) {
+  if constexpr (kMode == W8A16) {
+    return partial_sum(p.ws, splits, p.B, N, b, n) * scale[n];
+  } else if constexpr (kMode == W4A16) {
+    return partial_sum(p.ws, splits, p.B, N, b, n);
+  } else {
+    return static_cast<float>(partial_isum(p.ws, splits, p.B, N, b, n)) * rs * scale[n];
+  }
+}
+
 // ws[split, m, n] = sum over the split's K range of x[m, k] * w[k, n]
 // (unscaled), for x (M, K) bf16 and w (K, N) int8.
 static __device__ void gemm_partials(const __nv_bfloat16* x, const int8_t* w,
@@ -156,30 +227,138 @@ static __device__ void gemm_partials(const __nv_bfloat16* x, const int8_t* w,
   }
 }
 
-// Per request b: x = x0 (init) or x += scale * partials; then h =
-// bf16(rms(x) * ln) when ln is given, else x_out = bf16(x).
+// W4A16: ws[split, m, n] = sum over the split's scale groups g, in K order,
+// of s[g, n] * (x[m, g*G:(g+1)*G] @ w[g*G:(g+1)*G, n]), for x (M, K) bf16, w
+// the packed (K, N/2) bytes and s the (K/G, N) group scales. An item is one
+// m-tile, packed columns [j0, j0 + 64) (output columns j0 + c and N/2 + j0 +
+// c) and one split; thread t owns column t of the 64 x 128 result and keeps
+// its 64 rows in registers across the split's groups.
+static __device__ void gemm_partials_w4(const __nv_bfloat16* x, const int8_t* w,
+                                        const float* s, float* ws, int M, int N,
+                                        int K, int G, int splits, w4a16::Smem& sm) {
+  using namespace w4a16;
+  static_assert(THREADS == 2 * BN, "a thread per column of the two halves");
+  const int NH = N / 2;
+  const int mt = (M + BM - 1) / BM, nt = (NH + BN - 1) / BN;
+  const int groups = K / G;
+  const int per = (groups + splits - 1) / splits;  // groups per split
+  const int items = mt * nt * splits;
+  const bool vec_x = K % 8 == 0, vec_w = NH % 16 == 0;
+  const int c = threadIdx.x;
+  for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    const int split = it % splits, tile = it / splits;
+    const int n0 = (tile % nt) * BN, m0 = (tile / nt) * BM;
+    const int j = n0 + (c < BN ? c : c - BN);         // packed column
+    const bool live = j < NH;
+    const int col = c < BN ? j : NH + j;              // output column
+    float acc[BM];
+#pragma unroll
+    for (int r = 0; r < BM; ++r) acc[r] = 0.f;
+    const int g_end = min(groups, (split + 1) * per);
+    for (int g = split * per; g < g_end; ++g) {
+      tile_gemm(x, w, M, NH, K, g * G, (g + 1) * G, m0, n0, vec_x, vec_w, sm);
+      const float sg = live ? __ldg(s + (size_t)g * N + col) : 0.f;
+      const float* cs = sm.c();
+#pragma unroll
+      for (int r = 0; r < BM; ++r) acc[r] += cs[r * CS_LD + c] * sg;
+      __syncthreads();
+    }
+    if (live) {
+#pragma unroll
+      for (int r = 0; r < BM; ++r)
+        if (m0 + r < M) ws[((size_t)split * M + m0 + r) * N + col] = acc[r];
+    }
+  }
+}
+
+// W8A8: ws[split, m, n] = the int32 sum over the split's K range of
+// x[m, k] * w[k, n], for x (M, K) and w (K, N) int8.
+static __device__ void gemm_partials_a8(const int8_t* x, const int8_t* w, int* ws,
+                                        int M, int N, int K, int splits,
+                                        w8a8::Smem& sm) {
+  using namespace w8a8;
+  const int mt = (M + BM - 1) / BM, nt = (N + BN - 1) / BN;
+  const int per = ((K + BK - 1) / BK + splits - 1) / splits;  // k-tiles per split
+  const int items = mt * nt * splits;
+  const bool vec_x = K % 16 == 0, vec_w = N % 16 == 0;
+  for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    const int split = it % splits, tile = it / splits;
+    const int n0 = (tile % nt) * BN, m0 = (tile / nt) * BM;
+    const int k_begin = split * per * BK;
+    const int k_end = min(K, k_begin + per * BK);
+    tile_gemm(x, w, M, N, K, k_begin, k_end, m0, n0, vec_x, vec_w, sm);
+    for (int i = threadIdx.x; i < BM * BN; i += THREADS) {
+      const int r = i / BN, c = i % BN, gm = m0 + r, gn = n0 + c;
+      if (gm < M && gn < N) ws[((size_t)split * M + gm) * N + gn] = sm.c[r * CS_LD + c];
+    }
+    __syncthreads();
+  }
+}
+
+// W8A8: row b of width n, value(i) in f32, to int8 codes a8[b * n + i] =
+// clip(rint(value(i) / s), +-127) with s = max(absmax, 1e-8) * (1/127) (the
+// scale in the form XLA gives the TPU kernel's `_qrow`), s to *scale_out.
+template <class Value>
+static __device__ void quantize_row(const Params& p, int b, int n, float* scale_out,
+                                    Value value, float* red) {
+  float amax = 0.f;
+  for (int i = threadIdx.x; i < n; i += THREADS) amax = fmaxf(amax, fabsf(value(i)));
+  const float s = fmaxf(block_max(amax, red), 1e-8f) * (1.f / 127.f);
+  int8_t* row = p.a8 + (size_t)b * n;
+  for (int i = threadIdx.x; i < n; i += THREADS)
+    row[i] = static_cast<int8_t>(fminf(fmaxf(rintf(value(i) / s), -127.f), 127.f));
+  if (threadIdx.x == 0) *scale_out = s;
+}
+
+// Per request b: x = x0 (init) or x += the GEMM phase's output (its
+// partials, `scale`, and for W8A8 the input row scale asc[in_row]); then
+// h = bf16(rms(x) * ln) when ln is given, else x_out = bf16(x). W8A8: the
+// f32 rms(x) * ln is quantized into a8, its scale to asc[out_row]; the
+// mean of squares is summed in f64 and rounded once, and 1 / sqrtf is
+// IEEE, as the plain version's `_rms_exact`: the row is not rounded to bf16
+// before its codes, so its last bit decides codes at exact .5 ties.
+template <int kMode>
 static __device__ void rows_phase(const Params& p, const float* scale, int splits,
-                                  const __nv_bfloat16* ln, bool init, float* red) {
+                                  int in_row, const __nv_bfloat16* ln, int out_row,
+                                  bool init, float* red) {
   const int D = p.D;
   for (int b = blockIdx.x; b < p.B; b += gridDim.x) {
     float* xr = p.xf + (size_t)b * D;
+    float rs = 0.f;
+    if constexpr (kMode == W8A8) {
+      if (!init) rs = __ldcg(p.asc + (size_t)in_row * p.B + b);
+    }
     float ss = 0.f;
+    double ss_d = 0.0;
     for (int n = threadIdx.x; n < D; n += THREADS) {
       float x;
       if (init) {
         x = __bfloat162float(p.x0[(size_t)b * D + n]);
       } else {
-        x = __ldcg(xr + n) + partial_sum(p.ws, splits, p.B, D, b, n) * scale[n];
+        x = __ldcg(xr + n) + gemm_out<kMode>(p, splits, D, b, n, scale, rs);
       }
       xr[n] = x;
-      ss += x * x;
+      if constexpr (kMode == W8A8) {
+        ss_d += static_cast<double>(x) * x;
+      } else {
+        ss += x * x;
+      }
     }
     if (ln != nullptr) {
-      const float tot = block_sum(ss, red);
-      const float r = 1.f / sqrtf(tot / D + p.eps);
-      for (int n = threadIdx.x; n < D; n += THREADS) {
-        p.h[(size_t)b * D + n] =
-            __float2bfloat16(__ldcg(xr + n) * r * __bfloat162float(ln[n]));
+      if constexpr (kMode == W8A8) {
+        __shared__ double red_d[NWARPS];
+        const float ms = static_cast<float>(block_sum_d(ss_d, red_d) / D);
+        const float r = 1.f / sqrtf(ms + p.eps);
+        quantize_row(p, b, D, p.asc + (size_t)out_row * p.B + b,
+                     [&](int n) { return __ldcg(xr + n) * r * __bfloat162float(ln[n]); },
+                     red);
+      } else {
+        const float tot = block_sum(ss, red);
+        const float r = 1.f / sqrtf(tot / D + p.eps);
+        for (int n = threadIdx.x; n < D; n += THREADS) {
+          p.h[(size_t)b * D + n] =
+              __float2bfloat16(__ldcg(xr + n) * r * __bfloat162float(ln[n]));
+        }
       }
     } else {
       for (int n = threadIdx.x; n < D; n += THREADS)
@@ -189,10 +368,11 @@ static __device__ void rows_phase(const Params& p, const float* scale, int split
   }
 }
 
-// Per (request, kv head): qkv = bf16(scale * partials); RoPE on the group's
-// query heads -> qbuf (bf16); K rotated and rounded to bf16, V as is; both
-// quantized per head (absmax / 127, round half to even, clip +-127) into the
-// new-KV buffers of layer l.
+// Per (request, kv head): qkv = bf16(the QKV phase's output); RoPE on the
+// group's query heads -> qbuf (bf16); K rotated and rounded to bf16, V as
+// is; both quantized per head (absmax / 127, round half to even, clip +-127)
+// into the new-KV buffers of layer l.
+template <int kMode>
 static __device__ void qkv_phase(const Params& p, int l, float* red, float* kv_sm) {
   const int HD = p.HD, hd2 = HD / 2, group = p.HQ / p.HKV;
   const int QH = p.HQ * HD, KH = p.HKV * HD, QO = QH + 2 * KH;
@@ -203,9 +383,9 @@ static __device__ void qkv_phase(const Params& p, int l, float* red, float* kv_s
     const int b = it / p.HKV, g = it % p.HKV;
     const float* cs = p.cos + (size_t)b * hd2;
     const float* sn = p.sin + (size_t)b * hd2;
-    auto val = [&](int n) {
-      return bf(partial_sum(p.ws, p.split_qkv, p.B, QO, b, n) * sc[n]);
-    };
+    float rs = 0.f;
+    if constexpr (kMode == W8A8) rs = __ldcg(p.asc + (size_t)ASC_LN1 * p.B + b);
+    auto val = [&](int n) { return bf(gemm_out<kMode>(p, p.split_qkv, QO, b, n, sc, rs)); };
     for (int i = threadIdx.x; i < group * hd2; i += THREADS) {
       const int col = (g * group + i / hd2) * HD + i % hd2;
       const float x1 = val(col), x2 = val(col + hd2);
@@ -350,64 +530,121 @@ static __device__ void attention_phase(const Params& p, int l, kv_attn::Smem& sm
   }
 }
 
-// ff = bf16(silu(bf16(gate)) * bf16(up)), gate/up = scale * partials.
-static __device__ void silu_phase(const Params& p, int l) {
-  const int F = p.F, N = 2 * F;
-  const float* sc = p.sgu + (size_t)l * N;
-  const size_t total = (size_t)p.B * F;
-  for (size_t i = (size_t)blockIdx.x * THREADS + threadIdx.x; i < total;
-       i += (size_t)gridDim.x * THREADS) {
-    const int b = static_cast<int>(i / F), n = static_cast<int>(i % F);
-    const float gate = bf(partial_sum(p.ws, p.split_gu, p.B, N, b, n) * sc[n]);
-    const float up = bf(partial_sum(p.ws, p.split_gu, p.B, N, b, F + n) * sc[F + n]);
-    p.ff[i] = __float2bfloat16(gate / (1.f + expf(-gate)) * up);
+// W8A8, per request: the bf16 attention row quantized into a8.
+static __device__ void attn_quant_phase(const Params& p, float* red) {
+  const int QH = p.HQ * p.HD;
+  for (int b = blockIdx.x; b < p.B; b += gridDim.x) {
+    const __nv_bfloat16* row = p.attn + (size_t)b * QH;
+    quantize_row(p, b, QH, p.asc + (size_t)ASC_ATTN * p.B + b,
+                 [&](int i) { return kv_attn::ldcg_bf16(row + i); }, red);
   }
 }
 
-template <bool kPaged>
+// ff = bf16(silu(bf16(gate)) * bf16(up)), gate/up = the GU phase's output.
+// W8A8: per request, the f32 silu(gate) * up row quantized into a8 (its
+// absmax needs the whole row).
+template <int kMode>
+static __device__ void silu_phase(const Params& p, int l, float* red) {
+  const int F = p.F, N = 2 * F;
+  const float* sc = p.sgu + (size_t)l * N;
+  if constexpr (kMode == W8A8) {
+    for (int b = blockIdx.x; b < p.B; b += gridDim.x) {
+      const float rs = __ldcg(p.asc + (size_t)ASC_LN2 * p.B + b);
+      auto ff = [&](int n) {
+        const float gate = bf(gemm_out<kMode>(p, p.split_gu, N, b, n, sc, rs));
+        const float up = bf(gemm_out<kMode>(p, p.split_gu, N, b, F + n, sc, rs));
+        return gate / (1.f + expf(-gate)) * up;
+      };
+      quantize_row(p, b, F, p.asc + (size_t)ASC_FF * p.B + b, ff, red);
+    }
+  } else {
+    const size_t total = (size_t)p.B * F;
+    for (size_t i = (size_t)blockIdx.x * THREADS + threadIdx.x; i < total;
+         i += (size_t)gridDim.x * THREADS) {
+      const int b = static_cast<int>(i / F), n = static_cast<int>(i % F);
+      const float gate = bf(gemm_out<kMode>(p, p.split_gu, N, b, n, sc, 0.f));
+      const float up = bf(gemm_out<kMode>(p, p.split_gu, N, b, F + n, sc, 0.f));
+      p.ff[i] = __float2bfloat16(gate / (1.f + expf(-gate)) * up);
+    }
+  }
+}
+
+// One GEMM phase of layer l: x (B, K) @ w[l] (K, N) into the workspace.
+// W8A16: x bf16, f32 partials; W4A16: x bf16, w the packed bytes, s the
+// group scales, G rows a group, scaled f32 partials; W8A8: x the int8 rows
+// of a8, int32 partials.
+template <int kMode>
+static __device__ void gemm_phase(const Params& p, const __nv_bfloat16* x,
+                                  const int8_t* w, const float* s, int l, int N,
+                                  int K, int G, int splits, unsigned char* smem) {
+  if constexpr (kMode == W8A16) {
+    gemm_partials(x, w + (size_t)l * K * N, p.ws, p.B, N, K, splits,
+                  *reinterpret_cast<w8a16::Smem*>(smem));
+  } else if constexpr (kMode == W4A16) {
+    gemm_partials_w4(x, w + (size_t)l * K * (N / 2), s + (size_t)l * (K / G) * N,
+                     p.ws, p.B, N, K, G, splits, *reinterpret_cast<w4a16::Smem*>(smem));
+  } else {
+    gemm_partials_a8(p.a8, w + (size_t)l * K * N, reinterpret_cast<int*>(p.ws), p.B, N,
+                     K, splits, *reinterpret_cast<w8a8::Smem*>(smem));
+  }
+}
+
+template <bool kPaged, int kMode = W8A16>
 __global__ void __launch_bounds__(THREADS) fused_decode_kernel(Params p) {
   __shared__ __align__(128) unsigned char smem_raw[SMEM_BYTES];
   __shared__ float red[NWARPS];
   __shared__ float kv_sm[2 * kv_attn::DMAX];
-  w8a16::Smem& tile = *reinterpret_cast<w8a16::Smem*>(smem_raw);
   kv_attn::Smem& att = *reinterpret_cast<kv_attn::Smem*>(smem_raw);
   cg::grid_group grid = cg::this_grid();
 
   const int D = p.D, F = p.F, QH = p.HQ * p.HD;
   const int QO = QH + 2 * p.HKV * p.HD;
-  rows_phase(p, nullptr, 0, p.ln1, true, red);
+  rows_phase<kMode>(p, nullptr, 0, 0, p.ln1, ASC_LN1, true, red);
   grid.sync();
   for (int l = 0; l < p.L; ++l) {
-    gemm_partials(p.h, p.wqkv + (size_t)l * D * QO, p.ws, p.B, QO, D, p.split_qkv, tile);
+    gemm_phase<kMode>(p, p.h, p.wqkv, p.sqkv, l, QO, D, p.g_qkv, p.split_qkv, smem_raw);
     grid.sync();
-    qkv_phase(p, l, red, kv_sm);
+    qkv_phase<kMode>(p, l, red, kv_sm);
     grid.sync();
     attention_phase<kPaged>(p, l, att);
     grid.sync();
-    gemm_partials(p.attn, p.wo + (size_t)l * QH * D, p.ws, p.B, D, QH, p.split_wo, tile);
+    if constexpr (kMode == W8A8) {
+      attn_quant_phase(p, red);
+      grid.sync();
+    }
+    gemm_phase<kMode>(p, p.attn, p.wo, p.swo, l, D, QH, p.g_wo, p.split_wo, smem_raw);
     grid.sync();
-    rows_phase(p, p.swo + (size_t)l * D, p.split_wo, p.ln2 + (size_t)l * D, false, red);
+    rows_phase<kMode>(p, p.swo + (size_t)l * D, p.split_wo, ASC_ATTN,
+                      p.ln2 + (size_t)l * D, ASC_LN2, false, red);
     grid.sync();
-    gemm_partials(p.h, p.wgu + (size_t)l * D * 2 * F, p.ws, p.B, 2 * F, D, p.split_gu, tile);
+    gemm_phase<kMode>(p, p.h, p.wgu, p.sgu, l, 2 * F, D, p.g_gu, p.split_gu, smem_raw);
     grid.sync();
-    silu_phase(p, l);
+    silu_phase<kMode>(p, l, red);
     grid.sync();
-    gemm_partials(p.ff, p.wdn + (size_t)l * F * D, p.ws, p.B, D, F, p.split_dn, tile);
+    gemm_phase<kMode>(p, p.ff, p.wdn, p.sdn, l, D, F, p.g_dn, p.split_dn, smem_raw);
     grid.sync();
-    rows_phase(p, p.sdn + (size_t)l * D, p.split_dn,
-               l + 1 < p.L ? p.ln1 + (size_t)(l + 1) * D : nullptr, false, red);
+    rows_phase<kMode>(p, p.sdn + (size_t)l * D, p.split_dn, ASC_FF,
+                      l + 1 < p.L ? p.ln1 + (size_t)(l + 1) * D : nullptr, ASC_LN1,
+                      false, red);
     if (l + 1 < p.L) grid.sync();
   }
 }
 
-static const void* kernel_of(int paged) {
-  return paged ? reinterpret_cast<const void*>(&fused_decode_kernel<true>)
-               : reinterpret_cast<const void*>(&fused_decode_kernel<false>);
+// The kernel instances: 0-2 K4 in the modes W8A16, W4A16, W8A8; 3 K8.
+static const void* kernel_of(int instance) {
+  switch (instance) {
+    case W8A16: return reinterpret_cast<const void*>(&fused_decode_kernel<false, W8A16>);
+    case W4A16: return reinterpret_cast<const void*>(&fused_decode_kernel<false, W4A16>);
+    case W8A8: return reinterpret_cast<const void*>(&fused_decode_kernel<false, W8A8>);
+    case 3: return reinterpret_cast<const void*>(&fused_decode_kernel<true, W8A16>);
+    default: return nullptr;
+  }
 }
 
-static int launch(Params& p, int paged, int grid, void* stream) {
+static int launch(Params& p, int instance, int grid, void* stream) {
+  if (kernel_of(instance) == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   void* args[] = {&p};
-  cudaError_t err = cudaLaunchCooperativeKernel(kernel_of(paged), dim3(grid),
+  cudaError_t err = cudaLaunchCooperativeKernel(kernel_of(instance), dim3(grid),
                                                 dim3(THREADS), args, 0,
                                                 static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -450,27 +687,31 @@ static void set_common(Params& p, const void* x0, const void* ln1, const void* l
 
 }  // namespace
 
-// The grid of one launch of K4 (paged = 0) or K8 (paged = 1): SMs x
-// resident blocks of the kernel (a cooperative launch needs the whole grid
-// resident). Returns cudaSuccess or the error.
-extern "C" int pli_fused_decode_grid(int paged, int* grid) {
+// The grid of one launch of a kernel instance (kernel_of: 0-2 the K4 modes,
+// 3 K8): SMs x resident blocks of that instance (a cooperative launch needs
+// the whole grid resident). Returns cudaSuccess or the error.
+extern "C" int pli_fused_decode_grid(int instance, int* grid) {
   int dev = 0, sms = 0, per_sm = 0;
+  if (kernel_of(instance) == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel_of(paged),
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel_of(instance),
                                                         THREADS, 0);
   if (err == cudaSuccess && per_sm < 1) err = cudaErrorCooperativeLaunchTooLarge;
   *grid = sms * per_sm;
   return static_cast<int>(err);
 }
 
-// K4. Every pointer is contiguous on one device in the layouts of Params;
-// the int8 cache rows and weight rows are 16-byte aligned, HD % 16 == 0,
-// HD <= 128, HQ / HKV <= 8 (checked by the Python wrapper). splits are the
-// k-splits of the four GEMM phases, ws holds max(split * B * N) floats.
-// `grid` comes from pli_fused_decode_grid. Returns the launch's error code.
+// K4 in `mode` (W8A16, W4A16 or W8A8). Every pointer is contiguous on one
+// device in the layouts of Params; the int8 cache rows and weight rows are
+// 16-byte aligned (W4A16: N/2 % 16 == 0), HD % 16 == 0, HD <= 128,
+// HQ / HKV <= 8 (checked by the Python wrapper). splits are the k-splits of
+// the four GEMM phases (W4A16: each covers whole groups of g_* rows), ws
+// holds max(split * B * N) floats; W8A8: a8 holds B * max(D, HQ*HD, F)
+// bytes, asc 4 * B floats. `grid` comes from pli_fused_decode_grid(mode).
+// Returns the launch's error code.
 extern "C" int pli_fused_decode_step(
     const void* x0, const void* ln1, const void* ln2, const void* wqkv,
     const void* sqkv, const void* wo, const void* swo, const void* wgu,
@@ -478,13 +719,18 @@ extern "C" int pli_fused_decode_step(
     void* vq, void* vs, const void* cos, const void* sin, const void* q_slot,
     const void* valid_from, void* k_new, void* ks_new, void* v_new,
     void* vs_new, void* x_out, void* xf, void* h, void* qbuf, void* attn,
-    void* ff, void* ws, int L, int B, int S, int D, int F, int HQ, int HKV,
-    int HD, int slot, int write_cache, int split_qkv, int split_wo,
-    int split_gu, int split_dn, float eps, float scale, int grid,
-    void* stream) {
+    void* ff, void* ws, void* a8, void* asc, int L, int B, int S, int D, int F,
+    int HQ, int HKV, int HD, int slot, int write_cache, int split_qkv,
+    int split_wo, int split_gu, int split_dn, int mode, int g_qkv, int g_wo,
+    int g_gu, int g_dn, float eps, float scale, int grid, void* stream) {
+  if (mode != W8A16 && mode != W4A16 && mode != W8A8)
+    return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   set_common(p, x0, ln1, ln2, wqkv, sqkv, wo, swo, wgu, sgu, wdn, sdn, cos, sin,
              k_new, ks_new, v_new, vs_new, x_out, xf, h, qbuf, attn, ff, ws);
+  p.a8 = static_cast<int8_t*>(a8);
+  p.asc = static_cast<float*>(asc);
+  p.g_qkv = g_qkv; p.g_wo = g_wo; p.g_gu = g_gu; p.g_dn = g_dn;
   p.kq = static_cast<int8_t*>(kq);
   p.ks = static_cast<float*>(ks);
   p.vq = static_cast<int8_t*>(vq);
@@ -499,7 +745,7 @@ extern "C" int pli_fused_decode_step(
   p.split_qkv = split_qkv; p.split_wo = split_wo;
   p.split_gu = split_gu; p.split_dn = split_dn;
   p.eps = eps; p.scale = scale;
-  return launch(p, 0, grid, stream);
+  return launch(p, mode, grid, stream);
 }
 
 // K8. As K4, with the merged pools kv (L, NB, 2, BS, HKV*HD) int8 and kvs
@@ -519,6 +765,9 @@ extern "C" int pli_fused_paged_decode_step(
   Params p;
   set_common(p, x0, ln1, ln2, wqkv, sqkv, wo, swo, wgu, sgu, wdn, sdn, cos, sin,
              k_new, ks_new, v_new, vs_new, x_out, xf, h, qbuf, attn, ff, ws);
+  p.a8 = nullptr;
+  p.asc = nullptr;
+  p.g_qkv = p.g_wo = p.g_gu = p.g_dn = 0;
   p.kq = static_cast<int8_t*>(kv);
   p.ks = static_cast<float*>(kvs);
   p.vq = nullptr;
@@ -533,5 +782,5 @@ extern "C" int pli_fused_paged_decode_step(
   p.split_qkv = split_qkv; p.split_wo = split_wo;
   p.split_gu = split_gu; p.split_dn = split_dn;
   p.eps = eps; p.scale = scale;
-  return launch(p, 1, grid, stream);
+  return launch(p, 3, grid, stream);
 }

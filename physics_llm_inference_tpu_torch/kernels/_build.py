@@ -45,13 +45,15 @@ SIGNATURES = {
     # causal, the (b, h, s) element strides of q, k and v, scale * log2(e),
     # stream
     "pli_flash_attention": [_P] * 6 + [_I] * 8 + [_L] * 9 + [_F, _P],
-    # paged (0: K4, 1: K8), out: blocks of one cooperative launch
+    # instance (0-2: K4 in the modes W8A16, W4A16, W8A8; 3: K8), out:
+    # blocks of one cooperative launch
     "pli_fused_decode_grid": [_I, _P],
     # x0, ln1, ln2, wqkv, sqkv, wo, swo, wgu, sgu, wdn, sdn, k_q, k_s, v_q,
     # v_s, cos, sin, q_slot, valid_from, k_new, ks_new, v_new, vs_new, x_out,
-    # then the workspaces xf, h, qbuf, attn, ff, ws; L, B, S, D, F, Hq, Hkv,
-    # hd, slot, write_cache, the four k-splits; eps, scale; grid, stream
-    "pli_fused_decode_step": [_P] * 30 + [_I] * 14 + [_F, _F, _I, _P],
+    # then the workspaces xf, h, qbuf, attn, ff, ws, a8, asc; L, B, S, D, F,
+    # Hq, Hkv, hd, slot, write_cache, the four k-splits, mode, the four INT4
+    # group sizes; eps, scale; grid, stream
+    "pli_fused_decode_step": [_P] * 32 + [_I] * 19 + [_F, _F, _I, _P],
     # x0, ln1, ln2, wqkv, sqkv, wo, swo, wgu, sgu, wdn, sdn, kv, kvs, cos,
     # sin, lengths, tables, k_new, ks_new, v_new, vs_new, x_out, then the
     # workspaces xf, h, qbuf, attn, ff, ws; L, B, NB, MB, BS, D, F, Hq, Hkv,

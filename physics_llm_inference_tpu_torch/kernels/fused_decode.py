@@ -1,14 +1,25 @@
-"""K4 and K8: the whole INT8 W+KV decode step, all layers, in one launch.
+"""K4 and K8: the whole INT8-KV decode step, all layers, in one launch.
 
 Replaces the TPU kernel `physics_llm_inference_tpu/kernels/fused_decode.py`
-`fused_decode_step` (`_kernel`, `_fused_decode_step`) in its default
-configuration: K-blocked weight tiles, silu per DOWN tile, bf16 activations.
-The CUDA kernel is `csrc/fused_decode.cu`: one persistent cooperative launch
-per step, whose per-layer phases (QKV partials; RoPE and KV quantize;
-attention over the INT8 cache plus the current token; WO; norm; gate/up;
-silu·up; down) are separated by grid-wide barriers. Weight tiles are the
-W8A16 tile of K1, the attention loop is K2's; K-split partials land in an f32
-workspace and are summed in a fixed order.
+`fused_decode_step` (`_kernel`, `_fused_decode_step`) in its three modes,
+each a template instance of the CUDA kernel `csrc/fused_decode.cu`:
+- W8A16 (the default): int8 weights, bf16 activations, K-blocked tiles,
+  silu per DOWN tile. The weight tiles are the W8A16 tile of K1; K-split
+  partials land in an f32 workspace and are summed in a fixed order, and
+  the per-channel scale comes after the sum.
+- W4A16 (`QuantizedTensor4` stacks): nibble-packed weights with group
+  scales (`int4_group_size`). One work item reads each packed byte once and
+  makes both output columns it holds; every K-split covers whole groups,
+  and each group's partial is scaled by its scale row and added in K order
+  inside the item, as the TPU kernel adds `acc * s` per K-tile.
+- W8A8 (`cfg.act_quant == "int8"`, int8 stacks): each activation row is
+  quantized to int8 (absmax over the row) after ln1, attention, ln2 and
+  silu; int8 x int8 tiles accumulate exact int32 K-split partials, then
+  `(f32(sum) * row_scale) * w_scale`, as the TPU kernel's N-phase tiles.
+The step is one persistent cooperative launch whose per-layer phases (QKV
+partials; RoPE and KV quantize; attention over the INT8 cache plus the
+current token; WO; norm; gate/up; silu·up; down) are separated by
+grid-wide barriers; the attention loop is K2's.
 
 The numerics are the TPU kernel's, not the per-op path's: the residual
 stream stays f32 across all layers and is cast once at the end; qkv, gate
@@ -19,7 +30,8 @@ before P@V. Hold the kernel against `fused_decode_step_plain`, never
 against the per-op path: the two differ at bf16 near-ties.
 
 `fused_decode_step` is the entry point: a CPU tensor goes to
-`fused_decode_step_plain`; a CUDA tensor goes to the kernel or raises.
+`fused_decode_step_plain`; a CUDA tensor goes to the kernel instance of its
+mode (`fused_decode_mode`) or raises. Each mode counts its own launches.
 
 K8 `fused_paged_decode_step` replaces the TPU kernel
 `fused_paged_decode_step` (`_paged_kernel_r5`) of the same file: the same
@@ -37,19 +49,67 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..models.quant import QuantizedTensor, QuantizedTensor4, unpack_int4
 from ..ops.norms import rms_norm
 from . import _build
 from .int8_matmul import int8_matmul_plain
 from .paged_attention import write_position
 
-launches = 0        # kernel launches made by fused_decode_step
-paged_launches = 0  # kernel launches made by fused_paged_decode_step
+launches = 0         # W8A16 launches of fused_decode_step
+w4a16_launches = 0   # W4A16 launches of fused_decode_step
+w8a8_launches = 0    # W8A8 launches of fused_decode_step
+paged_launches = 0   # kernel launches made by fused_paged_decode_step
 
+W8A16, W4A16, W8A8 = 0, 1, 2     # the modes, as csrc/fused_decode.cu numbers them
+_K8 = 3                          # K8's kernel instance in csrc/fused_decode.cu
 _NEG_INF = -1e30
-_BM = _BN = _BK = 64    # the W8A16 tile
+_BM = _BN = _BK = 64    # the weight tiles
 _DMAX, _GMAX = 128, 8   # the attention loop's head_dim and group limits
-_grid: dict[tuple, int] = {}  # (device index, paged) -> blocks of one launch
+_MATS = ("wqkv", "wo", "w_gate_up", "w_down")
+_grid: dict[tuple, int] = {}  # (device index, instance) -> blocks of one launch
 _workspaces: dict[tuple, dict] = {}  # (device, shapes) -> scratch tensors
+
+
+def _pick_tile(dim: int, target: int) -> int:
+    """The TPU kernel's N-tile (fused_decode.py:1176-1180)."""
+    for c in (target, 512, 256, 128):
+        if c <= target and dim % c == 0:
+            return c
+    return dim
+
+
+def _pick_ktile(k: int, row_bytes: int, cap: int = 3 << 20) -> int:
+    """Largest power-of-2 K-tile dividing k whose (tile x N-row) block stays
+    under `cap` bytes (the TPU kernel's `_pick_ktile`, fused_decode.py:
+    1183-1189)."""
+    for c in (1024, 512, 256, 128, 64, 32, 16, 8):
+        if k % c == 0 and c * row_bytes <= cap:
+            return c
+    return k
+
+
+def int4_group_size(k: int, n: int) -> int:
+    """The scale group of an INT4 (K, N) matrix: the TPU kernel's K-tile for
+    it (fused_decode.py:1192-1197), so each tile sees one scale row. Packed
+    rows are n // 2 bytes. At the 7B widths: 1,024 for wqkv and wo, 256 for
+    w_gate_up and w_down."""
+    return _pick_ktile(k, n // 2)
+
+
+def fused_decode_mode(blocks, cfg) -> int:
+    """W8A16, W4A16 or W8A8 from the block stacks' type and
+    `cfg.act_quant`, as the TPU kernel picks its body (`w4`, `act8`). Mixed
+    stacks and W4A8 raise: the TPU kernel takes neither."""
+    kinds = {type(blocks[n]) for n in _MATS}
+    act8 = cfg.act_quant == "int8"
+    if kinds == {QuantizedTensor4}:
+        if act8:
+            raise ValueError("the fused decode kernel has no W4A8 mode")
+        return W4A16
+    if kinds == {QuantizedTensor}:
+        return W8A8 if act8 else W8A16
+    raise TypeError("the fused decode kernel takes all-int8 or all-int4 "
+                    f"block stacks, got {sorted(k.__name__ for k in kinds)}")
 
 
 def _rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
@@ -75,15 +135,56 @@ def _mm(a: torch.Tensor, w, layer: int) -> torch.Tensor:
     return int8_matmul_plain(a, w.q, w.s, layer=layer, out_dtype=torch.float32)
 
 
+def _rms_exact(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    """W8A8's f32 rms(x) * w, the row that is quantized without a bf16
+    rounding: the mean of squares is summed in f64 and rounded once, and
+    the reciprocal is 1 / sqrt, both correctly rounded, so the CUDA kernel
+    (an f64 block sum, IEEE sqrtf and division) gets the same bits. Its
+    last bit decides activation codes at exact .5 ties, which bf16 rows
+    such as embeddings produce often."""
+    ms = (x.double() ** 2).mean(dim=-1, keepdim=True).float()
+    return x * (1.0 / torch.sqrt(ms + eps)) * w.float()
+
+
+def _proj(acc, a, w, layer: int, mode: int, tk: int | None = None):
+    """acc (None: zero) plus the f32 product of one layer's linear, as the
+    TPU kernel forms it in each mode:
+    - W8A16: a bf16, (a @ q) * s after the whole K sum;
+    - W4A16: a bf16, each scale group's (a @ q_g) * s_g added in K order;
+    - W8A8: a = (codes, row scales); each K-tile of `tk` rows (default all
+      of K) is an exact integer product (f64 holds it exactly), then
+      (f32(product) * row_scale) * s, added in K order."""
+    if mode == W8A16:
+        out = _mm(a, w, layer)
+        return out if acc is None else acc + out
+    if mode == W4A16:
+        q, sc, g = unpack_int4(w.q[layer]).float(), w.s[layer], w.group
+        af = a.float()
+        for i in range(sc.shape[0]):
+            part = (af[:, i * g:(i + 1) * g] @ q[i * g:(i + 1) * g]) * sc[i]
+            acc = part if acc is None else acc + part
+        return acc
+    a8, asc = a
+    q, k = w.q[layer], a8.shape[1]
+    tk = tk or k
+    for k0 in range(0, k, tk):
+        prod = (a8[:, k0:k0 + tk].double() @ q[k0:k0 + tk].double()).float()
+        part = (prod * asc) * w.s[layer]
+        acc = part if acc is None else acc + part
+    return acc
+
+
 def fused_decode_step_plain(blocks, x, k_q, k_s, v_q, v_s, q_slot, valid_from,
                             rope_cos_g, rope_sin_g, cfg, slot=None,
                             write_cache: bool = False):
     """Plain torch, with the TPU kernel's numerics (`_kernel`,
-    fused_decode.py:70-523) over all rows at once. Attention reads the cache
-    before this step's write, as the TPU kernel reads its input block.
-    Arguments and results as `fused_decode_step`."""
+    fused_decode.py:70-523) in the mode of `fused_decode_mode`, over all rows
+    at once. Attention reads the cache before this step's write, as the TPU
+    kernel reads its input block. Arguments and results as
+    `fused_decode_step`."""
     if (slot is not None) != write_cache:
         raise ValueError("a write slot goes with write_cache=True")
+    mode = fused_decode_mode(blocks, cfg)
     bf = torch.bfloat16
     L, B, S, _ = k_q.shape
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -97,11 +198,21 @@ def fused_decode_step_plain(blocks, x, k_q, k_s, v_q, v_s, q_slot, valid_from,
     live = (kpos[None, :] < qslot[:, None]) & (kpos[None, :] >= vfrom[:, None])
     cos = rope_cos_g.float()[:, None, :]
     sin = rope_sin_g.float()[:, None, :]
+    # W8A8 quantizes each f32 row (the TPU kernel's `_qrow`, in `_quant`'s
+    # form); the other modes round it to bf16
+    if mode == W8A8:
+        def norm(t, ln):
+            return _quant(_rms_exact(t, ln, cfg.norm_eps))
+    else:
+        def norm(t, ln):
+            return rms_norm(t, ln, cfg.norm_eps).to(bf)
+    # W8A8's DOWN phase keeps the TPU kernel's N-phase K-tiles of F
+    tk = _pick_tile(f, 512) if mode == W8A8 else None
     xf = x.float()
     new = []
     for l in range(L):
-        h = rms_norm(xf, blocks["ln1"][l], cfg.norm_eps).to(bf)
-        qkv = _mm(h, blocks["wqkv"], l).to(bf).float()
+        h = norm(xf, blocks["ln1"][l])
+        qkv = _proj(None, h, blocks["wqkv"], l, mode).to(bf).float()
         q = _rope(qkv[:, :hq * hd].reshape(B, hq, hd), cos, sin).to(bf)
         k = _rope(qkv[:, hq * hd:(hq + hkv) * hd].reshape(B, hkv, hd), cos,
                   sin).to(bf).float()
@@ -127,13 +238,15 @@ def fused_decode_step_plain(blocks, x, k_q, k_s, v_q, v_s, q_slot, valid_from,
         pv = pv + p_cur * vcur[:, :, None, :]
         attn = (pv / denom).reshape(B, hq * hd).to(bf)
 
-        xf = xf + _mm(attn, blocks["wo"], l)
-        h2 = rms_norm(xf, blocks["ln2"][l], cfg.norm_eps).to(bf)
-        gu = _mm(h2, blocks["w_gate_up"], l)
+        xf = _proj(xf, _quant(attn.float()) if mode == W8A8 else attn,
+                   blocks["wo"], l, mode)
+        h2 = norm(xf, blocks["ln2"][l])
+        gu = _proj(None, h2, blocks["w_gate_up"], l, mode)
         gate = gu[:, :f].to(bf).float()
         up = gu[:, f:].to(bf).float()
-        ff = (F.silu(gate) * up).to(bf)
-        xf = xf + _mm(ff, blocks["w_down"], l)
+        ff = F.silu(gate) * up
+        xf = _proj(xf, _quant(ff) if mode == W8A8 else ff.to(bf),
+                   blocks["w_down"], l, mode, tk)
 
         codes = (k8.reshape(B, hkv * hd), ks[..., 0], v8.reshape(B, hkv * hd),
                  vs[..., 0])
@@ -150,26 +263,35 @@ def fused_decode_step_plain(blocks, x, k_q, k_s, v_q, v_s, q_slot, valid_from,
     return (x_out, *(torch.stack(t) for t in zip(*new)))
 
 
-def _splits(m: int, n: int, k: int, grid: int) -> int:
+def _splits(m: int, n: int, k: int, grid: int, group: int = 0) -> int:
     """k-splits of one GEMM phase: as many as keep its (m-tile, n-tile,
-    split) items within one wave of the grid, with >= 4 k-tiles a split."""
-    tiles = -(-m // _BM) * -(-n // _BN)
-    k_tiles = -(-k // _BK)
-    splits = max(1, min(grid // tiles, k_tiles // 4))
-    per = -(-k_tiles // splits)
-    return -(-k_tiles // per)
+    split) items within one wave of the grid, with >= 4 k-tiles a split.
+    W4A16 (`group` > 0): a tile covers 64 packed bytes of a row, so both
+    halves of N, and a split covers whole scale groups."""
+    if group:
+        tiles = -(-m // _BM) * -(-(n // 2) // _BN)
+        units = k // group
+        splits = max(1, min(grid // tiles, units))
+    else:
+        tiles = -(-m // _BM) * -(-n // _BN)
+        units = -(-k // _BK)
+        splits = max(1, min(grid // tiles, units // 4))
+    per = -(-units // splits)
+    return -(-units // per)
 
 
-def _launch_grid(device: torch.device, paged: bool = False) -> int:
+def _launch_grid(device: torch.device, instance: int) -> int:
+    """Blocks of one cooperative launch of a kernel instance: a K4 mode,
+    or _K8."""
     idx = device.index if device.index is not None \
         else torch.cuda.current_device()
-    if (idx, paged) not in _grid:
+    if (idx, instance) not in _grid:
         n = ctypes.c_int(0)
         with torch.cuda.device(idx):
             _build.check(_build.lib().pli_fused_decode_grid(
-                int(paged), ctypes.byref(n)), "fused decode (occupancy)")
-        _grid[idx, paged] = n.value
-    return _grid[idx, paged]
+                instance, ctypes.byref(n)), "fused decode (occupancy)")
+        _grid[idx, instance] = n.value
+    return _grid[idx, instance]
 
 
 def _workspace(device, L, B, D, F_, QH, KH, HKV, ws_floats) -> dict:
@@ -184,26 +306,46 @@ def _workspace(device, L, B, D, F_, QH, KH, HKV, ws_floats) -> dict:
             k_new=e(L, B, KH, dtype=torch.int8),
             ks_new=e(L, B, HKV, dtype=torch.float32),
             v_new=e(L, B, KH, dtype=torch.int8),
-            vs_new=e(L, B, HKV, dtype=torch.float32))
+            vs_new=e(L, B, HKV, dtype=torch.float32),
+            # W8A8: the quantized activation rows and their scales, one row
+            # of scales per quantization point (ln1, attention, ln2, silu)
+            a8=e(B * max(D, QH, F_), dtype=torch.int8),
+            asc=e(4, B, dtype=torch.float32))
     return _workspaces[key]
 
 
-def _weights(blocks, x, L: int, cfg, name: str):
-    """Check the stacked INT8 block weights, activations and norms the
-    kernel takes; returns (wqkv, wo, w_gate_up, w_down)."""
+def _shapes(x, cfg) -> dict:
+    """(K, N) of each block matrix."""
     D = x.shape[1]
+    QH = cfg.num_heads * cfg.head_dim
+    QO = QH + 2 * cfg.num_kv_heads * cfg.head_dim
+    F_ = cfg.intermediate_dim
+    return {"wqkv": (D, QO), "wo": (QH, D), "w_gate_up": (D, 2 * F_),
+            "w_down": (F_, D)}
+
+
+def _weights(blocks, x, L: int, cfg, name: str, mode: int = W8A16):
+    """Check the stacked block weights of `mode`, activations and norms the
+    kernel takes; returns (wqkv, wo, w_gate_up, w_down). INT8: q (L, K, N),
+    s (L, 1, N). INT4: packed q (L, K, N/2) with N/2 a multiple of 16 (the
+    tile's 16-byte rows), s (L, K/G, N) with G = int4_group_size(K, N)."""
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    F_, QH = cfg.intermediate_dim, hq * hd
-    QO = QH + 2 * hkv * hd
-    want = {"wqkv": (L, D, QO), "wo": (L, QH, D), "w_gate_up": (L, D, 2 * F_),
-            "w_down": (L, F_, D)}
-    for n, shape in want.items():
+    for n, (k, nn) in _shapes(x, cfg).items():
         w = blocks[n]
-        if tuple(w.q.shape) != shape or tuple(w.s.shape) != (L, 1, shape[2]):
-            raise ValueError(f"{name}: {n} is {tuple(w.q.shape)}, expected "
-                             f"{shape}")
+        if mode == W4A16:
+            g = int4_group_size(k, nn)
+            want, want_s = (L, k, nn // 2), (L, k // g, nn)
+            if nn % 32 or k % g:
+                raise ValueError(f"{name}: {n} ({k}, {nn}) needs N % 32 == 0 "
+                                 "and whole scale groups")
+        else:
+            want, want_s = (L, k, nn), (L, 1, nn)
+        if tuple(w.q.shape) != want or tuple(w.s.shape) != want_s:
+            raise ValueError(f"{name}: {n} is {tuple(w.q.shape)} with scales "
+                             f"{tuple(w.s.shape)}, expected {want}, {want_s}")
         if w.q.dtype != torch.int8 or w.s.dtype != torch.float32:
-            raise TypeError(f"{name} takes int8 weights, f32 scales")
+            raise TypeError(f"{name} takes int8 (or packed int4) weights, "
+                            "f32 scales")
     if hd % 16 or hd > _DMAX or hq % hkv or hq // hkv > _GMAX:
         raise ValueError(f"kernel takes head_dim % 16 == 0, <= {_DMAX} and "
                          f"<= {_GMAX} query heads per kv head")
@@ -211,7 +353,7 @@ def _weights(blocks, x, L: int, cfg, name: str):
             or blocks["ln2"].dtype != torch.bfloat16:
         raise TypeError(f"{name} on CUDA takes bf16 activations and norm "
                         "weights")
-    ws = tuple(blocks[n] for n in want)
+    ws = tuple(blocks[n] for n in _MATS)
     for t in (x, blocks["ln1"], blocks["ln2"], *(w.q for w in ws),
               *(w.s for w in ws)):
         if t.device != x.device or not t.is_contiguous():
@@ -221,17 +363,18 @@ def _weights(blocks, x, L: int, cfg, name: str):
     return ws
 
 
-def _scratch(x, L: int, cfg, paged: bool):
-    """(grid, k-splits, workspace) of one launch."""
-    B, D = x.shape
+def _scratch(x, L: int, cfg, mode: int, paged: bool = False):
+    """(grid, k-splits, workspace) of one launch. The workspace holds the
+    largest phase's partials: f32 (W8A16, W4A16) or int32 (W8A8)."""
+    B = x.shape[0]
     hkv, hd = cfg.num_kv_heads, cfg.head_dim
-    F_, QH = cfg.intermediate_dim, cfg.num_heads * hd
-    QO = QH + 2 * hkv * hd
-    grid = _launch_grid(x.device, paged)
-    splits = (_splits(B, QO, D, grid), _splits(B, D, QH, grid),
-              _splits(B, 2 * F_, D, grid), _splits(B, D, F_, grid))
-    ws_floats = B * max(splits[0] * QO, splits[1] * D, splits[2] * 2 * F_,
-                        splits[3] * D)
+    grid = _launch_grid(x.device, _K8 if paged else mode)
+    shapes = _shapes(x, cfg).values()
+    splits = tuple(_splits(B, n, k, grid,
+                           int4_group_size(k, n) if mode == W4A16 else 0)
+                   for k, n in shapes)
+    ws_floats = B * max(sp * n for sp, (_, n) in zip(splits, shapes))
+    D, F_, QH = x.shape[1], cfg.intermediate_dim, cfg.num_heads * hd
     return grid, splits, _workspace(x.device, L, B, D, F_, QH, hkv * hd, hkv,
                                     ws_floats)
 
@@ -253,8 +396,10 @@ def fused_decode_step(blocks, x, k_q, k_s, v_q, v_s, q_slot, valid_from,
                       write_cache: bool = False):
     """One decode step over all layers.
 
-    blocks: the stacked INT8 block parameters (`wqkv` (L, D, QO), `wo`,
-    `w_gate_up`, `w_down` as QuantizedTensors, `ln1`/`ln2` (L, D)).
+    blocks: the stacked block parameters (`wqkv` (L, D, QO), `wo`,
+    `w_gate_up`, `w_down`, all QuantizedTensors or all QuantizedTensor4s;
+    `ln1`/`ln2` (L, D)); with `cfg.act_quant == "int8"` INT8 stacks run
+    W8A8 (`fused_decode_mode`).
     x: (B, D) embedded tokens. k_q/v_q: (L, B, S, Hkv·hd) int8; k_s/v_s:
     (L, B, Hkv, S) f32. q_slot/valid_from: (B,) current slot / first valid
     slot. rope_cos_g/rope_sin_g: (B, hd/2) f32 at each request's position.
@@ -263,18 +408,20 @@ def fused_decode_step(blocks, x, k_q, k_s, v_q, v_s, q_slot, valid_from,
     every request and layer, and (x_out, k_q, k_s, v_q, v_s) returned.
     Otherwise (x_out, k_new (L, B, Hkv·hd) int8, ks (L, B, Hkv) f32, v_new,
     vs) for the caller to scatter."""
-    global launches
+    global launches, w4a16_launches, w8a8_launches
     if not x.is_cuda:
         return fused_decode_step_plain(blocks, x, k_q, k_s, v_q, v_s, q_slot,
                                        valid_from, rope_cos_g, rope_sin_g,
                                        cfg, slot, write_cache)
     if (slot is not None) != write_cache:
         raise ValueError("a write slot goes with write_cache=True")
+    mode = fused_decode_mode(blocks, cfg)
     B, D = x.shape
     L, _, S, KH = k_q.shape
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     F_ = cfg.intermediate_dim
-    wqkv, wo, wgu, wdn = _weights(blocks, x, L, cfg, "fused_decode_step")
+    wqkv, wo, wgu, wdn = _weights(blocks, x, L, cfg, "fused_decode_step",
+                                  mode)
     if (KH != hkv * hd or k_s.shape != (L, B, hkv, S) or v_q.shape != k_q.shape
             or v_s.shape != k_s.shape or k_q.shape[1] != B
             or rope_cos_g.shape != (B, hd // 2)
@@ -295,23 +442,31 @@ def fused_decode_step(blocks, x, k_q, k_s, v_q, v_s, q_slot, valid_from,
     if k_q.data_ptr() % 16 or v_q.data_ptr() % 16:
         raise ValueError("the int8 cache must be 16-byte aligned")
 
-    grid, splits, w = _scratch(x, L, cfg, paged=False)
+    grid, splits, w = _scratch(x, L, cfg, mode)
     if write_cache:
         new = (w["k_new"], w["ks_new"], w["v_new"], w["vs_new"])
         slot = int(slot)
     else:
         new = _new_kv(L, B, KH, hkv, x.device)
         slot = -1
+    groups = [int4_group_size(k, n) if mode == W4A16 else 0
+              for k, n in _shapes(x, cfg).values()]
     x_out = torch.empty_like(x)
     ptr = [t.data_ptr() for t in (
         x, blocks["ln1"], blocks["ln2"], wqkv.q, wqkv.s, wo.q, wo.s, wgu.q,
         wgu.s, wdn.q, wdn.s, k_q, k_s, v_q, v_s, cos, sin, qslot, vfrom, *new,
-        x_out, w["xf"], w["h"], w["qbuf"], w["attn"], w["ff"], w["ws"])]
+        x_out, w["xf"], w["h"], w["qbuf"], w["attn"], w["ff"], w["ws"],
+        w["a8"], w["asc"])]
     err = _build.lib().pli_fused_decode_step(
         *ptr, L, B, S, D, F_, hq, hkv, hd, slot, int(write_cache), *splits,
-        cfg.norm_eps, 1.0 / math.sqrt(hd), grid, _stream(x))
+        mode, *groups, cfg.norm_eps, 1.0 / math.sqrt(hd), grid, _stream(x))
     _build.check(err, "fused_decode_step")
-    launches += 1
+    if mode == W4A16:
+        w4a16_launches += 1
+    elif mode == W8A8:
+        w8a8_launches += 1
+    else:
+        launches += 1
     if write_cache:
         return x_out, k_q, k_s, v_q, v_s
     return (x_out, *new)
@@ -424,7 +579,7 @@ def fused_paged_decode_step(blocks, x, kv_pool, kvs_pool, tables, lengths,
     if kv_pool.data_ptr() % 16:
         raise ValueError("the int8 pools must be 16-byte aligned")
 
-    grid, splits, w = _scratch(x, L, cfg, paged=True)
+    grid, splits, w = _scratch(x, L, cfg, W8A16, paged=True)
     new = _new_kv(L, B, KH, hkv, x.device)
     x_out = torch.empty_like(x)
     ptr = [t.data_ptr() for t in (

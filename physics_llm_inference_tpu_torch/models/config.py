@@ -28,10 +28,13 @@ class ModelConfig:
     # or "auto" (flash where the JAX package would pick it, dense otherwise).
     attention_impl: str = "auto"
     decode_unroll: bool = True
-    # Whole-model decode megakernel. Not ported yet: a CUDA decode call whose
-    # shape the megakernel takes raises NotImplementedError. Set False for
-    # the per-op decode path (int8_matmul + int8_kv_attention + lmhead).
+    # Whole-model decode kernel (kernels/fused_decode.py) for the decode
+    # steps that pass the JAX package's gate. Set False for the per-op
+    # decode path (int8_matmul + int8_kv_attention + lmhead).
     fused_decode: bool = True
+    # Activation quantization inside the fused decode kernel: "none" keeps
+    # bf16 activations (W8A16, or W4A16 with INT4 weights); "int8" quantizes
+    # each activation row (W8A8, INT8 weights only).
     act_quant: str = "none"
     num_experts: int = 0
     num_experts_per_tok: int = 2

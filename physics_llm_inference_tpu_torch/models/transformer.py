@@ -4,7 +4,7 @@
 The parameter dict has the JAX pytree's keys and stacked layouts: `embed`
 (V, D); `blocks` with leading layer axis L (`ln1`, `wqkv`, `wo`, `ln2`,
 `w_gate_up`, `w_down`); `norm` (D,); `lm_head` (D, V). INT8 weights are
-`QuantizedTensor`s (models/quant.py).
+`QuantizedTensor`s, INT4 block weights `QuantizedTensor4`s (models/quant.py).
 
 What differs from the JAX package, on purpose:
 - The layer loop is a Python loop over zero-copy layer views
@@ -15,11 +15,12 @@ What differs from the JAX package, on purpose:
   test of `k_limit == s`.
 - "On the accelerator" means a CUDA tensor. There a decode step that
   passes the JAX package's fused gate runs the whole-model decode kernel
-  (fused_decode_step), and the others the per-op kernels (int8_matmul,
+  (fused_decode_step: W8A16, W4A16 with INT4 stacks, W8A8 with
+  `act_quant="int8"`), and the others the per-op kernels (int8_matmul,
   int8_kv_decode_attention); prefill from 512 slots of context runs
-  flash_attention; the greedy head runs lmhead_greedy. The fused kernel's
-  W8A8 variant (`act_quant="int8"`) is not ported: it raises
-  NotImplementedError instead of substituting another path. On a CPU tensor
+  flash_attention; the greedy head runs lmhead_greedy. INT4 linears outside
+  the fused kernel are a dequantize-then-GEMM, as the JAX package leaves
+  them to XLA. On a CPU tensor
   the JAX gates are false, as on the JAX CPU backend, and both packages take
   the same per-op/dense path; `_fused_decode_forward` is the fused branch
   itself, callable on the CPU, where the kernels take their plain versions.
@@ -41,10 +42,7 @@ from ..ops.gqa import grouped_sdpa
 from ..ops.norms import rms_norm
 from ..ops.rope import apply_rope, rope_frequencies
 from .config import ModelConfig, torch_dtype
-from .quant import QuantizedTensor
-
-_NOT_PORTED = ("{} is not ported to CUDA yet (ROADMAP Queue B item {}); "
-               "set {} to take the per-op path")
+from .quant import QuantizedTensor, QuantizedTensor4
 
 # m at and above which a CUDA linear leaves the int8 kernel for torch.matmul,
 # as the JAX package leaves prefill-sized matmuls to XLA
@@ -83,12 +81,30 @@ def _linear_f32(x2: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
     return acc.mul_(w.s.reshape(1, -1))
 
 
+def _linear_int4(x: torch.Tensor, w: QuantizedTensor4) -> torch.Tensor:
+    """x (..., K) @ one layer's INT4 weights (K, N), the JAX package's INT4
+    branch of `_linear` (transformer.py:87-96): the weights dequantized to
+    x's dtype (q·s in f32, then the cast), a product with f32 output (on the
+    card a library GEMM; the JAX package computes it in XLA outside any
+    Pallas kernel), then the cast."""
+    wd = w.dequantize(x.dtype)
+    k, n = wd.shape
+    x2 = x.reshape(-1, k)
+    if x2.is_cuda and x2.dtype != torch.float32:
+        acc = torch.mm(x2, wd, out_dtype=torch.float32)
+    else:
+        acc = x2.float() @ wd.float()
+    return acc.to(x.dtype).reshape(*x.shape[:-1], n)
+
+
 def _linear(x: torch.Tensor, w) -> torch.Tensor:
     """x (..., K) @ w -> (..., N). A plain tensor is a plain matmul. A
     QuantizedTensor (K, N) goes to int8_matmul (the CUDA kernel on the card,
     its plain version on the CPU), except for prefill-sized m >= 2048 on the
     card, which takes `_linear_f32`, as the JAX package leaves that case to
-    XLA."""
+    XLA. A QuantizedTensor4 takes `_linear_int4`."""
+    if isinstance(w, QuantizedTensor4):
+        return _linear_int4(x, w)
     if not isinstance(w, QuantizedTensor):
         return x @ w
     k, n = w.q.shape
@@ -188,8 +204,8 @@ def layer_view(blocks: dict, layer: int) -> dict:
     """One layer's parameters as zero-copy views of the stacks."""
     out = {}
     for name, w in blocks.items():
-        if isinstance(w, QuantizedTensor):
-            out[name] = QuantizedTensor(w.q[layer], w.s[layer])
+        if isinstance(w, (QuantizedTensor, QuantizedTensor4)):
+            out[name] = type(w)(w.q[layer], w.s[layer])
         else:
             out[name] = w[layer]
     return out
@@ -328,16 +344,23 @@ def block_forward(bp: dict, x: torch.Tensor, cfg: ModelConfig,
 def _fused_decode_ok(params: dict, cfg: ModelConfig, b: int,
                      kv: KVSlice) -> bool:
     """The JAX package's gate for its fused whole-model decode kernel
-    (transformer.py:570-613), without the backend test, INT8 stacks only."""
+    (transformer.py:570-613), without the backend test: all four block
+    stacks int8 (W8A16, or W8A8 with `act_quant="int8"`) or all int4 with
+    no activation quantization (W4A8 takes the per-op path)."""
     if not (cfg.fused_decode and cfg.num_experts == 0 and cfg.use_rope
             and cfg.attention_impl != "dense" and cfg.tp_axis is None):
         return False
     if not isinstance(kv.k, QuantKV):
         return False
     blocks = params["blocks"]
-    if not all(isinstance(blocks.get(n), QuantizedTensor)
-               and blocks[n].q.dim() == 3
-               for n in ("wqkv", "wo", "w_gate_up", "w_down")):
+    mats = [blocks.get(n) for n in ("wqkv", "wo", "w_gate_up", "w_down")]
+    kinds = {type(w) for w in mats}
+    if kinds == {QuantizedTensor4}:
+        if cfg.act_quant != "none":
+            return False
+    elif kinds != {QuantizedTensor}:
+        return False
+    if any(w.q.dim() != 3 for w in mats):
         return False
     d, f, hd = cfg.hidden_dim, cfg.intermediate_dim, cfg.head_dim
     qo = (cfg.num_heads + 2 * cfg.num_kv_heads) * hd
@@ -434,10 +457,6 @@ def forward(params: dict, input_ids: torch.Tensor, cfg: ModelConfig,
         new_kv = None
     else:
         if s == 1 and x.is_cuda and _fused_decode_ok(params, cfg, b, kv):
-            if cfg.act_quant == "int8":
-                raise NotImplementedError(_NOT_PORTED.format(
-                    "The W8A8 variant of the fused decode kernel", 4,
-                    "ModelConfig.fused_decode=False"))
             x, new_kv = _fused_decode_forward(params, x, cfg, kv, positions,
                                               slots, valid_from, rope_cos,
                                               rope_sin)

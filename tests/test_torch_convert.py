@@ -127,3 +127,41 @@ def test_init_params_int8_layouts_match_reference():
     again = init_params_int8(torch.Generator().manual_seed(0),
                              TConfig(dtype="bfloat16", **DIMS))
     assert torch.equal(again["blocks"]["wo"].q, tparams["blocks"]["wo"].q)
+
+
+def test_int4_params_round_trip_and_malformed_leaves_raise():
+    from physics_llm_inference_tpu.models.quant import \
+        quantize_params_int4 as j_quantize4
+    from physics_llm_inference_tpu_torch.models.quant import QuantizedTensor4
+
+    cfg = JConfig(dtype="bfloat16", **dict(DIMS, intermediate_dim=384))
+    jparams = to_numpy(j_quantize4(init_params(jax.random.PRNGKey(2), cfg)))
+    tparams = params_from_jax(jparams, device="cpu")
+    for name in ("wqkv", "wo", "w_gate_up", "w_down"):
+        jl, tl = jparams["blocks"][name], tparams["blocks"][name]
+        # the packed nibbles stay packed, the group scales stay group scales
+        assert isinstance(tl, QuantizedTensor4), name
+        for a, b in ((tl.q, jl.q), (tl.s, jl.s)):
+            assert tuple(a.shape) == b.shape and t2n(a).dtype == b.dtype
+            np.testing.assert_array_equal(t2n(a), b, err_msg=name)
+    assert tparams["blocks"]["w_down"].group * 3 == 384   # 3 groups
+    assert isinstance(tparams["lm_head"], QuantizedTensor)
+    np.testing.assert_array_equal(t2n(tparams["lm_head"].q),
+                                  jparams["lm_head"].q)
+
+    w4 = jparams["blocks"]["wo"]
+    w8 = to_numpy(j_quantize(init_params(jax.random.PRNGKey(2), cfg)))[
+        "blocks"]["wo"]
+    bad = {
+        # packed int4 bytes under the int8 type: scales wider than the rows
+        "int4 bytes as int8": type(w8)(w4.q, w4.s),
+        # int8 codes under the int4 type: rows as wide as the scales
+        "int8 codes as int4": type(w4)(w8.q, w8.s),
+        "groups not dividing K": type(w4)(w4.q, np.concatenate(
+            [w4.s] * 3, axis=1)),
+        "f32 values": type(w8)(w8.q.astype(np.float32), w8.s),
+    }
+    for what, leaf in bad.items():
+        tree = dict(jparams, blocks=dict(jparams["blocks"], wo=leaf))
+        with pytest.raises(ValueError, match="layout"):
+            params_from_jax(tree, device="cpu")

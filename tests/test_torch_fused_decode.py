@@ -1,9 +1,11 @@
 """The port's fused whole-model decode step (kernels/fused_decode.py) against
 the JAX package's Pallas kernel, run in interpret mode as the JAX package's
-own tests run it on the CPU. On the CPU the port's entry point takes its
-plain version, which mirrors the TPU kernel's numerics (f32 residual stream
-across all layers); the CUDA kernel is held against that plain version on
-the card (tests/test_torch_cuda.py, chip_smoke.py)."""
+own tests run it on the CPU, in its three modes: W8A16 (INT8 weights), W4A16
+(INT4 weights from the JAX quantizer) and W8A8 (`act_quant="int8"`). On the
+CPU the port's entry point takes its plain version, which mirrors the TPU
+kernel's numerics (f32 residual stream across all layers); the CUDA kernel
+is held against that plain version on the card (tests/test_torch_cuda.py,
+chip_smoke.py)."""
 import dataclasses
 
 import jax
@@ -15,7 +17,8 @@ import torch
 from physics_llm_inference_tpu.kernels.fused_decode import \
     fused_decode_step as j_fused
 from physics_llm_inference_tpu.models import config as jcfg_mod
-from physics_llm_inference_tpu.models.quant import quantize_params_int8
+from physics_llm_inference_tpu.models.quant import (quantize_params_int4,
+                                                    quantize_params_int8)
 from physics_llm_inference_tpu.models.transformer import \
     _scatter_new_kv as j_scatter
 from physics_llm_inference_tpu.models.transformer import init_params
@@ -35,13 +38,20 @@ BASE = dict(vocab_size=256, hidden_dim=512, num_layers=2, num_heads=4,
             dtype="bfloat16")
 
 
-def _setup(hq, hkv, B, S, seed=1):
+MODES = ("w8a16", "w4a16", "w8a8")
+
+
+def _setup(hq, hkv, B, S, seed=1, mode="w8a16"):
     """A prefilled INT8 cache of ragged left-padded prompts (JAX per-op
-    path), the next token, and the same state carried into the port."""
-    cfg = dict(BASE, num_heads=hq, num_kv_heads=hkv, hidden_dim=128 * hq)
+    path), the next token, and the same state carried into the port. `mode`
+    picks the weights (INT4 for w4a16) and `act_quant` (int8 for w8a8). At
+    these widths w_down (K = 768) has 3 INT4 scale groups."""
+    cfg = dict(BASE, num_heads=hq, num_kv_heads=hkv, hidden_dim=128 * hq,
+               act_quant="int8" if mode == "w8a8" else "none")
     jcfg, tcfg = jcfg_mod.ModelConfig(**cfg), tcfg_mod.ModelConfig(**cfg)
-    jparams = quantize_params_int8(init_params(jax.random.PRNGKey(seed),
-                                               jcfg))
+    quantize = quantize_params_int4 if mode == "w4a16" else \
+        quantize_params_int8
+    jparams = quantize(init_params(jax.random.PRNGKey(seed), jcfg))
     rng = np.random.default_rng(seed)
     lens = rng.integers(3, 13, B)
     prompts = [list(rng.integers(1, 256, n)) for n in lens]
@@ -86,10 +96,20 @@ def _assert_codes(jq, tq, js, ts, what):
     assert (np.abs(tq - jq) <= 1).mean() > 0.99, what
 
 
-@pytest.mark.parametrize("hq,hkv,B,S", [(4, 2, 8, 32), (4, 4, 8, 32),
-                                        (8, 1, 8, 32), (4, 2, 24, 32)])
-def test_fused_step_matches_pallas(hq, hkv, B, S):
-    st = _setup(hq, hkv, B, S)
+SHAPES = [(4, 2, 8, 32), (4, 4, 8, 32), (8, 1, 8, 32), (4, 2, 24, 32)]
+
+
+def _shape_id(shape):
+    return "-".join(map(str, shape))
+
+
+# the W8A16 cases keep their ids of before the other modes
+@pytest.mark.parametrize("mode,hq,hkv,B,S", [
+    pytest.param(mode, *shape, id=(_shape_id(shape) if mode == "w8a16"
+                                   else f"{mode}-{_shape_id(shape)}"))
+    for mode in MODES for shape in SHAPES])
+def test_fused_step_matches_pallas(mode, hq, hkv, B, S):
+    st = _setup(hq, hkv, B, S, mode=mode)
     P, kv, blocks = st["P"], st["kv"], st["jparams"]["blocks"]
     pos = st["lens"]
     cos_g, sin_g = _step_inputs(st, pos)
@@ -133,14 +153,16 @@ def test_fused_step_matches_pallas(hq, hkv, B, S):
         torch.from_numpy(np.asarray(want[2])), torch.from_numpy(start))
     np.testing.assert_array_equal(t2n(tk.q), np.asarray(jk.q))
     np.testing.assert_array_equal(t2n(tk.s), np.asarray(jk.s))
-    assert t_fd.launches == 0  # the CPU path launches no kernel
+    # the CPU path launches no kernel
+    assert t_fd.launches == t_fd.w4a16_launches == t_fd.w8a8_launches == 0
 
 
-def test_decode_slice_matches_pallas_step_by_step():
+@pytest.mark.parametrize("mode", MODES)
+def test_decode_slice_matches_pallas_step_by_step(mode):
     """Four teacher-forced steps: JAX fused_decode_step (interpret, in-place
     cache write) against the port's fused branch of forward on the CPU."""
     B, S, steps = 8, 32, 4
-    st = _setup(4, 2, B, S, seed=2)
+    st = _setup(4, 2, B, S, seed=2, mode=mode)
     P, kv, tcfg = st["P"], st["kv"], st["tcfg"]
     jparams, blocks = st["jparams"], st["jparams"]["blocks"]
     rng = np.random.default_rng(3)
@@ -179,7 +201,7 @@ def test_decode_slice_matches_pallas_step_by_step():
             assert d.max() <= 1 and (d == 0).mean() > 0.99, i
         for t, j in ((tk.s, jk.s), (tv.s, jv.s)):
             np.testing.assert_allclose(t2n(t), np.asarray(j), rtol=2e-2)
-    assert t_fd.launches == 0
+    assert t_fd.launches == t_fd.w4a16_launches == t_fd.w8a8_launches == 0
 
 
 def test_gate_and_w8a8_on_cpu_take_the_per_op_path():

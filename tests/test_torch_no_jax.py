@@ -28,7 +28,8 @@ def test_walk_finds_every_module():
                      "serve.paged_engine", "kernels.matmul",
                      "kernels.membench", "kernels.hello_pallas",
                      "specs.roofline", "utils.timing", "ops.ffn",
-                     "sched.static_batcher", "bench.micro", "bench.suite"):
+                     "sched.static_batcher", "bench.micro", "bench.suite",
+                     "models.quant"):
         assert f"{port.__name__}.{expected}" in names
 
 
