@@ -15,6 +15,10 @@ Phases, each of which raises on failure (exit code != 0, no final line):
    version at the main paths' shapes, with the tolerance stated, and both
    timed with CUDA events, beside the kernel's bound at that shape and,
    where one PyTorch call computes the same function, that call's time;
+   K5 also at the paged chunk's shape, GQA groups 1 and 8, head_dim 64 and
+   a ragged Sq, with a sweep against SDPA at S = 512-8192 (logged); K9 also
+   on a ragged bf16 shape and an N % 8 != 0 one, each through its route's
+   launch counter (wgmma + TMA, WMMA, f32);
 4. slice parity: a model at the 7B widths with 2 layers runs prefill plus 8
    teacher-forced decode steps with the kernels and again with the kernels'
    entry points swapped for their plain versions (here, not in the package),
@@ -632,10 +636,11 @@ def check_fused(dev, flush, mode="w8a16"):
 
 def check_flash(dev, flush):
     """K5 at B = 64, Hq = 32, Hkv = 8, d = 128: square Sq = Sk = 512 and the
-    rectangular Sq = 128, q_offset = 512, Sk = 640, ragged valid_from.
-    Returns the square case's entry (max_abs_err on live rows), with the
-    time of scaled_dot_product_attention(attn_mask=K5's mask,
-    enable_gqa=True) as its library call."""
+    rectangular Sq = 128, q_offset = 512, Sk = 640, ragged valid_from; then
+    where the design can break (flash_cases); then the sweep. Returns the
+    square case's entry (max_abs_err on live rows), with the time of
+    scaled_dot_product_attention(attn_mask=K5's mask, enable_gqa=True) as
+    its library call."""
     import torch
 
     import torch.nn.functional as F
@@ -653,20 +658,11 @@ def check_flash(dev, flush):
         # (B, S, H, d) views, as block_forward hands them over
         args = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
         kw = dict(q_offset=qoff, causal=True, valid_from=vfrom)
-        got = kfa.flash_attention(*args, **kw).float()
-        want = kfa.flash_attention_plain(*args, **kw).float()
-        torch.cuda.synchronize()
-        qpos = qoff + torch.arange(sq, device=dev)
-        live = qpos[None, :] >= vfrom[:, None]         # (B, Sq)
-        err = float((got - want).abs().transpose(1, 2)[live].max())
-        if not bool(torch.isfinite(got).all()) or err > 2e-2:
-            raise AssertionError(f"K5 Sq={sq} Sk={sk}: max abs err on live "
-                                 f"rows {err:.4g} > 2e-2")
-        if not torch.equal(kfa.flash_attention(*args, **kw).float(), got):
-            raise AssertionError(f"K5 Sq={sq} Sk={sk}: two launches differ")
+        err = flash_err(kfa, args, kw, f"Sq={sq} Sk={sk}")
         ms = time_ms(lambda: kfa.flash_attention(*args, **kw), flush)
         pms = time_ms(lambda: kfa.flash_attention_plain(*args, **kw), flush,
                       reps=5, warmup=1)
+        qpos = qoff + torch.arange(sq, device=dev)
         pairs = (qpos[None, :] - vfrom[:, None] + 1).clamp_min(0).sum()
         flop = 4 * d * hq * int(pairs)
         kpos = torch.arange(sk, device=dev)
@@ -689,7 +685,94 @@ def check_flash(dev, flush):
             f"{lib:.4f} ms, on K/V expanded to {hq} heads {lib_x:.4f} ms")
         first = first or entry(err, ms, pms, nbytes(q, k, v, q, vfrom), flop,
                                library_ms=lib)
+    flash_cases(dev, g, flush)
+    flash_sweep(dev, g, flush)
     return first
+
+
+def flash_err(kfa, args, kw, what) -> float:
+    """K5 against its plain version: the max abs error on live rows (a query
+    at or past its request's valid_from) within 2e-2, finite everywhere, and
+    a second launch bit-equal to the first."""
+    import torch
+
+    got = kfa.flash_attention(*args, **kw)
+    again = kfa.flash_attention(*args, **kw)
+    want = kfa.flash_attention_plain(*args, **kw).float()
+    torch.cuda.synchronize()
+    b, _, sq, _ = args[0].shape
+    dev = got.device
+    qoff = torch.as_tensor(kw.get("q_offset", 0), device=dev).reshape(-1, 1)
+    vfrom = kw.get("valid_from")
+    vfrom = torch.zeros(b, device=dev) if vfrom is None else vfrom
+    live = (qoff + torch.arange(sq, device=dev)) >= vfrom[:, None]
+    err = float((got.float() - want).abs().transpose(1, 2)[live].max())
+    if not bool(torch.isfinite(got).all()) or err > 2e-2:
+        raise AssertionError(f"K5 {what}: max abs err on live rows "
+                             f"{err:.4g} > 2e-2")
+    if not torch.equal(got, again):
+        raise AssertionError(f"K5 {what}: two launches differ")
+    return err
+
+
+def flash_cases(dev, g, flush):
+    """K5 where its design can break: the paged chunk's shape (a per-request
+    q_offset tensor, Sk = MB x BS = 1024, kv_len < Sk), GQA groups 1 and 8
+    (128 and 16 positions a block), head_dim 64, and an Sq that is not a
+    multiple of the q tile (group 4: 32 positions)."""
+    import torch
+
+    from physics_llm_inference_tpu_torch.kernels import flash_attention as kfa
+
+    cases = {  # name: (B, Sq, Sk, Hq, Hkv, d, q_offset, kv_len, valid_from)
+        "paged chunk": (64, 128, 1024, 32, 8, 128, "per-request", 1000, None),
+        "group 1": (16, 512, 512, 8, 8, 128, 0, None, "ragged"),
+        "group 8": (16, 512, 512, 32, 4, 128, 0, None, "ragged"),
+        "d 64": (16, 512, 512, 32, 8, 64, 0, None, "ragged"),
+        "Sq 100": (16, 100, 612, 32, 8, 128, 512, None, "ragged"),
+    }
+    for name, (B, sq, sk, hq, hkv, d, qoff, kv_len, vfrom) in cases.items():
+        q = torch.randn((B, sq, hq, d), generator=g, device=dev).bfloat16()
+        k = torch.randn((B, sk, hkv, d), generator=g, device=dev).bfloat16()
+        v = torch.randn((B, sk, hkv, d), generator=g, device=dev).bfloat16()
+        if qoff == "per-request":   # chunk starts; request 0's passes kv_len
+            qoff = torch.randint(0, sk - sq + 1, (B,), generator=g,
+                                 device=dev).int()
+            qoff[0] = sk - sq
+        if vfrom == "ragged":
+            vfrom = torch.randint(0, min(sq, 384), (B,), generator=g,
+                                  device=dev).int()
+        args = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+        kw = dict(q_offset=qoff, causal=True, kv_len=kv_len, valid_from=vfrom)
+        err = flash_err(kfa, args, kw, name)
+        ms = time_ms(lambda: kfa.flash_attention(*args, **kw), flush)
+        log(f"K5 {name}: B={B} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} d={d} "
+            f"kv_len={kv_len}: max abs err on live rows {err:.4g} (atol "
+            f"2e-2), two launches bit-equal, kernel {ms:.4f} ms")
+
+
+def flash_sweep(dev, g, flush):
+    """Log only: K5 against scaled_dot_product_attention(is_causal=True,
+    enable_gqa=True) on the same causal mask at bench_attention's shape (B
+    4, Hq 16, Hkv 4, d 128), S = 512 to 8192, in TFLOP/s of causal work."""
+    import torch
+
+    import torch.nn.functional as F
+
+    from physics_llm_inference_tpu_torch.kernels import flash_attention as kfa
+
+    B, hq, hkv, d = 4, 16, 4, 128
+    for s in (512, 1024, 2048, 4096, 8192):
+        q = torch.randn((B, hq, s, d), generator=g, device=dev).bfloat16()
+        k = torch.randn((B, hkv, s, d), generator=g, device=dev).bfloat16()
+        v = torch.randn((B, hkv, s, d), generator=g, device=dev).bfloat16()
+        ms = time_ms(lambda: kfa.flash_attention(q, k, v), flush)
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), flush)
+        flop = 4 * B * hq * s * s * d * 0.5
+        log(f"K5 sweep S={s}: kernel {ms:.4f} ms ({flop / ms / 1e9:.1f} "
+            f"TFLOP/s), scaled_dot_product_attention(is_causal, enable_gqa) "
+            f"{lib:.4f} ms ({flop / lib / 1e9:.1f} TFLOP/s)")
 
 
 def _scattered_tables(g, dev, B, MB, NB, used, trash):
@@ -892,27 +975,44 @@ def check_teaching(dev, flush) -> dict:
     out = {}
     # K9: another f32 summation order, then one cast: bf16 rtol 1e-2 plus
     # 1e-3 of the output's max (as K1); f32 in full f32 on both sides
-    # (allow_tf32 off) rtol 1e-4 plus 1e-4 of the max
-    for size, dtype, rtol, atol in ((4096, torch.bfloat16, 1e-2, 1e-3),
-                                    (2048, torch.float32, 1e-4, 1e-4)):
-        a = torch.randn((size, size), generator=g, device=dev).to(dtype)
-        b = torch.randn((size, size), generator=g, device=dev).to(dtype)
+    # (allow_tf32 off) rtol 1e-4 plus 1e-4 of the max. Each shape must go
+    # through its route's counter: 4096^3 and the ragged (100, 72, 200)
+    # bf16 through wgmma (TMA zero-fills past M, N and K), N % 8 != 0
+    # through WMMA
+    counters = {"wgmma": "launches", "wmma": "wmma_launches",
+                "f32": "f32_launches"}
+    for (m, k, n), dtype, rtol, atol, body in (
+            ((4096,) * 3, torch.bfloat16, 1e-2, 1e-3, "wgmma"),
+            ((2048,) * 3, torch.float32, 1e-4, 1e-4, "f32"),
+            ((100, 72, 200), torch.bfloat16, 1e-2, 1e-3, "wgmma"),
+            ((256, 256, 100), torch.bfloat16, 1e-2, 1e-3, "wmma")):
+        a = torch.randn((m, k), generator=g, device=dev).to(dtype)
+        b = torch.randn((k, n), generator=g, device=dev).to(dtype)
+        before = {c: getattr(kt, c) for c in counters.values()}
         got = kt.tiled_matmul(a, b).float()
+        moved = {c: getattr(kt, c) - before[c] for c in counters.values()}
+        if moved != {c: int(c == counters[body]) for c in counters.values()}:
+            raise AssertionError(f"K9 ({m},{k},{n}) {dtype}: route counters "
+                                 f"moved {moved}, expected {body}")
         want = kt.tiled_matmul_plain(a, b).float()
         torch.cuda.synchronize()
         err = (got - want).abs()
         bound = rtol * want.abs() + atol * float(want.abs().max())
         if not bool(torch.isfinite(got).all()) or bool((err > bound).any()):
-            raise AssertionError(f"K9 {size}^3 {dtype}: max err "
+            raise AssertionError(f"K9 ({m},{k},{n}) {dtype}: max err "
                                  f"{float(err.max()):.4g} exceeds rtol {rtol}")
+        what = (f"K9 tiled_matmul ({m},{k},{n}) {str(dtype)[6:]} via {body}: "
+                f"max_abs_err {float(err.max()):.4g} (rtol {rtol} + {atol} "
+                f"of the max)")
+        if m < 1024:
+            log(what)
+            continue
         ms = time_ms(lambda: kt.tiled_matmul(a, b), flush)
         pms = time_ms(lambda: kt.tiled_matmul_plain(a, b), flush)
         lib = time_ms(lambda: torch.matmul(a, b), flush)
-        flop = 2 * size ** 3
-        log(f"K9 tiled_matmul {size}^3 {str(dtype)[6:]}: max_abs_err "
-            f"{float(err.max()):.4g} (rtol {rtol} + {atol} of the max), "
-            f"kernel {ms:.4f} ms ({flop / ms / 1e9:.1f} TFLOP/s), plain "
-            f"{pms:.4f} ms, torch.matmul {lib:.4f} ms "
+        flop = 2 * m * n * k
+        log(f"{what}, kernel {ms:.4f} ms ({flop / ms / 1e9:.1f} TFLOP/s), "
+            f"plain {pms:.4f} ms, torch.matmul {lib:.4f} ms "
             f"({flop / lib / 1e9:.1f} TFLOP/s)")
         if "tiled_matmul" not in out:
             out["tiled_matmul"] = entry(
@@ -1440,6 +1540,41 @@ def full_runs(dev) -> dict:
     return {n: sum(r[n] for r in runs) for n in KERNELS}, params
 
 
+class CallTime:
+    """Device time of every call of `module.name` inside the block: a CUDA
+    event pair recorded on the stream around each call, read at the end. It
+    bounds the call's kernels from above: a pair also holds any time the
+    device waits for the host between the two records."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.pairs = module, name, []
+
+    def __enter__(self):
+        import torch
+
+        self.fn = getattr(self.module, self.name)
+
+        def spy(*a, **kw):
+            pair = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            pair[0].record()
+            out = self.fn(*a, **kw)
+            pair[1].record()
+            self.pairs.append(pair)
+            return out
+
+        setattr(self.module, self.name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+    def ms(self) -> float:
+        import torch
+
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.pairs)
+
+
 def serve(dev, params, cfg, what: str, kw: dict, n: int, prompt: int,
           tokens: int, expect, forbid, shared: bool = False,
           warm: int = 0) -> dict:
@@ -1454,6 +1589,8 @@ def serve(dev, params, cfg, what: str, kw: dict, n: int, prompt: int,
     import numpy as np
     import torch
 
+    from physics_llm_inference_tpu_torch.models import \
+        paged_transformer as paged_model
     from physics_llm_inference_tpu_torch.serve.engine import GenerationRequest
     from physics_llm_inference_tpu_torch.serve.paged_engine import (
         PagedEngineConfig, PagedInferenceEngine)
@@ -1502,7 +1639,8 @@ def serve(dev, params, cfg, what: str, kw: dict, n: int, prompt: int,
     eng.dispatch_trace = []
     reset_launches()
     t0 = time.perf_counter()
-    rids = wave(n, tokens)
+    with CallTime(paged_model, "flash_attention") as k5:
+        rids = wave(n, tokens)
     wall = time.perf_counter() - t0
     counts = read_launches()
     res = [eng.get_result(r) for r in rids]
@@ -1535,7 +1673,8 @@ def serve(dev, params, cfg, what: str, kw: dict, n: int, prompt: int,
         f"{len(eng.dispatch_trace) - prefills} decode dispatches, {steps} "
         f"decode steps; prefill dispatches {spent['prefill']:.3f} s, decode "
         f"dispatches {spent['decode']:.3f} s, the rest (scheduling, prefill "
-        f"sampling) {wall - sum(spent.values()):.3f} s; peak memory "
+        f"sampling) {wall - sum(spent.values()):.3f} s; K5 (event pairs "
+        f"around its calls) {k5.ms():.1f} ms; peak memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
         f"{ {k: v for k, v in counts.items() if v} }")
     del eng

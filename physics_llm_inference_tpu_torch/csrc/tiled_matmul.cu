@@ -11,25 +11,41 @@
 // in no order, so the K axis is a loop inside the block and the accumulator
 // lives in registers for the whole loop; nothing carries between blocks.
 //
-// bf16: tensor cores through WMMA (mma.sync m16n16k16, f32 accumulate). A
-// 128 x 128 output tile a block of 8 warps (each 64 x 32: 4 x 2 fragments,
-// 64 f32 accumulators a thread), K in slices of 32 staged in shared memory
-// (rows padded by 8 elements against bank conflicts). The next slice is
-// loaded into registers, 16 bytes a thread a load, while the tensor cores
-// work on the current one (one-stage register prefetch, as w8a16_tile.cuh).
-// At the end each warp passes its fragments through a 16 x 16 f32 scratch
-// in shared memory and writes them cast to the output dtype.
+// Three bodies; the wrapper picks one by dtype and shape and counts each:
 //
-// f32: full f32 on the CUDA cores (no TF32): a 128 x 128 tile a block of
-// 256 threads, each thread an 8 x 8 register block, K in slices of 8; A is
-// stored transposed in shared memory so a thread reads its 8 rows as two
-// float4. The same register prefetch.
+// bf16 with 16-byte rows (K and N multiples of 8, aligned bases): Hopper's
+// form, since only wgmma fed by TMA reaches the card's tensor-core rate. A
+// 128 x 256 output tile a block of three warpgroups. One thread of the
+// third keeps TMA loads of A (128 x 64) and B (64 x 256, four 64 x 64
+// boxes) in flight through a 4-stage ring of 128-byte-swizzled shared
+// memory, with a full and an empty mbarrier a stage; it gives its
+// registers up (setmaxnreg). The first two each run wgmma m64n256k16 over
+// their 64 rows, 128 f32 accumulators a thread, keeping one k-slice's
+// wgmma in flight while the next is issued. A is K-major; B (K, N)
+// row-major is MN-major, read with wgmma's transpose bit. TMA zero-fills
+// boxes past M, N and K, so ragged shapes need no masks in the loads; the
+// epilogue clips its stores.
 //
-// Both mask ragged M, N and K with zeros (16-byte loads where a whole,
-// aligned vector is in bounds, element loads elsewhere), so any shape is
-// computed; the wrapper keeps the TPU kernel's divisibility check.
-// wgmma, TMA and a multi-stage ring are later work.
+// bf16 otherwise: tensor cores through WMMA (mma.sync m16n16k16, f32
+// accumulate). A 128 x 128 output tile a block of 8 warps (each 64 x 32: 4
+// x 2 fragments, 64 f32 accumulators a thread), K in slices of 32 staged in
+// shared memory (rows padded by 8 elements against bank conflicts). The
+// next slice is loaded into registers, 16 bytes a thread a load, while the
+// tensor cores work on the current one (one-stage register prefetch, as
+// w8a16_tile.cuh). At the end each warp passes its fragments through a 16 x
+// 16 f32 scratch in shared memory and writes them cast to the output dtype.
+//
+// f32: full f32 on the CUDA cores (no TF32, which wgmma would need): a 128
+// x 128 tile a block of 256 threads, each thread an 8 x 8 register block, K
+// in slices of 8; A is stored transposed in shared memory so a thread reads
+// its 8 rows as two float4. The same register prefetch.
+//
+// The WMMA and f32 bodies mask ragged M, N and K with zeros (16-byte loads
+// where a whole, aligned vector is in bounds, element loads elsewhere), so
+// any shape is computed; the wrapper keeps the TPU kernel's divisibility
+// check.
 
+#include <cuda.h>   // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -50,6 +66,244 @@ __device__ __forceinline__ void store_out(void* c, int out_bf16, size_t idx,
   } else {
     static_cast<float*>(c)[idx] = v;
   }
+}
+
+// ---- bf16: wgmma fed by a TMA ring -----------------------------------------
+
+constexpr int GBM = 128, GBN = 256, GBK = 64, STAGES = 4;
+constexpr int G_THREADS = 384;                // warpgroups 0-1 consume, 2 loads
+constexpr int A_BYTES = GBM * GBK * 2;        // 16 KB: 128 rows of 128 B
+constexpr int B_BOX = GBK * 64 * 2;           // 8 KB: 64 K rows of 64 N (128 B)
+constexpr int STAGE_BYTES = A_BYTES + (GBN / 64) * B_BOX;
+constexpr int G_SMEM = STAGES * STAGE_BYTES + 1024 + 2 * STAGES * 8;
+// wgmma descriptor strides (bytes). A, K-major, 128-byte swizzle: 8-row
+// groups 1024 B apart (the leading offset is unused). B, MN-major, 128-byte
+// swizzle: 64-column atoms (one TMA box each) B_BOX apart, 8-row K groups
+// 1024 B apart.
+constexpr uint32_t A_LBO = 16, A_SBO = 1024, B_LBO = B_BOX, B_SBO = 1024;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// returns once the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
+         (1ull << 62);   // 128-byte swizzle
+}
+
+#define D8(i)                                                                \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), \
+      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d (64 x 256 f32, the warpgroup's fragments) += A (64 x 16, K-major) *
+// B (16 x 256, MN-major: transpose bit set)
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56), D8(64), D8(72), D8(80),
+        D8(88), D8(96), D8(104), D8(112), D8(120)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+#undef D8
+
+__global__ void __launch_bounds__(G_THREADS, 1)
+tiled_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
+                          const __grid_constant__ CUtensorMap tma_b, void* C,
+                          int M, int N, int K, int out_bf16) {
+  extern __shared__ unsigned char smem_raw[];
+  // 128-byte swizzled tiles need a 1024-byte aligned base
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t bars = base + STAGES * STAGE_BYTES;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (STAGES + s); };
+  const int wg = threadIdx.x / 128;
+  const int m0 = blockIdx.y * GBM, n0 = blockIdx.x * GBN;
+  const int kt_n = (K + GBK - 1) / GBK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);    // the loader's arrive, plus the TMA bytes
+      mbar_init(empty(s), 8);   // one arrive a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // loader: one thread issues every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 256) {
+      for (int kt = 0; kt < kt_n; ++kt) {
+        const int s = kt % STAGES;
+        mbar_wait(empty(s), ((kt / STAGES) & 1) ^ 1);   // round 0 passes
+        const uint32_t a = base + s * STAGE_BYTES;
+        mbar_expect_tx(full(s), STAGE_BYTES);   // boxes past the edge count whole
+        tma_load_2d(a, &tma_a, full(s), kt * GBK, m0);
+#pragma unroll
+        for (int j = 0; j < GBN / 64; ++j) {
+          tma_load_2d(a + A_BYTES + j * B_BOX, &tma_b, full(s), n0 + j * 64, kt * GBK);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    float d[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) d[i] = 0.f;
+    const int lane = threadIdx.x & 31;
+    for (int kt = 0; kt < kt_n; ++kt) {
+      const int s = kt % STAGES;
+      mbar_wait(full(s), (kt / STAGES) & 1);
+      const uint32_t a = base + s * STAGE_BYTES + wg * 64 * 128;
+      const uint32_t b = base + s * STAGE_BYTES + A_BYTES;
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int kk = 0; kk < GBK / 16; ++kk) {
+        // K-major A: the next 16 columns are 32 bytes on; MN-major B: the
+        // next 16 K rows are 2048 bytes on
+        wgmma_m64n256k16(d, gmma_desc(a + kk * 32, A_LBO, A_SBO),
+                         gmma_desc(b + kk * 2048, B_LBO, B_SBO));
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      // the previous slice's wgmma is done: hand its stage back
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+      if (kt > 0 && lane == 0) mbar_arrive(empty((kt - 1) % STAGES));
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+    for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+
+    // epilogue: fragment i of warp w holds rows 16 w + g (+ 8 for i & 2),
+    // columns 8 (i / 4) + 2 t + (i & 1); N % 8 == 0, so a pair is in or out
+    const int w = (threadIdx.x >> 5) & 3, g = lane >> 2, t = lane & 3;
+    const int row0 = m0 + wg * 64 + w * 16 + g;
+#pragma unroll
+    for (int c = 0; c < GBN / 8; ++c) {
+      const int col = n0 + c * 8 + 2 * t;
+      if (col >= N) continue;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = row0 + half * 8;
+        if (row >= M) continue;
+        const size_t idx = (size_t)row * N + col;
+        const float x0 = d[c * 4 + half * 2], x1 = d[c * 4 + half * 2 + 1];
+        if (out_bf16) {
+          *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(C) + idx) =
+              __floats2bfloat162_rn(x0, x1);
+        } else {
+          *reinterpret_cast<float2*>(static_cast<float*>(C) + idx) = make_float2(x0, x1);
+        }
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled from the driver, fetched through the runtime so the
+// library links no -lcuda
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(p);
+    }
+  }
+  return fn;
+}
+
+// a (rows, cols) row-major bf16 matrix cut into boxes of box_rows x 64
+// columns (128 bytes), 128-byte swizzled; boxes past the edge are zero-filled
+bool encode_bf16(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t estrides[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides,
+            box, estrides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int launch_wgmma(const void* a, const void* b, void* c, int M, int N, int K, int out_bf16,
+                 cudaStream_t st) {
+  CUtensorMap ma, mb;
+  if (!encode_bf16(&ma, a, M, K, GBM) || !encode_bf16(&mb, b, K, N, GBK)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      tiled_matmul_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G_SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((N + GBN - 1) / GBN, (M + GBM - 1) / GBM);
+  tiled_matmul_wgmma_kernel<<<grid, G_THREADS, G_SMEM, st>>>(ma, mb, c, M, N, K, out_bf16);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---- bf16: WMMA ------------------------------------------------------------
@@ -309,16 +563,21 @@ tiled_matmul_f32_kernel(const float* __restrict__ A,
 
 }  // namespace
 
-// A (M, K), B (K, N) contiguous, both f32 (dtype 0) or both bf16 (dtype 1);
-// C (M, N) contiguous f32 (out_bf16 0) or bf16 (out_bf16 1). vec_a / vec_b
-// = 1 when the rows of A / B may be read as 16-byte vectors (K / N a
-// multiple of the vector's elements, the pointer 16-byte aligned). Returns
-// cudaGetLastError().
+// A (M, K), B (K, N) contiguous; C (M, N) contiguous f32 (out_bf16 0) or
+// bf16 (out_bf16 1). route 0: f32 A and B on the CUDA cores; 1: bf16 on
+// WMMA; 2: bf16 on wgmma + TMA, which needs vec_a and vec_b. vec_a / vec_b =
+// 1 when the rows of A / B may be read as 16-byte vectors (K / N a multiple
+// of the vector's elements, the pointer 16-byte aligned). Returns
+// cudaGetLastError(), or an error code where a tensor map cannot be made.
 extern "C" int pli_tiled_matmul(const void* a, const void* b, void* c, int M,
-                                int N, int K, int dtype, int out_bf16,
+                                int N, int K, int route, int out_bf16,
                                 int vec_a, int vec_b, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
+  if (route == 2) {
+    if (!vec_a || !vec_b) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_wgmma(a, b, c, M, N, K, out_bf16, st);
+  }
+  if (route == 1) {
     dim3 grid((N + HBN - 1) / HBN, (M + HBM - 1) / HBM);
     tiled_matmul_bf16_kernel<<<grid, THREADS, 0, st>>>(
         static_cast<const __nv_bfloat16*>(a),

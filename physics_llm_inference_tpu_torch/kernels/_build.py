@@ -63,7 +63,8 @@ SIGNATURES = {
     # stream
     "pli_int8_paged_decode_attention": [_P] * 6 + [_I] * 6 + [_F, _P],
     "pli_paged_decode_attention": [_P] * 6 + [_I] * 6 + [_F, _P],
-    # a, b, c, M, N, K, dtype (0 f32, 1 bf16), out_bf16, vec_a, vec_b, stream
+    # a, b, c, M, N, K, route (0 f32, 1 bf16 WMMA, 2 bf16 wgmma + TMA),
+    # out_bf16, vec_a, vec_b, stream
     "pli_tiled_matmul": [_P] * 3 + [_I] * 7 + [_P],
     # x, out, num_blocks, block_bytes, stride, vec, stream
     "pli_row_block_copy": [_P, _P, _L, _L, _L, _I, _P],

@@ -2,12 +2,15 @@
 
 Replaces the TPU kernel `physics_llm_inference_tpu/kernels/
 flash_attention.py` `flash_attention` (`_flash_kernel_v3` +
-`_flash_finalize`). The CUDA kernel is `csrc/flash_attention.cu`: one block
-per (q tile, kv head, request) holds the whole GQA group's rows, so each K/V
-tile in shared memory feeds every head of the group; it walks only the live
-KV tiles, from the one holding `valid_from` to the causal last one, with
-bf16 WMMA products, f32 accumulation and a base-2 f32 online softmax. Ragged
-lengths are masked in the kernel, so no length needs to divide a tile.
+`_flash_finalize`). The CUDA kernel is `csrc/flash_attention.cu`, in
+FlashAttention-2's form: one block of 8 warps per (q tile, kv head,
+request) holds the whole GQA group's 128 rows, so each K/V tile in shared
+memory feeds every head of the group; K/V tiles of 32 keys stream through a
+two-stage `cp.async` ring; scores, probabilities and the output stay in
+registers (`mma.sync` m16n8k16 bf16, f32 accumulation, a base-2 f32 online
+softmax); it walks only the live KV tiles, from the one holding
+`valid_from` to the causal last one. Ragged lengths are masked in the
+kernel, so no length needs to divide a tile.
 
 `flash_attention` is the entry point: a CPU tensor goes to
 `flash_attention_plain`; a CUDA tensor goes to the kernel or raises.
@@ -28,9 +31,15 @@ _DMAX, _GMAX = 128, 64  # the kernel's head_dim and group limits
 
 
 def _per_request(val, b: int, device) -> torch.Tensor:
-    """A scalar or (B,) int -> a contiguous (B,) int32 tensor."""
-    t = torch.as_tensor(val, device=device).reshape(-1)
-    return t.to(torch.int32).expand(b).contiguous()
+    """A scalar or (B,) int -> a contiguous (B,) int32 tensor on `device`.
+    A scalar is filled on the device: a host-to-device copy from pageable
+    memory would hold the host until the stream reaches it."""
+    if not isinstance(val, torch.Tensor):
+        val = torch.as_tensor(val)
+        if val.numel() == 1:
+            return torch.full((b,), int(val), dtype=torch.int32, device=device)
+    return val.to(device=device, dtype=torch.int32).reshape(-1).expand(b) \
+        .contiguous()
 
 
 def flash_attention_plain(q, k, v, q_offset=0, causal=True, kv_len=None,

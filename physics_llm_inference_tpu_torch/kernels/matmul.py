@@ -2,12 +2,21 @@
 
 Replaces the TPU kernel `physics_llm_inference_tpu/kernels/matmul.py`
 `tiled_matmul` (`_matmul_kernel`). The CUDA kernel is
-`csrc/tiled_matmul.cu`: bound by operations at the sizes it runs at, bf16
-goes through the tensor cores (WMMA 16x16x16 from shared-memory tiles, a
-128 x 128 tile a block, f32 accumulators in registers over the whole K
-loop, one cast at the end); f32 runs in full f32 on the CUDA cores (a
-register-blocked 8 x 8 tile a thread), so it agrees with `torch.matmul`
-under `allow_tf32=False`. The CUDA tile masks ragged edges itself.
+`csrc/tiled_matmul.cu`, bound by operations at the sizes it runs at. It
+has three routes, chosen by `route` from dtype and shape, each with its own
+launch counter:
+- "wgmma" (`launches`): bf16 whose rows are 16-byte vectors (K and N
+  multiples of 8, 16-byte aligned bases), as TMA needs. Hopper's form: a
+  4-stage TMA ring of 128-byte-swizzled tiles feeding `wgmma` m64n256k16
+  in two consumer warpgroups, f32 accumulators in registers, one cast at
+  the end; TMA zero-fills ragged edges;
+- "wmma" (`wmma_launches`): the other bf16 shapes, which the TPU kernel's
+  divisibility rule allows below 256 (N or K not a multiple of 8): WMMA
+  16x16x16 from shared-memory tiles, a 128 x 128 tile a block;
+- "f32" (`f32_launches`): full f32 on the CUDA cores (a register-blocked 8
+  x 8 tile a thread), so it agrees with `torch.matmul` under
+  `allow_tf32=False`; wgmma has no full-f32 mode.
+The WMMA and f32 tiles mask ragged edges themselves.
 
 `tiled_matmul` is the entry point: it keeps the TPU kernel's arguments and
 raises where it asserts (inner dims differ, a dim not divisible by its
@@ -21,9 +30,26 @@ import torch
 
 from . import _build
 
-launches = 0  # kernel launches made by tiled_matmul (the chip smoke reads it)
+launches = 0       # wgmma route launches (the chip smoke reads it)
+wmma_launches = 0  # bf16 WMMA route launches
+f32_launches = 0   # f32 route launches
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
+_ROUTES = {"f32": 0, "wmma": 1, "wgmma": 2}
+
+
+def _vec(t: torch.Tensor) -> bool:
+    """The rows of contiguous 2-D `t` are whole 16-byte vectors."""
+    return t.shape[1] % (16 // t.element_size()) == 0 and t.data_ptr() % 16 == 0
+
+
+def route(a: torch.Tensor, b: torch.Tensor) -> str:
+    """The CUDA body that takes C = A @ B: "f32" for f32 operands, "wgmma"
+    for bf16 whose rows TMA can read (K and N multiples of 8, both bases
+    16-byte aligned), "wmma" for the other bf16 shapes."""
+    if a.dtype != torch.bfloat16:
+        return "f32"
+    return "wgmma" if _vec(a) and _vec(b) else "wmma"
 
 
 def tiled_matmul_plain(a: torch.Tensor, b: torch.Tensor,
@@ -38,7 +64,7 @@ def tiled_matmul(a: torch.Tensor, b: torch.Tensor, block_m: int = 256,
                  out_dtype=None) -> torch.Tensor:
     """C = A @ B. A: (M, K), B: (K, N), one dtype (bf16 or f32 on CUDA).
     Dims must divide by the block sizes after clamping, as on the TPU."""
-    global launches
+    global launches, wmma_launches, f32_launches
     if a.dim() != 2 or b.dim() != 2:
         raise ValueError("tiled_matmul takes two 2-D arrays")
     m, k = a.shape
@@ -60,13 +86,16 @@ def tiled_matmul(a: torch.Tensor, b: torch.Tensor, block_m: int = 256,
     if b.device != a.device or not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("tiled_matmul needs contiguous tensors on one device")
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
-    per = 16 // a.element_size()   # elements in a 16-byte vector
-    vec_a = int(k % per == 0 and a.data_ptr() % 16 == 0)
-    vec_b = int(n % per == 0 and b.data_ptr() % 16 == 0)
+    body = route(a, b)
     err = _build.lib().pli_tiled_matmul(
-        a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, _DTYPES[a.dtype],
-        _DTYPES[out_dtype], vec_a, vec_b,
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, _ROUTES[body],
+        int(out_dtype == torch.bfloat16), int(_vec(a)), int(_vec(b)),
         torch.cuda.current_stream(a.device).cuda_stream)
-    _build.check(err, "tiled_matmul")
-    launches += 1
+    _build.check(err, f"tiled_matmul ({body})")
+    if body == "wgmma":
+        launches += 1
+    elif body == "wmma":
+        wmma_launches += 1
+    else:
+        f32_launches += 1
     return out

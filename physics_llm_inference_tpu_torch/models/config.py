@@ -24,8 +24,9 @@ class ModelConfig:
     rope_theta: float = 10000.0
     max_seq_len: int = 4096
     dtype: str = "bfloat16"
-    # "dense" (grouped SDPA in plain torch), "flash" (not ported yet: raises),
-    # or "auto" (flash where the JAX package would pick it, dense otherwise).
+    # "dense" (grouped SDPA in plain torch), "flash" (K5 flash_attention on
+    # CUDA, its plain version on the CPU), or "auto" (flash where the JAX
+    # package would pick it, dense otherwise).
     attention_impl: str = "auto"
     decode_unroll: bool = True
     # Whole-model decode kernel (kernels/fused_decode.py) for the decode

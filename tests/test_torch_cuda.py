@@ -221,25 +221,33 @@ def test_w4a16_and_w8a8_generate_through_their_kernel_modes(dev, mode):
         assert not ttf._fused_decode_ok(params, w4a8, 8, cache.as_slice())
 
 
-@pytest.mark.parametrize("b,hq,hkv,sq,sk,qoff,kv_len", [
-    (2, 8, 2, 200, 200, 0, None),
-    (3, 32, 8, 64, 300, [236, 100, 0], 290),
-    (2, 6, 1, 33, 100, [67, 40], None),
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,qoff,kv_len,d", [
+    (2, 8, 2, 200, 200, 0, None, 128),
+    (3, 32, 8, 64, 300, [236, 100, 0], 290, 128),
+    (2, 6, 1, 33, 100, [67, 40], None, 128),      # group 6: 21-position tiles
+    (2, 4, 4, 150, 150, 0, None, 64),             # group 1, d 64
+    (2, 16, 2, 70, 1024, [900, 0], 1000, 128),    # group 8, a paged chunk
+    (1, 64, 1, 9, 40, 31, None, 64),              # group 64: 2-position tiles
 ])
-def test_flash_kernel_matches_plain(dev, b, hq, hkv, sq, sk, qoff, kv_len):
+def test_flash_kernel_matches_plain(dev, b, hq, hkv, sq, sk, qoff, kv_len, d):
     g = _gen(dev, 5)
-    q = torch.randn((b, sq, hq, 128), generator=g, device=dev).bfloat16()
-    k = torch.randn((b, sk, hkv, 128), generator=g, device=dev).bfloat16()
-    v = torch.randn((b, sk, hkv, 128), generator=g, device=dev).bfloat16()
+    q = torch.randn((b, sq, hq, d), generator=g, device=dev).bfloat16()
+    k = torch.randn((b, sk, hkv, d), generator=g, device=dev).bfloat16()
+    v = torch.randn((b, sk, hkv, d), generator=g, device=dev).bfloat16()
     qoff = torch.tensor(qoff, device=dev) if isinstance(qoff, list) else qoff
+    # request 0's valid_from 5 leaves its first rows with no live key in
+    # the first tile (and, at q_offset 0, none at all)
     vfrom = torch.tensor([5, 0, 17][:b], dtype=torch.int32, device=dev)
     # strided (B, S, H, d) views, as block_forward passes them
     args = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
     before = t_fa.launches
     got = t_fa.flash_attention(*args, q_offset=qoff, kv_len=kv_len,
                                valid_from=vfrom)
+    again = t_fa.flash_attention(*args, q_offset=qoff, kv_len=kv_len,
+                                 valid_from=vfrom)
     torch.cuda.synchronize()
-    assert t_fa.launches == before + 1
+    assert t_fa.launches == before + 2
+    assert torch.equal(got, again)           # a fixed order of sums
     want = t_fa.flash_attention_plain(*args, q_offset=qoff, kv_len=kv_len,
                                       valid_from=vfrom)
     assert bool(torch.isfinite(got).all())
@@ -402,19 +410,24 @@ def test_paged_engine_routes_through_the_kernels(dev):
             assert len(toks) == 9 and 0 <= min(toks) and max(toks) < 512
 
 
-@pytest.mark.parametrize("dtype,m,k,n", [
-    (torch.bfloat16, 256, 512, 768),
-    (torch.bfloat16, 100, 72, 200),      # ragged for the 128 x 128 tile
-    (torch.float32, 256, 512, 768),
-    (torch.float32, 100, 72, 200),
+@pytest.mark.parametrize("dtype,m,k,n,body", [
+    (torch.bfloat16, 256, 512, 768, "wgmma"),
+    (torch.bfloat16, 100, 72, 200, "wgmma"),   # TMA zero-fills past M, N, K
+    (torch.bfloat16, 64, 64, 100, "wmma"),     # N % 8 != 0: no TMA rows
+    (torch.bfloat16, 128, 120, 130, "wmma"),
+    (torch.float32, 256, 512, 768, "f32"),
+    (torch.float32, 100, 72, 200, "f32"),
 ])
-def test_tiled_matmul_kernel_matches_plain(dev, dtype, m, k, n):
+def test_tiled_matmul_kernel_matches_plain(dev, dtype, m, k, n, body):
     from physics_llm_inference_tpu_torch.kernels import matmul as t_tm
 
+    counter = {"wgmma": "launches", "wmma": "wmma_launches",
+               "f32": "f32_launches"}
     g = _gen(dev, 10)
     a = torch.randn((m, k), generator=g, device=dev).to(dtype)
     b = torch.randn((k, n), generator=g, device=dev).to(dtype)
-    before = t_tm.launches
+    assert t_tm.route(a, b) == body
+    before = {c: getattr(t_tm, c) for c in counter.values()}
     for out_dtype in (None, torch.float32):
         got = t_tm.tiled_matmul(a, b, out_dtype=out_dtype).float()
         want = t_tm.tiled_matmul_plain(a, b, out_dtype).float()
@@ -423,7 +436,8 @@ def test_tiled_matmul_kernel_matches_plain(dev, dtype, m, k, n):
         rtol = 1e-2 if dtype == torch.bfloat16 and out_dtype is None else 1e-4
         torch.testing.assert_close(got, want, rtol=rtol,
                                    atol=rtol * float(want.abs().max()))
-    assert t_tm.launches == before + 2
+    assert {c: getattr(t_tm, c) - before[c] for c in counter.values()} == \
+        {c: 2 if c == counter[body] else 0 for c in counter.values()}
 
 
 @pytest.mark.parametrize("rows,block_rows,stride", [(4096, 2048, 1),

@@ -87,6 +87,22 @@ def test_tiled_matmul_takes_what_the_check_lets_through():
                  j_mm(ja, jb, interpret=True), "float32")
 
 
+@pytest.mark.parametrize("dtype,m,k,n,offset,body", [
+    ("bfloat16", 4096, 4096, 4096, 0, "wgmma"),   # the microbenchmark's GEMM
+    ("bfloat16", 100, 72, 200, 0, "wgmma"),       # ragged, 16-byte rows
+    ("bfloat16", 64, 64, 100, 0, "wmma"),         # N % 8 != 0
+    ("bfloat16", 64, 60, 128, 0, "wmma"),         # K % 8 != 0
+    ("bfloat16", 64, 64, 128, 1, "wmma"),         # A's base 2 bytes off
+    ("float32", 256, 512, 768, 0, "f32"),
+])
+def test_tiled_matmul_route(dtype, m, k, n, offset, body):
+    """The CUDA body a call takes, decided on the host from dtype and shape:
+    TMA (the wgmma route) needs 16-byte rows and 16-byte aligned bases."""
+    a = torch.empty(m * k + offset, dtype=_TORCH[dtype])[offset:].view(m, k)
+    b = torch.empty((k, n), dtype=_TORCH[dtype])
+    assert t_mm.route(a, b) == body
+
+
 def test_tiled_matmul_mixed_dtypes_raise():
     a = torch.zeros((128, 128))
     with pytest.raises(TypeError):
