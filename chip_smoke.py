@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (physics_llm_inference_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                 # every phase
+    python3 chip_smoke.py --phase-clock   # device, build, phase 3b only
 
 Phases, each of which raises on failure (exit code != 0, no final line):
 1. device: the card's name and power limit (nvidia-smi); no CUDA -> fail;
@@ -15,6 +16,10 @@ Phases, each of which raises on failure (exit code != 0, no final line):
    version at the main paths' shapes, with the tolerance stated, and both
    timed with CUDA events, beside the kernel's bound at that shape and,
    where one PyTorch call computes the same function, that call's time;
+   3b. the phase clock: one clocked launch of each K4 mode at 32 layers
+   and of K8 at 32 layers in the engine's geometry, each phase's mean us a
+   layer and each GEMM phase's GB/s of weights (`--phase-clock` runs the
+   build and this alone);
    K5 also at the paged chunk's shape, GQA groups 1 and 8, head_dim 64 and
    a ragged Sq, with a sweep against SDPA at S = 512-8192 (logged); K9 also
    on a ragged bf16 shape and an N % 8 != 0 one, each through its route's
@@ -632,6 +637,90 @@ def check_fused(dev, flush, mode="w8a16"):
         f"({(wbytes + live) / ms / 1e6:.0f} GB/s of weights + live KV), "
         f"plain {pms:.4f} ms, bound {bound['bound_ms']:.4f} ms")
     return bound
+
+
+def clock_reading(kf, clock, blocks, L: int, mode: int) -> str:
+    """Each phase's mean us a layer from a phase_clock buffer, and for the
+    GEMM phases the GB/s of that layer's weights (codes and scales)."""
+    names = kf.PHASES_W8A8 if mode == kf.W8A8 else kf.PHASES
+    t = clock.cpu().double()
+    if bool((t[1:] <= t[:-1]).any()):
+        raise AssertionError("phase clock: stamps not increasing")
+    dt = (t[1:] - t[:-1]).reshape(L, len(names)) / 1e3   # us
+    parts = []
+    for i, name in enumerate(names):
+        us = float(dt[:, i].mean())
+        part = f"{name} {us:.2f}"
+        if name in kf.GEMM_PHASES:
+            w = blocks[kf.GEMM_PHASES[name]]
+            gb = nbytes(w.q, w.s) / L / 1e9
+            part += f" ({gb / us * 1e6:.0f} GB/s)"
+        parts.append(part)
+    return (f"{float(dt.sum()) / L:.2f} us a layer, {float(dt.sum()) / 1e3:.3f}"
+            f" ms in all; us a layer: " + ", ".join(parts))
+
+
+def phase_clock(dev):
+    """Phase 3b: one clocked launch of each K4 mode at 32 layers, B 64, S
+    256 (as check_fused, deeper), then of K8 at 32 layers in the engine's
+    geometry (B 64, BS 512, MB 2, NB 161) on the W8A16 weights. Each
+    follows an unclocked warm-up launch; no clocked launch is timed."""
+    import torch
+
+    from physics_llm_inference_tpu_torch.kernels import fused_decode as kf
+    from physics_llm_inference_tpu_torch.models import quant
+    from physics_llm_inference_tpu_torch.models.config import ModelConfig
+    from physics_llm_inference_tpu_torch.ops.rope import rope_frequencies
+
+    L, B, S, slot = 32, 64, 256, 200
+    cfg = ModelConfig(num_layers=L, **WIDTHS)
+    hkv, hd = cfg.num_kv_heads, cfg.head_dim
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    cos, sin = rope_frequencies(hd, cfg.max_seq_len, device=dev)
+    x = (torch.randn((B, cfg.hidden_dim), generator=g, device=dev)
+         * cfg.hidden_dim ** -0.5).bfloat16()
+    cache = []
+    for _ in ("k", "v"):
+        cache += [torch.randint(-127, 128, (L, B, S, hkv * hd),
+                                dtype=torch.int8, generator=g, device=dev),
+                  torch.rand((L, B, hkv, S), generator=g, device=dev) * 0.03]
+    qslot = torch.full((B,), slot, dtype=torch.int32, device=dev)
+    vfrom = torch.randint(0, 128, (B,), generator=g, device=dev).int()
+    pos = slot - vfrom
+    weights = {}
+    for mode, (init, act, _, _) in FUSED_MODES.items():
+        mcfg = ModelConfig(num_layers=L, act_quant=act, **WIDTHS)
+        if init not in weights:
+            weights[init] = getattr(quant, init)(
+                torch.Generator(device=dev).manual_seed(SEED), mcfg)["blocks"]
+        blocks = weights[init]
+        args = (qslot, vfrom, cos[pos], sin[pos], mcfg)
+        kmode = kf.fused_decode_mode(blocks, mcfg)
+        clock = kf.phase_clock(L, kmode, dev)
+        kf.fused_decode_step(blocks, x, *cache, *args)
+        kf.fused_decode_step(blocks, x, *cache, *args, clock=clock)
+        torch.cuda.synchronize()
+        log(f"phase clock, K4 {mode.upper()} L={L} B={B} S={S}: "
+            + clock_reading(kf, clock, blocks, L, kmode))
+    blocks = weights.pop("init_params_int8")
+    del cache, weights
+    torch.cuda.empty_cache()
+    BS, MB, NB = 512, 2, 161
+    lens = torch.randint(1, MB * BS, (B,), generator=g, device=dev)
+    tables = _scattered_tables(g, dev, B, MB, NB, lens // BS + 1, NB - 1)
+    kv = torch.randint(-127, 128, (L, NB, 2, BS, hkv * hd), dtype=torch.int8,
+                       generator=g, device=dev)
+    kvs = torch.rand((L, NB, 2, hkv, BS), generator=g, device=dev) * 0.03
+    args = (tables, lens.int(), cos[lens], sin[lens], cfg)
+    clock = kf.phase_clock(L, kf.W8A16, dev)
+    kf.fused_paged_decode_step(blocks, x, kv, kvs, *args, inplace=True)
+    kf.fused_paged_decode_step(blocks, x, kv, kvs, *args, inplace=True,
+                               clock=clock)
+    torch.cuda.synchronize()
+    log(f"phase clock, K8 L={L} B={B} BS={BS} MB={MB} NB={NB}: "
+        + clock_reading(kf, clock, blocks, L, kf.W8A16))
+    del kv, kvs, blocks
+    torch.cuda.empty_cache()
 
 
 def check_flash(dev, flush):
@@ -1811,10 +1900,14 @@ def main() -> int:
     _build.lib()
     log(f"build: {time.perf_counter() - t0:.1f} s -> {_build.LIB_PATH}")
 
+    if "--phase-clock" in sys.argv[1:]:
+        phase_clock(dev)
+        return 0
     flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
     kernels = check_kernels(dev, flush)
     del flush
     torch.cuda.empty_cache()
+    phase_clock(dev)
     slice_parity(dev, fused=False)
     for mode in FUSED_MODES:
         slice_parity(dev, fused=True, mode=mode)

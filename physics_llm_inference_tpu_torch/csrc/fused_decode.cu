@@ -127,7 +127,20 @@ struct Params {
   int split_qkv, split_wo, split_gu, split_dn;
   int g_qkv, g_wo, g_gu, g_dn;             // W4A16: K rows of a scale group
   float eps, scale;
+  unsigned long long* clock;               // the phase clock, or null
 };
+
+// The phase clock: with p.clock set, thread 0 of block 0 writes
+// %globaltimer (ns) into clock[n] after the n-th grid barrier, so
+// clock[n + 1] - clock[n] is phase n + 1's time as block 0 saw it.
+static __device__ __forceinline__ void stamp(const Params& p, int& n) {
+  if (p.clock != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    p.clock[n] = t;
+  }
+  ++n;
+}
 
 static __device__ __forceinline__ float block_sum(float v, float* red) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -599,34 +612,38 @@ __global__ void __launch_bounds__(THREADS) fused_decode_kernel(Params p) {
 
   const int D = p.D, F = p.F, QH = p.HQ * p.HD;
   const int QO = QH + 2 * p.HKV * p.HD;
+  int n = 0;   // barriers passed
   rows_phase<kMode>(p, nullptr, 0, 0, p.ln1, ASC_LN1, true, red);
-  grid.sync();
+  grid.sync(); stamp(p, n);
   for (int l = 0; l < p.L; ++l) {
     gemm_phase<kMode>(p, p.h, p.wqkv, p.sqkv, l, QO, D, p.g_qkv, p.split_qkv, smem_raw);
-    grid.sync();
+    grid.sync(); stamp(p, n);
     qkv_phase<kMode>(p, l, red, kv_sm);
-    grid.sync();
+    grid.sync(); stamp(p, n);
     attention_phase<kPaged>(p, l, att);
-    grid.sync();
+    grid.sync(); stamp(p, n);
     if constexpr (kMode == W8A8) {
       attn_quant_phase(p, red);
-      grid.sync();
+      grid.sync(); stamp(p, n);
     }
     gemm_phase<kMode>(p, p.attn, p.wo, p.swo, l, D, QH, p.g_wo, p.split_wo, smem_raw);
-    grid.sync();
+    grid.sync(); stamp(p, n);
     rows_phase<kMode>(p, p.swo + (size_t)l * D, p.split_wo, ASC_ATTN,
                       p.ln2 + (size_t)l * D, ASC_LN2, false, red);
-    grid.sync();
+    grid.sync(); stamp(p, n);
     gemm_phase<kMode>(p, p.h, p.wgu, p.sgu, l, 2 * F, D, p.g_gu, p.split_gu, smem_raw);
-    grid.sync();
+    grid.sync(); stamp(p, n);
     silu_phase<kMode>(p, l, red);
-    grid.sync();
+    grid.sync(); stamp(p, n);
     gemm_phase<kMode>(p, p.ff, p.wdn, p.sdn, l, D, F, p.g_dn, p.split_dn, smem_raw);
-    grid.sync();
+    grid.sync(); stamp(p, n);
     rows_phase<kMode>(p, p.sdn + (size_t)l * D, p.split_dn, ASC_FF,
                       l + 1 < p.L ? p.ln1 + (size_t)(l + 1) * D : nullptr, ASC_LN1,
                       false, red);
-    if (l + 1 < p.L) grid.sync();
+    if (l + 1 < p.L || p.clock != nullptr) {
+      grid.sync();
+      stamp(p, n);
+    }
   }
 }
 
@@ -722,7 +739,8 @@ extern "C" int pli_fused_decode_step(
     void* ff, void* ws, void* a8, void* asc, int L, int B, int S, int D, int F,
     int HQ, int HKV, int HD, int slot, int write_cache, int split_qkv,
     int split_wo, int split_gu, int split_dn, int mode, int g_qkv, int g_wo,
-    int g_gu, int g_dn, float eps, float scale, int grid, void* stream) {
+    int g_gu, int g_dn, float eps, float scale, void* clock, int grid,
+    void* stream) {
   if (mode != W8A16 && mode != W4A16 && mode != W8A8)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
@@ -745,6 +763,7 @@ extern "C" int pli_fused_decode_step(
   p.split_qkv = split_qkv; p.split_wo = split_wo;
   p.split_gu = split_gu; p.split_dn = split_dn;
   p.eps = eps; p.scale = scale;
+  p.clock = static_cast<unsigned long long*>(clock);
   return launch(p, mode, grid, stream);
 }
 
@@ -761,7 +780,7 @@ extern "C" int pli_fused_paged_decode_step(
     void* xf, void* h, void* qbuf, void* attn, void* ff, void* ws, int L,
     int B, int NB, int MB, int BS, int D, int F, int HQ, int HKV, int HD,
     int inplace, int split_qkv, int split_wo, int split_gu, int split_dn,
-    float eps, float scale, int grid, void* stream) {
+    float eps, float scale, void* clock, int grid, void* stream) {
   Params p;
   set_common(p, x0, ln1, ln2, wqkv, sqkv, wo, swo, wgu, sgu, wdn, sdn, cos, sin,
              k_new, ks_new, v_new, vs_new, x_out, xf, h, qbuf, attn, ff, ws);
@@ -782,5 +801,6 @@ extern "C" int pli_fused_paged_decode_step(
   p.split_qkv = split_qkv; p.split_wo = split_wo;
   p.split_gu = split_gu; p.split_dn = split_dn;
   p.eps = eps; p.scale = scale;
+  p.clock = static_cast<unsigned long long*>(clock);
   return launch(p, 3, grid, stream);
 }

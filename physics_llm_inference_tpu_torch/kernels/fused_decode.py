@@ -66,6 +66,13 @@ _NEG_INF = -1e30
 _BM = _BN = _BK = 64    # the weight tiles
 _DMAX, _GMAX = 128, 8   # the attention loop's head_dim and group limits
 _MATS = ("wqkv", "wo", "w_gate_up", "w_down")
+# the phases of one layer in the kernel's order, each ended by a grid
+# barrier: the phase clock's stamps (`clock=`) fall at these barriers
+PHASES = ("qkv_gemm", "rope_kv", "attention", "wo_gemm", "norm2", "gu_gemm",
+          "silu", "down_gemm", "norm1")
+PHASES_W8A8 = PHASES[:3] + ("attn_quant",) + PHASES[3:]
+GEMM_PHASES = {"qkv_gemm": "wqkv", "wo_gemm": "wo", "gu_gemm": "w_gate_up",
+               "down_gemm": "w_down"}
 _grid: dict[tuple, int] = {}  # (device index, instance) -> blocks of one launch
 _workspaces: dict[tuple, dict] = {}  # (device, shapes) -> scratch tensors
 
@@ -391,9 +398,30 @@ def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+def phase_clock(L: int, mode: int, device) -> torch.Tensor:
+    """A zeroed buffer for the phase clock of one launch: 1 + L x phases
+    int64 stamps (ns of the device's global timer), the first after the
+    initial norm, then one after each phase of each layer (PHASES, or
+    PHASES_W8A8 in W8A8). Pass it as `clock=` to `fused_decode_step` or
+    `fused_paged_decode_step`; the launch then also ends on a barrier."""
+    n = len(PHASES_W8A8 if mode == W8A8 else PHASES)
+    return torch.zeros(1 + L * n, dtype=torch.int64, device=device)
+
+
+def _clock_ptr(clock, L: int, mode: int, x) -> int:
+    if clock is None:
+        return 0
+    n = len(PHASES_W8A8 if mode == W8A8 else PHASES)
+    if (clock.dtype != torch.int64 or clock.numel() != 1 + L * n
+            or clock.device != x.device or not clock.is_contiguous()):
+        raise ValueError(f"the phase clock takes {1 + L * n} int64 stamps "
+                         "on the launch's device (phase_clock)")
+    return clock.data_ptr()
+
+
 def fused_decode_step(blocks, x, k_q, k_s, v_q, v_s, q_slot, valid_from,
                       rope_cos_g, rope_sin_g, cfg, slot=None,
-                      write_cache: bool = False):
+                      write_cache: bool = False, clock=None):
     """One decode step over all layers.
 
     blocks: the stacked block parameters (`wqkv` (L, D, QO), `wo`,
@@ -407,7 +435,8 @@ def fused_decode_step(blocks, x, k_q, k_s, v_q, v_s, q_slot, valid_from,
     slot + write_cache=True: the new K/V are written IN PLACE at `slot` for
     every request and layer, and (x_out, k_q, k_s, v_q, v_s) returned.
     Otherwise (x_out, k_new (L, B, Hkv·hd) int8, ks (L, B, Hkv) f32, v_new,
-    vs) for the caller to scatter."""
+    vs) for the caller to scatter. `clock` (CUDA only): a `phase_clock`
+    buffer the launch fills with its barrier times."""
     global launches, w4a16_launches, w8a8_launches
     if not x.is_cuda:
         return fused_decode_step_plain(blocks, x, k_q, k_s, v_q, v_s, q_slot,
@@ -459,7 +488,8 @@ def fused_decode_step(blocks, x, k_q, k_s, v_q, v_s, q_slot, valid_from,
         w["a8"], w["asc"])]
     err = _build.lib().pli_fused_decode_step(
         *ptr, L, B, S, D, F_, hq, hkv, hd, slot, int(write_cache), *splits,
-        mode, *groups, cfg.norm_eps, 1.0 / math.sqrt(hd), grid, _stream(x))
+        mode, *groups, cfg.norm_eps, 1.0 / math.sqrt(hd),
+        _clock_ptr(clock, L, mode, x), grid, _stream(x))
     _build.check(err, "fused_decode_step")
     if mode == W4A16:
         w4a16_launches += 1
@@ -533,7 +563,7 @@ def fused_paged_decode_step_plain(blocks, x, kv_pool, kvs_pool, tables,
 
 def fused_paged_decode_step(blocks, x, kv_pool, kvs_pool, tables, lengths,
                             rope_cos_g, rope_sin_g, cfg,
-                            inplace: bool = False):
+                            inplace: bool = False, clock=None):
     """One decode step over all layers, KV in the merged paged INT8 pools.
 
     blocks, x, rope_cos_g, rope_sin_g: as `fused_decode_step`. kv_pool:
@@ -547,7 +577,8 @@ def fused_paged_decode_step(blocks, x, kv_pool, kvs_pool, tables, lengths,
     vs); with inplace=True the new K/V are also written into the pools IN
     PLACE and (…, kv_pool, kvs_pool) appended, as the JAX kernel returns its
     aliased pools. Which of several writes to one block position lands (the
-    trash block that inactive rows share) is unspecified."""
+    trash block that inactive rows share) is unspecified. `clock`: as
+    `fused_decode_step`'s."""
     global paged_launches
     if not x.is_cuda:
         return fused_paged_decode_step_plain(blocks, x, kv_pool, kvs_pool,
@@ -588,7 +619,8 @@ def fused_paged_decode_step(blocks, x, kv_pool, kvs_pool, tables, lengths,
         x_out, w["xf"], w["h"], w["qbuf"], w["attn"], w["ff"], w["ws"])]
     err = _build.lib().pli_fused_paged_decode_step(
         *ptr, L, B, NB, MB, BS, D, F_, hq, hkv, hd, int(inplace), *splits,
-        cfg.norm_eps, 1.0 / math.sqrt(hd), grid, _stream(x))
+        cfg.norm_eps, 1.0 / math.sqrt(hd), _clock_ptr(clock, L, W8A16, x),
+        grid, _stream(x))
     _build.check(err, "fused_paged_decode_step")
     paged_launches += 1
     if inplace:
