@@ -1,8 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (physics_llm_inference_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py                 # every phase
-    python3 chip_smoke.py --phase-clock   # device, build, phase 3b only
+    python3 chip_smoke.py
+
+The phase clock (phase 3b) alone, from the repository's root:
+
+    python3 -c "import torch, chip_smoke as s; s.phase_clock(torch.device('cuda'))"
 
 Phases, each of which raises on failure (exit code != 0, no final line):
 1. device: the card's name and power limit (nvidia-smi); no CUDA -> fail;
@@ -18,8 +21,7 @@ Phases, each of which raises on failure (exit code != 0, no final line):
    where one PyTorch call computes the same function, that call's time;
    3b. the phase clock: one clocked launch of each K4 mode at 32 layers
    and of K8 at 32 layers in the engine's geometry, each phase's mean us a
-   layer and each GEMM phase's GB/s of weights (`--phase-clock` runs the
-   build and this alone);
+   layer and each GEMM phase's GB/s of weights;
    K5 also at the paged chunk's shape, GQA groups 1 and 8, head_dim 64 and
    a ragged Sq, with a sweep against SDPA at S = 512-8192 (logged); K9 also
    on a ragged bf16 shape and an N % 8 != 0 one, each through its route's
@@ -1900,9 +1902,6 @@ def main() -> int:
     _build.lib()
     log(f"build: {time.perf_counter() - t0:.1f} s -> {_build.LIB_PATH}")
 
-    if "--phase-clock" in sys.argv[1:]:
-        phase_clock(dev)
-        return 0
     flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
     kernels = check_kernels(dev, flush)
     del flush

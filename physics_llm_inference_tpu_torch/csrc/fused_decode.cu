@@ -40,27 +40,43 @@
 //
 // Bound on the H100: weight bytes (at B = 64 every int8 weight byte feeds 128
 // operations, every packed INT4 byte 256, far below the ~295 flop/byte bf16
-// and ~590 op/byte int8 ridges) plus the live KV bytes. The TPU
-// kernel keeps activations in VMEM and walks one sequential grid; here one
-// persistent cooperative launch covers the step (grid = SMs x resident
-// blocks), and the phases of a layer are separated by grid-wide barriers.
-// Each phase walks a flat list of work items with a grid-stride loop:
-//   1. QKV partials: (m-tile, n-tile, k-split) items of the W8A16 tile
-//      (w8a16_tile.cuh); K is split so that N = 6144 still fills the card;
-//   2. per (request, kv head): fixed-order sum of the partials, bf16, RoPE,
-//      quantize K/V into the new-KV buffers;
-//   3. per (request, kv head): attention over the cache slots
-//      [valid_from, q_slot) (kv_attn::attend, shared with K2; K8: the
-//      request's pool blocks through the table), merged with the current
-//      token, then the in-place cache write at `slot` (K8: the request's
-//      own write position) after this item's own reads of that cache row;
+// and ~590 op/byte int8 ridges) plus the live KV bytes. The TPU kernel keeps
+// activations in VMEM and walks one sequential grid, its weights streaming
+// through VMEM double-buffered across phase and layer boundaries alike; here
+// one persistent cooperative launch covers the step, and the phases of a
+// layer are separated by grid-wide barriers:
+//   1. QKV partials;  2. per (request, kv head): the fixed-order sum of the
+//      partials, bf16, RoPE, quantize K/V into the new-KV buffers;
+//   3. per (request, kv head): attention over the cache slots [valid_from,
+//      q_slot) (kv_attn::attend, shared with K2; K8: the request's pool
+//      blocks through the table), merged with the current token, then the
+//      in-place cache write at `slot` (K8: the request's own write position)
+//      after this item's own reads of that cache row;
 //   4. WO partials;  5. per request: x += sum * scale, then RMSNorm -> h;
 //   6. gate/up partials;  7. silu(gate) * up -> ff;
 //   8. DOWN partials;  9. per request: x += sum * scale, then the next
 //      layer's RMSNorm (or the bf16 output after the last layer).
+// Two skeletons run these phases:
+//  - W8A16 (K4's default mode, and K8): fused_decode_stream_kernel, one
+//    block an SM of 8 consumer warps and a producer warpgroup. The GEMM phases
+//    are w8a16_stream.cuh: a plan made on the host splits each phase's
+//    (slab, k-tile) units evenly over the blocks (stream-K), and the
+//    producer streams every weight tile the block will consume, of every
+//    phase and layer, through a TMA ring in shared memory, running ahead
+//    across the grid barriers: the row, RoPE and attention phases no longer
+//    leave the weight stream idle. The grid barrier is written by hand over
+//    the consumer warps (a named barrier, then one thread's release/acquire
+//    on a counter the launch zeroes), so the producer, which may wait on a
+//    free stage, stays out of it. The other phases run on crews of 128
+//    threads, two a block (named barriers 2 and 3).
+//  - W4A16 and W8A8: fused_decode_kernel, 128-thread blocks (two an SM),
+//    cg grid barriers, the GEMM tiles of w4a16_tile.cuh / w8a8_tile.cuh
+//    over (m-tile, n-tile, k-split) items in a grid-stride loop; a block is
+//    one crew.
 // Partials go to an f32 workspace and are summed in a fixed order (no float
-// atomics), so the step is deterministic. L1 is not coherent across SMs, so
-// everything another block wrote in this launch is read with ld.global.cg.
+// atomics), so the step is deterministic; the summing phases read them four
+// columns a load. L1 is not coherent across SMs, so everything another block
+// wrote in this launch is read through L2 (ld.global.cg, cp.async.cg).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -70,27 +86,29 @@
 
 #include "int8_kv_attention.cuh"
 #include "w4a16_tile.cuh"
-#include "w8a16_tile.cuh"
+#include "w8a16_stream.cuh"
 #include "w8a8_tile.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int THREADS = 128;
-static_assert(THREADS == w8a16::THREADS && THREADS == kv_attn::THREADS &&
-                  THREADS == w8a8::THREADS,
+constexpr int THREADS = 128;   // fused_decode_kernel's block
+constexpr int CREW = 128;      // a crew: the row, RoPE and attention phases' worker
+static_assert(THREADS == w8a16::THREADS && CREW == kv_attn::THREADS &&
+                  THREADS == w8a8::THREADS && THREADS == CREW,
               "the phases share one block shape");
-constexpr int NWARPS = THREADS / 32;
+static_assert(w8s::CONSUMERS == 2 * CREW, "two crews a streaming block");
+constexpr int NWARPS = CREW / 32;
+constexpr int MAX_WARPS = w8s::CONSUMERS / 32;   // the widest crew: a streaming block
 constexpr size_t cmax(size_t a, size_t b) { return a > b ? a : b; }
-constexpr size_t SMEM_BYTES =
-    cmax(cmax(sizeof(w8a16::Smem), sizeof(kv_attn::Smem)),
-         cmax(sizeof(w4a16::Smem), sizeof(w8a8::Smem)));
 
 // The K4 modes (kernels/fused_decode.py numbers them alike).
 constexpr int W8A16 = 0, W4A16 = 1, W8A8 = 2;
 // W8A8: the rows of `asc`, one per activation quantization point.
 constexpr int ASC_LN1 = 0, ASC_ATTN = 1, ASC_LN2 = 2, ASC_FF = 3;
+// The GEMM phases, in a layer's order.
+constexpr int QKV = 0, WO = 1, GU = 2, DN = 3;
 
 struct Params {
   const __nv_bfloat16* x0;                 // (B, D)
@@ -117,14 +135,17 @@ struct Params {
   __nv_bfloat16* qbuf;                     // (B, HQ*HD) post-RoPE queries
   __nv_bfloat16* attn;                     // (B, HQ*HD)
   __nv_bfloat16* ff;                       // (B, F)
-  float* ws;                               // (splits, B, N) f32 partials
-                                           // (W8A8: int32)
+  float* ws;                               // f32 partials (W8A8: int32):
+                                           // (split, B, N) or, W8A16, (j, B, N)
   int8_t* a8;                              // W8A8: (B, K) int8 activation rows
   float* asc;                              // W8A8: (4, B) their scales
+  unsigned* sync;                          // W8A16: the grid barrier's counter,
+                                           // then the attention items claimed
   int L, B, S, D, F, HQ, HKV, HD;
   int NB, MB, BS;                          // K8: pool blocks, table width, block size
   int slot, write_cache;
-  int split_qkv, split_wo, split_gu, split_dn;
+  int split[4];                            // W4A16, W8A8: k-splits of each GEMM phase
+  w8s::Plan plan[4];                       // W8A16: each GEMM phase's plan
   int g_qkv, g_wo, g_gu, g_dn;             // W4A16: K rows of a scale group
   float eps, scale;
   unsigned long long* clock;               // the phase clock, or null
@@ -134,110 +155,143 @@ struct Params {
 // %globaltimer (ns) into clock[n] after the n-th grid barrier, so
 // clock[n + 1] - clock[n] is phase n + 1's time as block 0 saw it.
 static __device__ __forceinline__ void stamp(const Params& p, int& n) {
-  if (p.clock != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
-    unsigned long long t;
-    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-    p.clock[n] = t;
-  }
+  if (p.clock != nullptr && blockIdx.x == 0 && threadIdx.x == 0) p.clock[n] = w8s::global_ns();
   ++n;
 }
 
-static __device__ __forceinline__ float block_sum(float v, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+// A crew of `size` threads: `count` of them walk a phase's items, crew `id`
+// of them; `tid` is the thread's index in it and `bar` its named barrier.
+// The streaming kernel's crews are half blocks (CREW threads), its row
+// phases run on whole blocks (w8s::CONSUMERS).
+struct Crew {
+  int id, count, tid, bar, size;
+  __device__ __forceinline__ void sync() const {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(bar), "r"(size) : "memory");
+  }
+};
+
+// A crew's shared memory in the row, RoPE and attention phases.
+struct CrewSmem {
+  kv_attn::Smem att;
+  float kv[2 * kv_attn::DMAX];             // one head's K and V rows
+  float red[MAX_WARPS];
+  double red_d[MAX_WARPS];
+  int item;                                // a claimed attention item
+};
+
+static __device__ __forceinline__ float block_sum(float v, const Crew& c, float* red) {
+  const int lane = c.tid & 31, warp = c.tid >> 5;
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   if (lane == 0) red[warp] = v;
-  __syncthreads();
+  c.sync();
   float t = 0.f;
-#pragma unroll
-  for (int w = 0; w < NWARPS; ++w) t += red[w];
-  __syncthreads();
+  for (int w = 0; w < c.size / 32; ++w) t += red[w];
+  c.sync();
   return t;
 }
 
-static __device__ __forceinline__ double block_sum_d(double v, double* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+static __device__ __forceinline__ double block_sum_d(double v, const Crew& c,
+                                                     double* red) {
+  const int lane = c.tid & 31, warp = c.tid >> 5;
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   if (lane == 0) red[warp] = v;
-  __syncthreads();
+  c.sync();
   double t = 0.0;
-#pragma unroll
-  for (int w = 0; w < NWARPS; ++w) t += red[w];
-  __syncthreads();
+  for (int w = 0; w < c.size / 32; ++w) t += red[w];
+  c.sync();
   return t;
 }
 
-static __device__ __forceinline__ float block_max(float v, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+static __device__ __forceinline__ float block_max(float v, const Crew& c, float* red) {
+  const int lane = c.tid & 31, warp = c.tid >> 5;
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   if (lane == 0) red[warp] = v;
-  __syncthreads();
+  c.sync();
   float t = red[0];
-#pragma unroll
-  for (int w = 1; w < NWARPS; ++w) t = fmaxf(t, red[w]);
-  __syncthreads();
+  for (int w = 1; w < c.size / 32; ++w) t = fmaxf(t, red[w]);
+  c.sync();
   return t;
 }
 
 static __device__ __forceinline__ float bf(float x) { return kv_attn::round_bf16(x); }
 
-// Sum of the k-split partials of output (b, n), in split order.
-static __device__ __forceinline__ float partial_sum(const float* ws, int splits,
-                                                    int B, int N, int b, int n) {
-  float acc = 0.f;
-  for (int s = 0; s < splits; ++s) acc += __ldcg(ws + ((size_t)s * B + b) * N + n);
+static __device__ __forceinline__ float4 ldcg4(const float* p) {
+  return __ldcg(reinterpret_cast<const float4*>(p));
+}
+
+static __device__ __forceinline__ void add4(float4& a, const float4& b) {
+  a.x += b.x; a.y += b.y; a.z += b.z; a.w += b.w;
+}
+
+// Columns n..n+3 (n % 4 == 0, N % 4 == 0) of request b of the f32 partials
+// ws (cnt, B, N), summed in partial order, BATCH loads in flight (up to 16
+// in the streaming kernel, so a plan's partials are read in one round; 4 in
+// the 128-thread kernel, which has the registers for fewer).
+template <int BATCH>
+static __device__ __forceinline__ float4 partial_sum4(const float* ws, int cnt, int B,
+                                                      int N, int b, int n) {
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int j0 = 0; j0 < cnt; j0 += BATCH) {
+    float4 v[BATCH];
+#pragma unroll
+    for (int j = 0; j < BATCH; ++j)
+      v[j] = j0 + j < cnt ? ldcg4(ws + ((size_t)(j0 + j) * B + b) * N + n)
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int j = 0; j < BATCH; ++j)
+      if (j0 + j < cnt) add4(acc, v[j]);
+  }
   return acc;
 }
 
-// Int32 sum of the W8A8 k-split partials of output (b, n).
-static __device__ __forceinline__ int partial_isum(const float* ws, int splits,
-                                                  int B, int N, int b, int n) {
+// The same for W8A8's int32 partials.
+static __device__ __forceinline__ int4 partial_isum4(const float* ws, int cnt, int B,
+                                                     int N, int b, int n) {
   const int* wi = reinterpret_cast<const int*>(ws);
-  int acc = 0;
-  for (int s = 0; s < splits; ++s) acc += __ldcg(wi + ((size_t)s * B + b) * N + n);
+  int4 acc = make_int4(0, 0, 0, 0);
+  for (int s = 0; s < cnt; ++s) {
+    const int4 v = __ldcg(reinterpret_cast<const int4*>(wi + ((size_t)s * B + b) * N + n));
+    acc.x += v.x; acc.y += v.y; acc.z += v.z; acc.w += v.w;
+  }
   return acc;
 }
 
-// Output (b, n) of a GEMM phase from its partials: W8A16 sum * scale[n];
-// W4A16 the sum (the partials carry their group scales); W8A8
-// (f32(integer sum) * rs) * scale[n], rs the input row's scale.
+// Outputs (b, n..n+3) of GEMM phase `ph` from its partials: W8A16 the sum
+// (its plan's partials of that slab) * scale; W4A16 the sum (the partials
+// carry their group scales); W8A8 (f32(integer sum) * rs) * scale, rs the
+// input row's scale.
 template <int kMode>
-static __device__ __forceinline__ float gemm_out(const Params& p, int splits, int N,
-                                                 int b, int n, const float* scale,
-                                                 float rs) {
+static __device__ __forceinline__ float4 gemm_out4(const Params& p, int ph, int N, int b,
+                                                   int n, const float* scale, float rs) {
   if constexpr (kMode == W8A16) {
-    return partial_sum(p.ws, splits, p.B, N, b, n) * scale[n];
+    // as many loads in flight as the slab has partials
+    const int cnt = w8s::partials(p.plan[ph], b, n);
+    const float4 v = cnt <= 4   ? partial_sum4<4>(p.ws, cnt, p.B, N, b, n)
+                     : cnt <= 8 ? partial_sum4<8>(p.ws, cnt, p.B, N, b, n)
+                                : partial_sum4<16>(p.ws, cnt, p.B, N, b, n);
+    const float4 sc = __ldg(reinterpret_cast<const float4*>(scale + n));
+    return make_float4(v.x * sc.x, v.y * sc.y, v.z * sc.z, v.w * sc.w);
   } else if constexpr (kMode == W4A16) {
-    return partial_sum(p.ws, splits, p.B, N, b, n);
+    return partial_sum4<4>(p.ws, p.split[ph], p.B, N, b, n);
   } else {
-    return static_cast<float>(partial_isum(p.ws, splits, p.B, N, b, n)) * rs * scale[n];
+    const int4 v = partial_isum4(p.ws, p.split[ph], p.B, N, b, n);
+    const float4 sc = __ldg(reinterpret_cast<const float4*>(scale + n));
+    return make_float4(static_cast<float>(v.x) * rs * sc.x, static_cast<float>(v.y) * rs * sc.y,
+                       static_cast<float>(v.z) * rs * sc.z, static_cast<float>(v.w) * rs * sc.w);
   }
 }
 
-// ws[split, m, n] = sum over the split's K range of x[m, k] * w[k, n]
-// (unscaled), for x (M, K) bf16 and w (K, N) int8.
-static __device__ void gemm_partials(const __nv_bfloat16* x, const int8_t* w,
-                                     float* ws, int M, int N, int K, int splits,
-                                     w8a16::Smem& sm) {
-  using namespace w8a16;
-  const int mt = (M + BM - 1) / BM, nt = (N + BN - 1) / BN;
-  const int per = ((K + BK - 1) / BK + splits - 1) / splits;  // k-tiles per split
-  const int items = mt * nt * splits;
-  const bool vec_x = K % 8 == 0, vec_w = N % 16 == 0;
-  for (int it = blockIdx.x; it < items; it += gridDim.x) {
-    const int split = it % splits, tile = it / splits;
-    const int n0 = (tile % nt) * BN, m0 = (tile / nt) * BM;
-    const int k_begin = split * per * BK;
-    const int k_end = min(K, k_begin + per * BK);
-    tile_gemm(x, w, M, N, K, k_begin, k_end, m0, n0, vec_x, vec_w, sm);
-    for (int i = threadIdx.x; i < BM * BN; i += THREADS) {
-      const int r = i / BN, c = i % BN, gm = m0 + r, gn = n0 + c;
-      if (gm < M && gn < N) ws[((size_t)split * M + gm) * N + gn] = sm.c[r * CS_LD + c];
-    }
-    __syncthreads();
-  }
+// W8A8: output (b, n) of GEMM phase `ph`, one column (its silu row reads
+// them one by one).
+static __device__ __forceinline__ float gemm_out_a8(const Params& p, int ph, int N, int b,
+                                                    int n, const float* scale, float rs) {
+  const int* wi = reinterpret_cast<const int*>(p.ws);
+  int acc = 0;
+  for (int s = 0; s < p.split[ph]; ++s) acc += __ldcg(wi + ((size_t)s * p.B + b) * N + n);
+  return static_cast<float>(acc) * rs * scale[n];
 }
 
 // W4A16: ws[split, m, n] = sum over the split's scale groups g, in K order,
@@ -312,30 +366,46 @@ static __device__ void gemm_partials_a8(const int8_t* x, const int8_t* w, int* w
 // clip(rint(value(i) / s), +-127) with s = max(absmax, 1e-8) * (1/127) (the
 // scale in the form XLA gives the TPU kernel's `_qrow`), s to *scale_out.
 template <class Value>
-static __device__ void quantize_row(const Params& p, int b, int n, float* scale_out,
-                                    Value value, float* red) {
+static __device__ void quantize_row(const Params& p, const Crew& c, float* red, int b,
+                                    int n, float* scale_out, Value value) {
   float amax = 0.f;
-  for (int i = threadIdx.x; i < n; i += THREADS) amax = fmaxf(amax, fabsf(value(i)));
-  const float s = fmaxf(block_max(amax, red), 1e-8f) * (1.f / 127.f);
+  for (int i = c.tid; i < n; i += c.size) amax = fmaxf(amax, fabsf(value(i)));
+  const float s = fmaxf(block_max(amax, c, red), 1e-8f) * (1.f / 127.f);
   int8_t* row = p.a8 + (size_t)b * n;
-  for (int i = threadIdx.x; i < n; i += THREADS)
+  for (int i = c.tid; i < n; i += c.size)
     row[i] = static_cast<int8_t>(fminf(fmaxf(rintf(value(i) / s), -127.f), 127.f));
-  if (threadIdx.x == 0) *scale_out = s;
+  if (c.tid == 0) *scale_out = s;
 }
 
-// Per request b: x = x0 (init) or x += the GEMM phase's output (its
+static __device__ __forceinline__ float4 ldbf4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+
+static __device__ __forceinline__ void stbf4(__nv_bfloat16* p, float a, float b, float c,
+                                             float d) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(a, b), hi = __floats2bfloat162_rn(c, d);
+  uint2 u;
+  u.x = *reinterpret_cast<const uint32_t*>(&lo);
+  u.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+// Per request b: x = x0 (init) or x += GEMM phase ph's output (its
 // partials, `scale`, and for W8A8 the input row scale asc[in_row]); then
-// h = bf16(rms(x) * ln) when ln is given, else x_out = bf16(x). W8A8: the
-// f32 rms(x) * ln is quantized into a8, its scale to asc[out_row]; the
-// mean of squares is summed in f64 and rounded once, and 1 / sqrtf is
-// IEEE, as the plain version's `_rms_exact`: the row is not rounded to bf16
-// before its codes, so its last bit decides codes at exact .5 ties.
+// h = bf16(rms(x) * ln) when ln is given, else x_out = bf16(x). Four
+// columns a thread a step. W8A8: the f32 rms(x) * ln is quantized into a8,
+// its scale to asc[out_row]; the mean of squares is summed in f64 and
+// rounded once, and 1 / sqrtf is IEEE, as the plain version's `_rms_exact`:
+// the row is not rounded to bf16 before its codes, so its last bit decides
+// codes at exact .5 ties.
 template <int kMode>
-static __device__ void rows_phase(const Params& p, const float* scale, int splits,
-                                  int in_row, const __nv_bfloat16* ln, int out_row,
-                                  bool init, float* red) {
+static __device__ void rows_phase(const Params& p, const Crew& c, CrewSmem& cs,
+                                  const float* scale, int ph, int in_row,
+                                  const __nv_bfloat16* ln, int out_row, bool init) {
   const int D = p.D;
-  for (int b = blockIdx.x; b < p.B; b += gridDim.x) {
+  for (int b = c.id; b < p.B; b += c.count) {
     float* xr = p.xf + (size_t)b * D;
     float rs = 0.f;
     if constexpr (kMode == W8A8) {
@@ -343,169 +413,270 @@ static __device__ void rows_phase(const Params& p, const float* scale, int split
     }
     float ss = 0.f;
     double ss_d = 0.0;
-    for (int n = threadIdx.x; n < D; n += THREADS) {
-      float x;
+    for (int n = 4 * c.tid; n < D; n += 4 * c.size) {
+      float4 x;
       if (init) {
-        x = __bfloat162float(p.x0[(size_t)b * D + n]);
+        x = ldbf4(p.x0 + (size_t)b * D + n);
       } else {
-        x = __ldcg(xr + n) + gemm_out<kMode>(p, splits, D, b, n, scale, rs);
+        x = ldcg4(xr + n);
+        add4(x, gemm_out4<kMode>(p, ph, D, b, n, scale, rs));
       }
-      xr[n] = x;
+      *reinterpret_cast<float4*>(xr + n) = x;
       if constexpr (kMode == W8A8) {
-        ss_d += static_cast<double>(x) * x;
+        ss_d += static_cast<double>(x.x) * x.x + static_cast<double>(x.y) * x.y +
+                static_cast<double>(x.z) * x.z + static_cast<double>(x.w) * x.w;
       } else {
-        ss += x * x;
+        ss += x.x * x.x + x.y * x.y + x.z * x.z + x.w * x.w;
       }
     }
     if (ln != nullptr) {
       if constexpr (kMode == W8A8) {
-        __shared__ double red_d[NWARPS];
-        const float ms = static_cast<float>(block_sum_d(ss_d, red_d) / D);
+        const float ms = static_cast<float>(block_sum_d(ss_d, c, cs.red_d) / D);
         const float r = 1.f / sqrtf(ms + p.eps);
-        quantize_row(p, b, D, p.asc + (size_t)out_row * p.B + b,
-                     [&](int n) { return __ldcg(xr + n) * r * __bfloat162float(ln[n]); },
-                     red);
+        quantize_row(p, c, cs.red, b, D, p.asc + (size_t)out_row * p.B + b,
+                     [&](int n) { return __ldcg(xr + n) * r * __bfloat162float(ln[n]); });
       } else {
-        const float tot = block_sum(ss, red);
+        const float tot = block_sum(ss, c, cs.red);
         const float r = 1.f / sqrtf(tot / D + p.eps);
-        for (int n = threadIdx.x; n < D; n += THREADS) {
-          p.h[(size_t)b * D + n] =
-              __float2bfloat16(__ldcg(xr + n) * r * __bfloat162float(ln[n]));
+        for (int n = 4 * c.tid; n < D; n += 4 * c.size) {
+          const float4 x = ldcg4(xr + n);
+          const float4 w = ldbf4(ln + n);
+          stbf4(p.h + (size_t)b * D + n, x.x * r * w.x, x.y * r * w.y, x.z * r * w.z,
+                x.w * r * w.w);
         }
       }
     } else {
-      for (int n = threadIdx.x; n < D; n += THREADS)
-        p.x_out[(size_t)b * D + n] = __float2bfloat16(__ldcg(xr + n));
+      for (int n = 4 * c.tid; n < D; n += 4 * c.size) {
+        const float4 x = ldcg4(xr + n);
+        stbf4(p.x_out + (size_t)b * D + n, x.x, x.y, x.z, x.w);
+      }
     }
-    __syncthreads();
+    c.sync();
   }
 }
 
 // Per (request, kv head): qkv = bf16(the QKV phase's output); RoPE on the
 // group's query heads -> qbuf (bf16); K rotated and rounded to bf16, V as
 // is; both quantized per head (absmax / 127, round half to even, clip +-127)
-// into the new-KV buffers of layer l.
+// into the new-KV buffers of layer l. The item's group + 2 heads are first
+// summed from their partials into shared memory, four columns a thread a
+// step with every partial load in flight, then rotated from there.
 template <int kMode>
-static __device__ void qkv_phase(const Params& p, int l, float* red, float* kv_sm) {
+static __device__ void qkv_phase(const Params& p, const Crew& c, CrewSmem& cs, int l) {
   const int HD = p.HD, hd2 = HD / 2, group = p.HQ / p.HKV;
   const int QH = p.HQ * HD, KH = p.HKV * HD, QO = QH + 2 * KH;
   const float* sc = p.sqkv + (size_t)l * QO;
-  float* kf = kv_sm;
-  float* vf = kv_sm + HD;
-  for (int it = blockIdx.x; it < p.B * p.HKV; it += gridDim.x) {
+  float* qkv = reinterpret_cast<float*>(cs.att.k);   // (group + 2) x HD
+  float* kf = cs.kv;
+  float* vf = cs.kv + HD;
+  for (int it = c.id; it < p.B * p.HKV; it += c.count) {
     const int b = it / p.HKV, g = it % p.HKV;
-    const float* cs = p.cos + (size_t)b * hd2;
-    const float* sn = p.sin + (size_t)b * hd2;
+    const float* cb = p.cos + (size_t)b * hd2;
+    const float* sb = p.sin + (size_t)b * hd2;
     float rs = 0.f;
     if constexpr (kMode == W8A8) rs = __ldcg(p.asc + (size_t)ASC_LN1 * p.B + b);
-    auto val = [&](int n) { return bf(gemm_out<kMode>(p, p.split_qkv, QO, b, n, sc, rs)); };
-    for (int i = threadIdx.x; i < group * hd2; i += THREADS) {
-      const int col = (g * group + i / hd2) * HD + i % hd2;
-      const float x1 = val(col), x2 = val(col + hd2);
-      const float c = cs[i % hd2], s = sn[i % hd2];
-      p.qbuf[(size_t)b * QH + col] =
-          __float2bfloat16(__fsub_rn(__fmul_rn(x1, c), __fmul_rn(x2, s)));
-      p.qbuf[(size_t)b * QH + col + hd2] =
-          __float2bfloat16(__fadd_rn(__fmul_rn(x2, c), __fmul_rn(x1, s)));
+    for (int i = 4 * c.tid; i < (group + 2) * HD; i += 4 * c.size) {
+      // the group's query heads, then its K head, then its V head
+      const int col = i < group * HD ? g * group * HD + i
+                      : i < (group + 1) * HD ? QH + g * HD + (i - group * HD)
+                                             : QH + KH + g * HD + (i - (group + 1) * HD);
+      const float4 v = gemm_out4<kMode>(p, QKV, QO, b, col, sc, rs);
+      qkv[i] = bf(v.x); qkv[i + 1] = bf(v.y); qkv[i + 2] = bf(v.z); qkv[i + 3] = bf(v.w);
     }
-    for (int i = threadIdx.x; i < hd2; i += THREADS) {
-      const int col = QH + g * HD + i;
-      const float x1 = val(col), x2 = val(col + hd2);
-      kf[i] = bf(__fsub_rn(__fmul_rn(x1, cs[i]), __fmul_rn(x2, sn[i])));
-      kf[i + hd2] = bf(__fadd_rn(__fmul_rn(x2, cs[i]), __fmul_rn(x1, sn[i])));
+    c.sync();
+    // x1 * c - x2 * s and x2 * c + x1 * s in f32, each product rounded
+    for (int i = c.tid; i < (group + 1) * hd2; i += c.size) {
+      const int head = i / hd2, e = i % hd2;
+      const float x1 = qkv[head * HD + e], x2 = qkv[head * HD + e + hd2];
+      const float cv = cb[e], sv = sb[e];
+      const float o1 = __fsub_rn(__fmul_rn(x1, cv), __fmul_rn(x2, sv));
+      const float o2 = __fadd_rn(__fmul_rn(x2, cv), __fmul_rn(x1, sv));
+      if (head < group) {
+        const size_t q = (size_t)b * QH + (size_t)(g * group + head) * HD + e;
+        p.qbuf[q] = __float2bfloat16(o1);
+        p.qbuf[q + hd2] = __float2bfloat16(o2);
+      } else {
+        kf[e] = bf(o1);
+        kf[e + hd2] = bf(o2);
+      }
     }
-    for (int i = threadIdx.x; i < HD; i += THREADS) vf[i] = val(QH + KH + g * HD + i);
-    __syncthreads();
+    for (int i = c.tid; i < HD; i += c.size) vf[i] = qkv[(group + 1) * HD + i];
+    c.sync();
     float ak = 0.f, av = 0.f;
-    for (int i = threadIdx.x; i < HD; i += THREADS) {
+    for (int i = c.tid; i < HD; i += c.size) {
       ak = fmaxf(ak, fabsf(kf[i]));
       av = fmaxf(av, fabsf(vf[i]));
     }
     // the scale as a product with the f32 reciprocal of 127, the form in
     // which XLA evaluates the TPU kernel's quantizer; x / s stays a division
-    const float sk = fmaxf(block_max(ak, red), 1e-8f) * (1.f / 127.f);
-    const float sv = fmaxf(block_max(av, red), 1e-8f) * (1.f / 127.f);
+    const float sk = fmaxf(block_max(ak, c, cs.red), 1e-8f) * (1.f / 127.f);
+    const float sv = fmaxf(block_max(av, c, cs.red), 1e-8f) * (1.f / 127.f);
     const size_t row = ((size_t)l * p.B + b) * KH + (size_t)g * HD;
-    for (int i = threadIdx.x; i < HD; i += THREADS) {
+    for (int i = c.tid; i < HD; i += c.size) {
       p.k_new[row + i] = static_cast<int8_t>(fminf(fmaxf(rintf(kf[i] / sk), -127.f), 127.f));
       p.v_new[row + i] = static_cast<int8_t>(fminf(fmaxf(rintf(vf[i] / sv), -127.f), 127.f));
     }
-    if (threadIdx.x == 0) {
+    if (c.tid == 0) {
       p.ks_new[((size_t)l * p.B + b) * p.HKV + g] = sk;
       p.vs_new[((size_t)l * p.B + b) * p.HKV + g] = sv;
     }
-    __syncthreads();
+    c.sync();
+  }
+}
+
+// Where request b's new K/V of kv head g in layer l land, if anywhere: the
+// slot `slot` of its cache row (K4, write_cache), or its own write position
+// in the pools (K8, in place; a stale length past the table (a retired row
+// inside a horizon) stays inside the request's own table row, as JAX
+// clamps).
+template <bool kPaged>
+static __device__ __forceinline__ bool new_kv_position(const Params& p, int l, int b, int g,
+                                                       int8_t*& kw, int8_t*& vw, float*& ksw,
+                                                       float*& vsw) {
+  const int HD = p.HD, KH = p.HKV * HD;
+  if (!p.write_cache) return false;
+  if constexpr (kPaged) {
+    const size_t page = (size_t)p.BS * KH, spage = (size_t)p.HKV * p.BS;
+    const int len = p.q_slot[b];
+    const size_t blk = (size_t)__ldg(p.tables + (size_t)b * p.MB + min(len / p.BS, p.MB - 1));
+    const int off = len % p.BS;
+    kw = p.kq + ((size_t)l * p.NB + blk) * 2 * page + (size_t)off * KH + (size_t)g * HD;
+    vw = kw + page;
+    ksw = p.ks + ((size_t)l * p.NB + blk) * 2 * spage + (size_t)g * p.BS + off;
+    vsw = ksw + spage;
+  } else {
+    if (p.slot < 0 || p.slot >= p.S) return false;
+    const size_t lb = (size_t)l * p.B + b;
+    kw = p.kq + (lb * p.S + p.slot) * KH + (size_t)g * HD;
+    vw = p.vq + (lb * p.S + p.slot) * KH + (size_t)g * HD;
+    ksw = p.ks + (lb * p.HKV + g) * p.S + p.slot;
+    vsw = p.vs + (lb * p.HKV + g) * p.S + p.slot;
+  }
+  return true;
+}
+
+// Copy the new K/V codes and scales of (request b, kv head g) of layer l
+// from the new-KV buffers to their cache position.
+template <bool kPaged>
+static __device__ __forceinline__ void write_new_kv(const Params& p, const Crew& c, int l,
+                                                    int b, int g) {
+  int8_t* kw; int8_t* vw; float* ksw; float* vsw;
+  if (!new_kv_position<kPaged>(p, l, b, g, kw, vw, ksw, vsw)) return;
+  const size_t lb = (size_t)l * p.B + b, KH = (size_t)p.HKV * p.HD;
+  const int8_t* kn = p.k_new + lb * KH + (size_t)g * p.HD;
+  const int8_t* vn = p.v_new + lb * KH + (size_t)g * p.HD;
+  for (int cc = c.tid; cc < p.HD; cc += c.size) {
+    kw[cc] = __ldcg(kn + cc);
+    vw[cc] = __ldcg(vn + cc);
+  }
+  if (c.tid == 0) {
+    *ksw = __ldcg(p.ks_new + lb * p.HKV + g);
+    *vsw = __ldcg(p.vs_new + lb * p.HKV + g);
+  }
+}
+
+// The streaming kernel's cache writes of layer l, after every read of its
+// attention phase: no item reads a position another writes in this launch.
+template <bool kPaged>
+static __device__ void new_kv_phase(const Params& p, const Crew& c, int l) {
+  for (int it = c.id; it < p.B * p.HKV; it += c.count) write_new_kv<kPaged>(p, c, l, it / p.HKV, it % p.HKV);
+}
+
+// The cached keys request b attends (the current token aside).
+template <bool kPaged>
+static __device__ __forceinline__ int live_keys(const Params& p, int b) {
+  if constexpr (kPaged) return min(p.q_slot[b], p.MB * p.BS);
+  return max(0, min(p.q_slot[b] - 1, p.S - 1) - max(p.valid_from[b], 0) + 1);
+}
+
+// The streaming kernel's attention order: order[i] is the request with the
+// i-th most cached keys (ties in request order), B <= MAX_ORDER.
+constexpr int MAX_ORDER = 256;
+template <bool kPaged>
+static __device__ void attention_order(const Params& p, short* order) {
+  if (p.B > MAX_ORDER) return;
+  for (int b = threadIdx.x; b < p.B; b += w8s::CONSUMERS) {
+    const int keys = live_keys<kPaged>(p, b);
+    int rank = 0;
+    for (int u = 0; u < p.B; ++u) {
+      const int ku = live_keys<kPaged>(p, u);
+      rank += ku > keys || (ku == keys && u < b);
+    }
+    order[rank] = static_cast<short>(b);
   }
 }
 
 // Per (request, kv head): attention over the cache slots [valid_from,
 // q_slot) (K8: the request's keys [0, lengths[b]) through its block table)
-// merged with the current token, -> attn (bf16); then, with write_cache,
-// the new K/V land at `slot` of this cache row (K8: at the request's own
-// write position).
-template <bool kPaged>
-static __device__ void attention_phase(const Params& p, int l, kv_attn::Smem& sm) {
+// merged with the current token, -> attn (bf16); then, in the 128-thread
+// kernel (kStream false), the new K/V land at their cache position after
+// this item's own reads (write_new_kv). The streaming kernel's crews claim
+// items one at a time from a counter (kStream), longest requests first
+// (`order`): an item's length varies with its request, and a fixed share
+// left some crews two long items, a claim in request order a long one last.
+// An item is still computed by one crew alone, so the result does not
+// depend on which.
+template <bool kPaged, bool kStream>
+static __device__ void attention_phase(const Params& p, const Crew& c, CrewSmem& cs, int l,
+                                       const short* order = nullptr) {
   using kv_attn::GMAX;
-  const int HD = p.HD, group = p.HQ / p.HKV;
+  kv_attn::Smem& sm = cs.att;
+  const int HD = p.HD, group = p.HQ / p.HKV, items = p.B * p.HKV;
   const int QH = p.HQ * HD, KH = p.HKV * HD;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  for (int it = blockIdx.x; it < p.B * p.HKV; it += gridDim.x) {
-    const int b = it / p.HKV, g = it % p.HKV;
+  const int tid = c.tid, lane = tid & 31, warp = tid >> 5;
+  auto sync = [&c]() { c.sync(); };
+  // every crew makes one claim past the last item, so layer l's claims
+  // start at l * (items + crews)
+  const int base = l * (items + c.count);
+  for (int it = c.id;; it += c.count) {
+    if constexpr (kStream) {
+      if (tid == 0) cs.item = static_cast<int>(atomicAdd(p.sync + 1, 1u)) - base;
+      c.sync();
+      it = cs.item;
+    }
+    if (it >= items) break;
+    int b = it / p.HKV;
+    const int g = it % p.HKV;
+    if constexpr (kStream) {
+      if (p.B <= MAX_ORDER) b = order[b];
+    }
     const size_t lb = (size_t)l * p.B + b;
     const __nv_bfloat16* qg = p.qbuf + (size_t)b * QH + (size_t)g * group * HD;
     float acc[GMAX];
-    bool write = false;
-    int8_t* kw = nullptr;   // this item's write position: K, V codes, scales
-    int8_t* vw = nullptr;
-    float* ksw = nullptr;
-    float* vsw = nullptr;
     if constexpr (kPaged) {
       const size_t page = (size_t)p.BS * KH, spage = (size_t)p.HKV * p.BS;
-      int8_t* kv = p.kq + (size_t)l * p.NB * 2 * page + (size_t)g * HD;
-      float* kvs = p.ks + (size_t)l * p.NB * 2 * spage + (size_t)g * p.BS;
+      const int8_t* kv = p.kq + (size_t)l * p.NB * 2 * page + (size_t)g * HD;
+      const float* kvs = p.ks + (size_t)l * p.NB * 2 * spage + (size_t)g * p.BS;
       const int* table = p.tables + (size_t)b * p.MB;
       const kv_attn::PagedAddr addr{kv, kvs, table, p.BS, p.MB, (size_t)KH, page, spage};
-      const int len = p.q_slot[b];
-      kv_attn::attend<true>(qg, addr, 0, min(len, p.MB * p.BS) - 1, group, HD,
-                            p.scale, sm, acc);
-      if (p.write_cache) {
-        // a stale length past the table (a retired row inside a horizon)
-        // stays inside the request's own table row, as JAX clamps
-        const size_t blk = (size_t)__ldg(table + min(len / p.BS, p.MB - 1));
-        const int off = len % p.BS;
-        write = true;
-        kw = kv + blk * 2 * page + (size_t)off * KH;
-        vw = kw + page;
-        ksw = kvs + blk * 2 * spage + off;
-        vsw = ksw + spage;
-      }
+      kv_attn::attend<true>(qg, addr, 0, min(p.q_slot[b], p.MB * p.BS) - 1, group, HD,
+                            p.scale, sm, acc, tid, sync);
     } else {
       const int S = p.S;
-      int8_t* kbase = p.kq + lb * S * KH + (size_t)g * HD;
-      int8_t* vbase = p.vq + lb * S * KH + (size_t)g * HD;
-      float* ksb = p.ks + (lb * p.HKV + g) * S;
-      float* vsb = p.vs + (lb * p.HKV + g) * S;
-      const kv_attn::SlotAddr addr{kbase, vbase, ksb, vsb, (size_t)KH};
+      const kv_attn::SlotAddr addr{p.kq + lb * S * KH + (size_t)g * HD,
+                                   p.vq + lb * S * KH + (size_t)g * HD,
+                                   p.ks + (lb * p.HKV + g) * S, p.vs + (lb * p.HKV + g) * S,
+                                   (size_t)KH};
       kv_attn::attend<true>(qg, addr, max(p.valid_from[b], 0),
-                            min(p.q_slot[b] - 1, S - 1), group, HD, p.scale, sm, acc);
-      if (p.write_cache && p.slot >= 0 && p.slot < S) {
-        write = true;
-        kw = kbase + (size_t)p.slot * KH;
-        vw = vbase + (size_t)p.slot * KH;
-        ksw = ksb + p.slot;
-        vsw = vsb + p.slot;
-      }
+                            min(p.q_slot[b] - 1, S - 1), group, HD, p.scale, sm, acc,
+                            tid, sync);
     }
-
-    // the current token, dequantized from the int8 values the cache holds
+    // the current token, dequantized from the int8 values the cache will hold
     const int8_t* kn = p.k_new + lb * KH + (size_t)g * HD;
     const int8_t* vn = p.v_new + lb * KH + (size_t)g * HD;
     const float ksc = __ldcg(p.ks_new + lb * p.HKV + g);
     const float vsc = __ldcg(p.vs_new + lb * p.HKV + g);
-    for (int r = warp; r < group; r += NWARPS) {
+    // HD <= 128: one 4-byte load a lane
+    const uint32_t kw4 = 4 * lane < HD ? __ldcg(reinterpret_cast<const unsigned*>(kn) + lane) : 0u;
+    for (int r = warp; r < group; r += c.size / 32) {
       float dot = 0.f;
-      for (int c = lane; c < HD; c += 32)
-        dot += sm.q[r][c] * bf(static_cast<float>(__ldcg(kn + c)) * ksc);
+      if (4 * lane < HD) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float kq = static_cast<float>(static_cast<int8_t>(kw4 >> (8 * e)));
+          dot += sm.q[r][4 * lane + e] * bf(kq * ksc);
+        }
+      }
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
       if (lane == 0) {
@@ -518,7 +689,7 @@ static __device__ void attention_phase(const Params& p, int l, kv_attn::Smem& sm
         sm.l[r] = sm.l[r] * alpha + p_cur;
       }
     }
-    __syncthreads();
+    c.sync();
     if (tid < HD) {
       const float v_cur = bf(static_cast<float>(__ldcg(vn + tid)) * vsc);
 #pragma unroll
@@ -529,27 +700,18 @@ static __device__ void attention_phase(const Params& p, int l, kv_attn::Smem& sm
         }
       }
     }
-    if (write) {
-      for (int c = tid; c < HD; c += THREADS) {
-        kw[c] = __ldcg(kn + c);
-        vw[c] = __ldcg(vn + c);
-      }
-      if (tid == 0) {
-        *ksw = ksc;
-        *vsw = vsc;
-      }
-    }
-    __syncthreads();
+    if constexpr (!kStream) write_new_kv<kPaged>(p, c, l, b, g);
+    c.sync();
   }
 }
 
 // W8A8, per request: the bf16 attention row quantized into a8.
-static __device__ void attn_quant_phase(const Params& p, float* red) {
+static __device__ void attn_quant_phase(const Params& p, const Crew& c, CrewSmem& cs) {
   const int QH = p.HQ * p.HD;
-  for (int b = blockIdx.x; b < p.B; b += gridDim.x) {
+  for (int b = c.id; b < p.B; b += c.count) {
     const __nv_bfloat16* row = p.attn + (size_t)b * QH;
-    quantize_row(p, b, QH, p.asc + (size_t)ASC_ATTN * p.B + b,
-                 [&](int i) { return kv_attn::ldcg_bf16(row + i); }, red);
+    quantize_row(p, c, cs.red, b, QH, p.asc + (size_t)ASC_ATTN * p.B + b,
+                 [&](int i) { return kv_attn::ldcg_bf16(row + i); });
   }
 }
 
@@ -557,89 +719,94 @@ static __device__ void attn_quant_phase(const Params& p, float* red) {
 // W8A8: per request, the f32 silu(gate) * up row quantized into a8 (its
 // absmax needs the whole row).
 template <int kMode>
-static __device__ void silu_phase(const Params& p, int l, float* red) {
+static __device__ void silu_phase(const Params& p, const Crew& c, CrewSmem& cs, int l) {
   const int F = p.F, N = 2 * F;
   const float* sc = p.sgu + (size_t)l * N;
   if constexpr (kMode == W8A8) {
-    for (int b = blockIdx.x; b < p.B; b += gridDim.x) {
+    for (int b = c.id; b < p.B; b += c.count) {
       const float rs = __ldcg(p.asc + (size_t)ASC_LN2 * p.B + b);
       auto ff = [&](int n) {
-        const float gate = bf(gemm_out<kMode>(p, p.split_gu, N, b, n, sc, rs));
-        const float up = bf(gemm_out<kMode>(p, p.split_gu, N, b, F + n, sc, rs));
+        const float gate = bf(gemm_out_a8(p, GU, N, b, n, sc, rs));
+        const float up = bf(gemm_out_a8(p, GU, N, b, F + n, sc, rs));
         return gate / (1.f + expf(-gate)) * up;
       };
-      quantize_row(p, b, F, p.asc + (size_t)ASC_FF * p.B + b, ff, red);
+      quantize_row(p, c, cs.red, b, F, p.asc + (size_t)ASC_FF * p.B + b, ff);
     }
   } else {
-    const size_t total = (size_t)p.B * F;
-    for (size_t i = (size_t)blockIdx.x * THREADS + threadIdx.x; i < total;
-         i += (size_t)gridDim.x * THREADS) {
-      const int b = static_cast<int>(i / F), n = static_cast<int>(i % F);
-      const float gate = bf(gemm_out<kMode>(p, p.split_gu, N, b, n, sc, 0.f));
-      const float up = bf(gemm_out<kMode>(p, p.split_gu, N, b, F + n, sc, 0.f));
-      p.ff[i] = __float2bfloat16(gate / (1.f + expf(-gate)) * up);
+    const int total = p.B * F;   // B * F < 2^31
+    for (int i = 4 * (c.id * c.size + c.tid); i < total; i += 4 * c.count * c.size) {
+      const int b = i / F, n = i % F;
+      const float4 g4 = gemm_out4<kMode>(p, GU, N, b, n, sc, 0.f);
+      const float4 u4 = gemm_out4<kMode>(p, GU, N, b, F + n, sc, 0.f);
+      const float gv[4] = {bf(g4.x), bf(g4.y), bf(g4.z), bf(g4.w)};
+      const float uv[4] = {bf(u4.x), bf(u4.y), bf(u4.z), bf(u4.w)};
+      float o[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[e] = gv[e] / (1.f + expf(-gv[e])) * uv[e];
+      stbf4(p.ff + i, o[0], o[1], o[2], o[3]);
     }
   }
 }
 
-// One GEMM phase of layer l: x (B, K) @ w[l] (K, N) into the workspace.
-// W8A16: x bf16, f32 partials; W4A16: x bf16, w the packed bytes, s the
-// group scales, G rows a group, scaled f32 partials; W8A8: x the int8 rows
-// of a8, int32 partials.
+// One GEMM phase of layer l in fused_decode_kernel: x (B, K) @ w[l] (K, N)
+// into the workspace. W4A16: x bf16, w the packed bytes, s the group
+// scales, G rows a group, scaled f32 partials; W8A8: x the int8 rows of a8,
+// int32 partials.
 template <int kMode>
 static __device__ void gemm_phase(const Params& p, const __nv_bfloat16* x,
                                   const int8_t* w, const float* s, int l, int N,
-                                  int K, int G, int splits, unsigned char* smem) {
-  if constexpr (kMode == W8A16) {
-    gemm_partials(x, w + (size_t)l * K * N, p.ws, p.B, N, K, splits,
-                  *reinterpret_cast<w8a16::Smem*>(smem));
-  } else if constexpr (kMode == W4A16) {
+                                  int K, int G, int ph, unsigned char* smem) {
+  if constexpr (kMode == W4A16) {
     gemm_partials_w4(x, w + (size_t)l * K * (N / 2), s + (size_t)l * (K / G) * N,
-                     p.ws, p.B, N, K, G, splits, *reinterpret_cast<w4a16::Smem*>(smem));
+                     p.ws, p.B, N, K, G, p.split[ph], *reinterpret_cast<w4a16::Smem*>(smem));
   } else {
     gemm_partials_a8(p.a8, w + (size_t)l * K * N, reinterpret_cast<int*>(p.ws), p.B, N,
-                     K, splits, *reinterpret_cast<w8a8::Smem*>(smem));
+                     K, p.split[ph], *reinterpret_cast<w8a8::Smem*>(smem));
   }
 }
 
-template <bool kPaged, int kMode = W8A16>
+constexpr size_t SMEM_BYTES =
+    cmax(cmax(sizeof(w4a16::Smem), sizeof(w8a8::Smem)), sizeof(CrewSmem));
+
+// W4A16 and W8A8 (K4): 128-thread blocks, each one crew, cg grid barriers.
+template <int kMode>
 __global__ void __launch_bounds__(THREADS) fused_decode_kernel(Params p) {
+  static_assert(kMode == W4A16 || kMode == W8A8, "W8A16 streams");
   __shared__ __align__(128) unsigned char smem_raw[SMEM_BYTES];
-  __shared__ float red[NWARPS];
-  __shared__ float kv_sm[2 * kv_attn::DMAX];
-  kv_attn::Smem& att = *reinterpret_cast<kv_attn::Smem*>(smem_raw);
+  CrewSmem& cs = *reinterpret_cast<CrewSmem*>(smem_raw);
   cg::grid_group grid = cg::this_grid();
+  const Crew c{static_cast<int>(blockIdx.x), static_cast<int>(gridDim.x),
+               static_cast<int>(threadIdx.x), 1, CREW};
 
   const int D = p.D, F = p.F, QH = p.HQ * p.HD;
   const int QO = QH + 2 * p.HKV * p.HD;
   int n = 0;   // barriers passed
-  rows_phase<kMode>(p, nullptr, 0, 0, p.ln1, ASC_LN1, true, red);
+  rows_phase<kMode>(p, c, cs, nullptr, 0, 0, p.ln1, ASC_LN1, true);
   grid.sync(); stamp(p, n);
   for (int l = 0; l < p.L; ++l) {
-    gemm_phase<kMode>(p, p.h, p.wqkv, p.sqkv, l, QO, D, p.g_qkv, p.split_qkv, smem_raw);
+    gemm_phase<kMode>(p, p.h, p.wqkv, p.sqkv, l, QO, D, p.g_qkv, QKV, smem_raw);
     grid.sync(); stamp(p, n);
-    qkv_phase<kMode>(p, l, red, kv_sm);
+    qkv_phase<kMode>(p, c, cs, l);
     grid.sync(); stamp(p, n);
-    attention_phase<kPaged>(p, l, att);
+    attention_phase<false, false>(p, c, cs, l);
     grid.sync(); stamp(p, n);
     if constexpr (kMode == W8A8) {
-      attn_quant_phase(p, red);
+      attn_quant_phase(p, c, cs);
       grid.sync(); stamp(p, n);
     }
-    gemm_phase<kMode>(p, p.attn, p.wo, p.swo, l, D, QH, p.g_wo, p.split_wo, smem_raw);
+    gemm_phase<kMode>(p, p.attn, p.wo, p.swo, l, D, QH, p.g_wo, WO, smem_raw);
     grid.sync(); stamp(p, n);
-    rows_phase<kMode>(p, p.swo + (size_t)l * D, p.split_wo, ASC_ATTN,
-                      p.ln2 + (size_t)l * D, ASC_LN2, false, red);
+    rows_phase<kMode>(p, c, cs, p.swo + (size_t)l * D, WO, ASC_ATTN, p.ln2 + (size_t)l * D,
+                      ASC_LN2, false);
     grid.sync(); stamp(p, n);
-    gemm_phase<kMode>(p, p.h, p.wgu, p.sgu, l, 2 * F, D, p.g_gu, p.split_gu, smem_raw);
+    gemm_phase<kMode>(p, p.h, p.wgu, p.sgu, l, 2 * F, D, p.g_gu, GU, smem_raw);
     grid.sync(); stamp(p, n);
-    silu_phase<kMode>(p, l, red);
+    silu_phase<kMode>(p, c, cs, l);
     grid.sync(); stamp(p, n);
-    gemm_phase<kMode>(p, p.ff, p.wdn, p.sdn, l, D, F, p.g_dn, p.split_dn, smem_raw);
+    gemm_phase<kMode>(p, p.ff, p.wdn, p.sdn, l, D, F, p.g_dn, DN, smem_raw);
     grid.sync(); stamp(p, n);
-    rows_phase<kMode>(p, p.sdn + (size_t)l * D, p.split_dn, ASC_FF,
-                      l + 1 < p.L ? p.ln1 + (size_t)(l + 1) * D : nullptr, ASC_LN1,
-                      false, red);
+    rows_phase<kMode>(p, c, cs, p.sdn + (size_t)l * D, DN, ASC_FF,
+                      l + 1 < p.L ? p.ln1 + (size_t)(l + 1) * D : nullptr, ASC_LN1, false);
     if (l + 1 < p.L || p.clock != nullptr) {
       grid.sync();
       stamp(p, n);
@@ -647,23 +814,182 @@ __global__ void __launch_bounds__(THREADS) fused_decode_kernel(Params p) {
   }
 }
 
+// ---- W8A16: the streaming skeleton ----------------------------------------
+
+// The tensor maps (w8a16_stream.cuh) of each GEMM phase: its weights, and
+// its activations (h, attn, h, ff).
+struct Maps {
+  CUtensorMap w[4];
+  CUtensorMap x[4];
+};
+
+// The grid barrier of the streaming kernel, over its consumer threads only:
+// the n-th barrier of a launch waits for the counter (zeroed before the
+// launch) to reach n * gridDim.x.
+static __device__ __forceinline__ void grid_sync(const Params& p, int& n) {
+  w8s::consumers_sync();
+  if (threadIdx.x == 0) {
+    const unsigned target = static_cast<unsigned>(n + 1) * gridDim.x;
+    unsigned count;
+    __threadfence();
+    asm volatile("atom.add.release.gpu.u32 %0, [%1], 1;\n"
+                 : "=r"(count) : "l"(p.sync) : "memory");
+    ++count;   // the count after this block's arrival
+    for (unsigned long long since = 0; count < target;) {
+      w8s::check_stuck(since);
+      asm volatile("ld.acquire.gpu.u32 %0, [%1];\n" : "=r"(count) : "l"(p.sync) : "memory");
+    }
+    __threadfence();
+  }
+  w8s::consumers_sync();
+  stamp(p, n);
+}
+
+// The ring (1024-byte aligned), then the two crews' shared memory, then the
+// attention order.
+constexpr size_t RING_SPAN = (w8s::RING_BYTES + 127) / 128 * 128;
+constexpr size_t STREAM_SMEM =
+    1024 + RING_SPAN + 2 * sizeof(CrewSmem) + MAX_ORDER * sizeof(short);
+static_assert(STREAM_SMEM <= 232448, "over the H100's 227 KB a block");
+
+template <bool kPaged>
+__global__ void __launch_bounds__(w8s::THREADS, 1)
+fused_decode_stream_kernel(const Params p, const __grid_constant__ Maps maps) {
+  extern __shared__ unsigned char dsmem[];
+  const uint32_t raw = w8s::smem_u32(dsmem);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const w8s::Ring ring{base};
+  CrewSmem* crews = reinterpret_cast<CrewSmem*>(dsmem + (base + RING_SPAN - raw));
+  short* order = reinterpret_cast<short*>(crews + 2);
+  if (threadIdx.x == 0) w8s::ring_init(ring);
+  __syncthreads();
+
+  const int D = p.D, F = p.F, QH = p.HQ * p.HD;
+  const int QO = QH + 2 * p.HKV * p.HD;
+  if (threadIdx.x >= w8s::CONSUMERS) {
+    // the producers: every weight tile of this block, layer after layer,
+    // and every x chunk, each once its phase is open
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(w8s::PRODUCER_REGS));
+    const int N[4] = {QO, D, 2 * F, D};
+    uint32_t it = 0;
+    if (threadIdx.x == w8s::CONSUMERS) {
+      for (int l = 0; l < p.L; ++l)
+#pragma unroll
+        for (int ph = 0; ph < 4; ++ph)
+          w8s::produce(p.plan[ph], &maps.w[ph], l, N[ph], ring, it);
+    } else if (threadIdx.x == w8s::CONSUMERS + 32) {
+      for (int l = 0; l < p.L; ++l)
+#pragma unroll
+        for (int ph = 0; ph < 4; ++ph)
+          w8s::produce_x(p.plan[ph], &maps.x[ph], 4 * l + ph, ring, it);
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(w8s::CONSUMER_REGS));
+  const int half = threadIdx.x / CREW;
+  const Crew c{static_cast<int>(blockIdx.x) * 2 + half, static_cast<int>(gridDim.x) * 2,
+               static_cast<int>(threadIdx.x) % CREW, 2 + half, CREW};
+  // the row phases: one request a block, all its consumers
+  const Crew rc{static_cast<int>(blockIdx.x), static_cast<int>(gridDim.x),
+                static_cast<int>(threadIdx.x), w8s::BAR_CONSUMERS, w8s::CONSUMERS};
+  CrewSmem& cs = crews[half];
+  uint32_t it = 0;   // ring stages consumed
+  int n = 0;         // barriers passed
+  attention_order<kPaged>(p, order);   // read after the first grid barrier
+  rows_phase<W8A16>(p, rc, crews[0], nullptr, 0, 0, p.ln1, ASC_LN1, true);
+  grid_sync(p, n);
+  for (int l = 0; l < p.L; ++l) {
+    w8s::open_phase(ring, 4 * l + QKV);
+    w8s::consume(p.plan[QKV], p.ws, p.B, QO, ring, it);
+    grid_sync(p, n);
+    qkv_phase<W8A16>(p, c, cs, l);
+    grid_sync(p, n);
+    attention_phase<kPaged, true>(p, c, cs, l, order);
+    grid_sync(p, n);
+    w8s::open_phase(ring, 4 * l + WO);
+    w8s::consume(p.plan[WO], p.ws, p.B, D, ring, it);
+    new_kv_phase<kPaged>(p, c, l);
+    grid_sync(p, n);
+    rows_phase<W8A16>(p, rc, crews[0], p.swo + (size_t)l * D, WO, 0,
+                      p.ln2 + (size_t)l * D, 0, false);
+    grid_sync(p, n);
+    w8s::open_phase(ring, 4 * l + GU);
+    w8s::consume(p.plan[GU], p.ws, p.B, 2 * F, ring, it);
+    grid_sync(p, n);
+    silu_phase<W8A16>(p, c, cs, l);
+    grid_sync(p, n);
+    w8s::open_phase(ring, 4 * l + DN);
+    w8s::consume(p.plan[DN], p.ws, p.B, D, ring, it);
+    grid_sync(p, n);
+    rows_phase<W8A16>(p, rc, crews[0], p.sdn + (size_t)l * D, DN, 0,
+                      l + 1 < p.L ? p.ln1 + (size_t)(l + 1) * D : nullptr, 0, false);
+    if (l + 1 < p.L || p.clock != nullptr) grid_sync(p, n);
+  }
+}
+
+// ---- host ------------------------------------------------------------------
+
 // The kernel instances: 0-2 K4 in the modes W8A16, W4A16, W8A8; 3 K8.
+constexpr int K8 = 3;
+
+static bool streams(int instance) { return instance == W8A16 || instance == K8; }
+
 static const void* kernel_of(int instance) {
   switch (instance) {
-    case W8A16: return reinterpret_cast<const void*>(&fused_decode_kernel<false, W8A16>);
-    case W4A16: return reinterpret_cast<const void*>(&fused_decode_kernel<false, W4A16>);
-    case W8A8: return reinterpret_cast<const void*>(&fused_decode_kernel<false, W8A8>);
-    case 3: return reinterpret_cast<const void*>(&fused_decode_kernel<true, W8A16>);
+    case W8A16: return reinterpret_cast<const void*>(&fused_decode_stream_kernel<false>);
+    case W4A16: return reinterpret_cast<const void*>(&fused_decode_kernel<W4A16>);
+    case W8A8: return reinterpret_cast<const void*>(&fused_decode_kernel<W8A8>);
+    case K8: return reinterpret_cast<const void*>(&fused_decode_stream_kernel<true>);
     default: return nullptr;
+  }
+}
+
+static cudaError_t prepare(int instance, int* threads, int* smem) {
+  *threads = streams(instance) ? w8s::THREADS : THREADS;
+  *smem = streams(instance) ? static_cast<int>(STREAM_SMEM) : 0;
+  if (!streams(instance)) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel_of(instance),
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
+}
+
+// plan: four GEMM phases x {k-splits (W8A16: the most partials of a
+// column), tiles, blocks, k-tiles a slab, slabs}
+static void set_plan(Params& p, const int* plan) {
+  for (int ph = 0; ph < 4; ++ph) {
+    const int* q = plan + 5 * ph;
+    p.split[ph] = q[0];
+    p.plan[ph] = w8s::Plan{q[1], q[2], q[3], q[4], q[0]};
   }
 }
 
 static int launch(Params& p, int instance, int grid, void* stream) {
   if (kernel_of(instance) == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  void* args[] = {&p};
-  cudaError_t err = cudaLaunchCooperativeKernel(kernel_of(instance), dim3(grid),
-                                                dim3(THREADS), args, 0,
-                                                static_cast<cudaStream_t>(stream));
+  int threads = 0, smem = 0;
+  cudaError_t err = prepare(instance, &threads, &smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (streams(instance)) {
+    const int QH = p.HQ * p.HD, QO = QH + 2 * p.HKV * p.HD;
+    Maps maps;
+    if (!w8s::encode_weights(&maps.w[QKV], p.wqkv, p.L, p.D, QO) ||
+        !w8s::encode_weights(&maps.w[WO], p.wo, p.L, QH, p.D) ||
+        !w8s::encode_weights(&maps.w[GU], p.wgu, p.L, p.D, 2 * p.F) ||
+        !w8s::encode_weights(&maps.w[DN], p.wdn, p.L, p.F, p.D) ||
+        !w8s::encode_x(&maps.x[QKV], p.h, p.B, p.D) ||
+        !w8s::encode_x(&maps.x[WO], p.attn, p.B, QH) ||
+        !w8s::encode_x(&maps.x[GU], p.h, p.B, p.D) ||
+        !w8s::encode_x(&maps.x[DN], p.ff, p.B, p.F))
+      return static_cast<int>(cudaErrorInvalidValue);
+    err = cudaMemsetAsync(p.sync, 0, 2 * sizeof(unsigned), st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    void* args[] = {&p, &maps};
+    err = cudaLaunchCooperativeKernel(kernel_of(instance), dim3(grid), dim3(threads), args,
+                                      smem, st);
+  } else {
+    void* args[] = {&p};
+    err = cudaLaunchCooperativeKernel(kernel_of(instance), dim3(grid), dim3(threads), args,
+                                      smem, st);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -675,7 +1001,8 @@ static void set_common(Params& p, const void* x0, const void* ln1, const void* l
                        const void* wdn, const void* sdn, const void* cos,
                        const void* sin, void* k_new, void* ks_new, void* v_new,
                        void* vs_new, void* x_out, void* xf, void* h, void* qbuf,
-                       void* attn, void* ff, void* ws) {
+                       void* attn, void* ff, void* ws, void* sync, void* clock,
+                       const int* plan) {
   p.x0 = static_cast<const __nv_bfloat16*>(x0);
   p.ln1 = static_cast<const __nv_bfloat16*>(ln1);
   p.ln2 = static_cast<const __nv_bfloat16*>(ln2);
@@ -700,22 +1027,28 @@ static void set_common(Params& p, const void* x0, const void* ln1, const void* l
   p.attn = static_cast<__nv_bfloat16*>(attn);
   p.ff = static_cast<__nv_bfloat16*>(ff);
   p.ws = static_cast<float*>(ws);
+  p.sync = static_cast<unsigned*>(sync);
+  p.clock = static_cast<unsigned long long*>(clock);
+  set_plan(p, plan);
 }
 
 }  // namespace
 
 // The grid of one launch of a kernel instance (kernel_of: 0-2 the K4 modes,
-// 3 K8): SMs x resident blocks of that instance (a cooperative launch needs
-// the whole grid resident). Returns cudaSuccess or the error.
+// 3 K8): SMs x resident blocks of that instance at its block size and
+// dynamic shared memory (a cooperative launch needs the whole grid
+// resident). Returns cudaSuccess or the error; an occupancy of zero is one.
 extern "C" int pli_fused_decode_grid(int instance, int* grid) {
-  int dev = 0, sms = 0, per_sm = 0;
+  int dev = 0, sms = 0, per_sm = 0, threads = 0, smem = 0;
+  *grid = 0;
   if (kernel_of(instance) == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = prepare(instance, &threads, &smem);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel_of(instance),
-                                                        THREADS, 0);
+                                                        threads, smem);
   if (err == cudaSuccess && per_sm < 1) err = cudaErrorCooperativeLaunchTooLarge;
   *grid = sms * per_sm;
   return static_cast<int>(err);
@@ -723,12 +1056,15 @@ extern "C" int pli_fused_decode_grid(int instance, int* grid) {
 
 // K4 in `mode` (W8A16, W4A16 or W8A8). Every pointer is contiguous on one
 // device in the layouts of Params; the int8 cache rows and weight rows are
-// 16-byte aligned (W4A16: N/2 % 16 == 0), HD % 16 == 0, HD <= 128,
-// HQ / HKV <= 8 (checked by the Python wrapper). splits are the k-splits of
-// the four GEMM phases (W4A16: each covers whole groups of g_* rows), ws
-// holds max(split * B * N) floats; W8A8: a8 holds B * max(D, HQ*HD, F)
-// bytes, asc 4 * B floats. `grid` comes from pli_fused_decode_grid(mode).
-// Returns the launch's error code.
+// 16-byte aligned, HD % 16 == 0, HD <= 128, HQ / HKV <= 8, D % 16 == 0,
+// F % 8 == 0 (W4A16: N/2 % 16 == 0) (checked by the Python wrapper). plan
+// (host memory) holds, for each GEMM phase, {k-splits, tiles, blocks,
+// k-tiles a slab, slabs}: W4A16 and W8A8 read the splits (W4A16: each
+// covers whole groups of g_* rows), W8A16 the rest and, in place of the
+// splits, the most partials of a column; ws holds the largest
+// phase's partials; sync two unsigned (W8A16). W8A8: a8 holds B * max(D,
+// HQ*HD, F) bytes, asc 4 * B floats. clock: null, or 1 + L * phases stamps.
+// `grid` comes from pli_fused_decode_grid(mode). Returns the launch's error.
 extern "C" int pli_fused_decode_step(
     const void* x0, const void* ln1, const void* ln2, const void* wqkv,
     const void* sqkv, const void* wo, const void* swo, const void* wgu,
@@ -736,16 +1072,16 @@ extern "C" int pli_fused_decode_step(
     void* vq, void* vs, const void* cos, const void* sin, const void* q_slot,
     const void* valid_from, void* k_new, void* ks_new, void* v_new,
     void* vs_new, void* x_out, void* xf, void* h, void* qbuf, void* attn,
-    void* ff, void* ws, void* a8, void* asc, int L, int B, int S, int D, int F,
-    int HQ, int HKV, int HD, int slot, int write_cache, int split_qkv,
-    int split_wo, int split_gu, int split_dn, int mode, int g_qkv, int g_wo,
-    int g_gu, int g_dn, float eps, float scale, void* clock, int grid,
-    void* stream) {
+    void* ff, void* ws, void* a8, void* asc, void* sync, void* clock,
+    const int* plan, int L, int B, int S, int D, int F, int HQ, int HKV, int HD,
+    int slot, int write_cache, int mode, int g_qkv, int g_wo, int g_gu,
+    int g_dn, float eps, float scale, int grid, void* stream) {
   if (mode != W8A16 && mode != W4A16 && mode != W8A8)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   set_common(p, x0, ln1, ln2, wqkv, sqkv, wo, swo, wgu, sgu, wdn, sdn, cos, sin,
-             k_new, ks_new, v_new, vs_new, x_out, xf, h, qbuf, attn, ff, ws);
+             k_new, ks_new, v_new, vs_new, x_out, xf, h, qbuf, attn, ff, ws, sync,
+             clock, plan);
   p.a8 = static_cast<int8_t*>(a8);
   p.asc = static_cast<float*>(asc);
   p.g_qkv = g_qkv; p.g_wo = g_wo; p.g_gu = g_gu; p.g_dn = g_dn;
@@ -760,16 +1096,13 @@ extern "C" int pli_fused_decode_step(
   p.HQ = HQ; p.HKV = HKV; p.HD = HD;
   p.NB = 0; p.MB = 0; p.BS = 0;
   p.slot = slot; p.write_cache = write_cache;
-  p.split_qkv = split_qkv; p.split_wo = split_wo;
-  p.split_gu = split_gu; p.split_dn = split_dn;
   p.eps = eps; p.scale = scale;
-  p.clock = static_cast<unsigned long long*>(clock);
   return launch(p, mode, grid, stream);
 }
 
-// K8. As K4, with the merged pools kv (L, NB, 2, BS, HKV*HD) int8 and kvs
-// (L, NB, 2, HKV, BS) f32, lengths (B,) >= 0 and tables (B, MB) int32 whose
-// entries are < NB; the pool rows are 16-byte aligned (HD % 16 == 0).
+// K8. As K4 W8A16, with the merged pools kv (L, NB, 2, BS, HKV*HD) int8 and
+// kvs (L, NB, 2, HKV, BS) f32, lengths (B,) >= 0 and tables (B, MB) int32
+// whose entries are < NB; the pool rows are 16-byte aligned (HD % 16 == 0).
 // inplace writes the new K/V into the pools. Returns the launch's error.
 extern "C" int pli_fused_paged_decode_step(
     const void* x0, const void* ln1, const void* ln2, const void* wqkv,
@@ -777,13 +1110,14 @@ extern "C" int pli_fused_paged_decode_step(
     const void* sgu, const void* wdn, const void* sdn, void* kv, void* kvs,
     const void* cos, const void* sin, const void* lengths, const void* tables,
     void* k_new, void* ks_new, void* v_new, void* vs_new, void* x_out,
-    void* xf, void* h, void* qbuf, void* attn, void* ff, void* ws, int L,
-    int B, int NB, int MB, int BS, int D, int F, int HQ, int HKV, int HD,
-    int inplace, int split_qkv, int split_wo, int split_gu, int split_dn,
-    float eps, float scale, void* clock, int grid, void* stream) {
+    void* xf, void* h, void* qbuf, void* attn, void* ff, void* ws, void* sync,
+    void* clock, const int* plan, int L, int B, int NB, int MB, int BS, int D,
+    int F, int HQ, int HKV, int HD, int inplace, float eps, float scale,
+    int grid, void* stream) {
   Params p;
   set_common(p, x0, ln1, ln2, wqkv, sqkv, wo, swo, wgu, sgu, wdn, sdn, cos, sin,
-             k_new, ks_new, v_new, vs_new, x_out, xf, h, qbuf, attn, ff, ws);
+             k_new, ks_new, v_new, vs_new, x_out, xf, h, qbuf, attn, ff, ws, sync,
+             clock, plan);
   p.a8 = nullptr;
   p.asc = nullptr;
   p.g_qkv = p.g_wo = p.g_gu = p.g_dn = 0;
@@ -798,9 +1132,6 @@ extern "C" int pli_fused_paged_decode_step(
   p.HQ = HQ; p.HKV = HKV; p.HD = HD;
   p.NB = NB; p.MB = MB; p.BS = BS;
   p.slot = -1; p.write_cache = inplace;
-  p.split_qkv = split_qkv; p.split_wo = split_wo;
-  p.split_gu = split_gu; p.split_dn = split_dn;
   p.eps = eps; p.scale = scale;
-  p.clock = static_cast<unsigned long long*>(clock);
-  return launch(p, 3, grid, stream);
+  return launch(p, K8, grid, stream);
 }

@@ -50,17 +50,17 @@ SIGNATURES = {
     "pli_fused_decode_grid": [_I, _P],
     # x0, ln1, ln2, wqkv, sqkv, wo, swo, wgu, sgu, wdn, sdn, k_q, k_s, v_q,
     # v_s, cos, sin, q_slot, valid_from, k_new, ks_new, v_new, vs_new, x_out,
-    # then the workspaces xf, h, qbuf, attn, ff, ws, a8, asc; L, B, S, D, F,
-    # Hq, Hkv, hd, slot, write_cache, the four k-splits, mode, the four INT4
-    # group sizes; eps, scale; the phase clock (null: off); grid, stream
-    "pli_fused_decode_step": [_P] * 32 + [_I] * 19 + [_F, _F, _P, _I, _P],
+    # then the workspaces xf, h, qbuf, attn, ff, ws, a8, asc, the grid
+    # barrier's counter, the phase clock (null: off), the plan (host: four
+    # GEMM phases x 5 ints); L, B, S, D, F, Hq, Hkv, hd, slot, write_cache,
+    # mode, the four INT4 group sizes; eps, scale; grid, stream
+    "pli_fused_decode_step": [_P] * 35 + [_I] * 15 + [_F, _F, _I, _P],
     # x0, ln1, ln2, wqkv, sqkv, wo, swo, wgu, sgu, wdn, sdn, kv, kvs, cos,
     # sin, lengths, tables, k_new, ks_new, v_new, vs_new, x_out, then the
-    # workspaces xf, h, qbuf, attn, ff, ws; L, B, NB, MB, BS, D, F, Hq, Hkv,
-    # hd, inplace, the four k-splits; eps, scale; the phase clock; grid,
+    # workspaces xf, h, qbuf, attn, ff, ws, the counter, the phase clock, the
+    # plan; L, B, NB, MB, BS, D, F, Hq, Hkv, hd, inplace; eps, scale; grid,
     # stream
-    "pli_fused_paged_decode_step": [_P] * 28 + [_I] * 15 + [_F, _F, _P, _I,
-                                                             _P],
+    "pli_fused_paged_decode_step": [_P] * 31 + [_I] * 11 + [_F, _F, _I, _P],
     # q, kv (k), kvs (v), tables, lens, out, B, MB, BS, Hq, Hkv, d, scale,
     # stream
     "pli_int8_paged_decode_attention": [_P] * 6 + [_I] * 6 + [_F, _P],

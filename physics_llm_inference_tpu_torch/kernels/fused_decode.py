@@ -19,7 +19,12 @@ each a template instance of the CUDA kernel `csrc/fused_decode.cu`:
 The step is one persistent cooperative launch whose per-layer phases (QKV
 partials; RoPE and KV quantize; attention over the INT8 cache plus the
 current token; WO; norm; gate/up; silu·up; down) are separated by
-grid-wide barriers; the attention loop is K2's.
+grid-wide barriers; the attention loop is K2's. W8A16 (and K8) stream their
+weights: `_plan` gives each block an even share of every GEMM phase's
+(slab, k-tile) units, and a producer warp a block streams the tiles of
+that share, phase after phase and layer after layer, through a TMA ring
+that runs ahead across the barriers (`csrc/w8a16_stream.cuh`). W4A16 and
+W8A8 keep their (m-tile, n-tile, k-split) items (`_splits`).
 
 The numerics are the TPU kernel's, not the per-op path's: the residual
 stream stays f32 across all layers and is cast once at the end; qkv, gate
@@ -45,6 +50,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
@@ -63,7 +69,8 @@ paged_launches = 0   # kernel launches made by fused_paged_decode_step
 W8A16, W4A16, W8A8 = 0, 1, 2     # the modes, as csrc/fused_decode.cu numbers them
 _K8 = 3                          # K8's kernel instance in csrc/fused_decode.cu
 _NEG_INF = -1e30
-_BM = _BN = _BK = 64    # the weight tiles
+_BM = _BN = _BK = 64    # the W4A16 and W8A8 weight tiles
+_KT, _SLAB, _MT = 64, 256, 64   # W8A16's k-tile, slab and m-block (w8s::)
 _DMAX, _GMAX = 128, 8   # the attention loop's head_dim and group limits
 _MATS = ("wqkv", "wo", "w_gate_up", "w_down")
 # the phases of one layer in the kernel's order, each ended by a grid
@@ -287,6 +294,59 @@ def _splits(m: int, n: int, k: int, grid: int, group: int = 0) -> int:
     return -(-units // per)
 
 
+@dataclass(frozen=True)
+class Plan:
+    """One W8A16 GEMM phase split over the grid, as `csrc/w8a16_stream.cuh`
+    walks it: `tiles` (m-block, slab, k-tile) units, m-block-major with the
+    k-tile innermost; block b of `blocks` takes units [first(b),
+    first(b + 1)); a block's run of k-tiles within one slab is one partial,
+    stored at index b - owner(the slab's first unit). The kernel gets
+    `partials` too, sizes nothing by its own copy of the split, and traps
+    on an index at or past it."""
+    tiles: int
+    blocks: int
+    ktn: int        # k-tiles a slab
+    slabs: int      # slabs an m-block
+    partials: int   # the most partials of one output column
+
+    def first(self, b: int) -> int:
+        return b * self.tiles // self.blocks
+
+    def owner(self, t: int) -> int:
+        return ((t + 1) * self.blocks - 1) // self.tiles
+
+    def units(self, b: int) -> list[tuple[int, int, int, int, int]]:
+        """Block b's share: (m-block, slab, first k-tile, end k-tile,
+        partial index) runs."""
+        out, t, end = [], self.first(b), self.first(b + 1)
+        while t < end:
+            u, k0 = divmod(t, self.ktn)
+            k1 = min(self.ktn, k0 + end - t)
+            out.append((u // self.slabs, u % self.slabs, k0, k1,
+                        b - self.owner(u * self.ktn)))
+            t += k1 - k0
+        return out
+
+    def args(self) -> tuple[int, int, int, int, int]:
+        """The five ints the kernel reads for this phase."""
+        return self.partials, self.tiles, self.blocks, self.ktn, self.slabs
+
+
+def _plan(m: int, n: int, k: int, grid: int) -> Plan:
+    """The W8A16 stream-K plan of one GEMM phase, x (m, k) @ w (k, n), over
+    `grid` blocks: (m-block, slab, k-tile) units of _MT rows, _SLAB columns
+    and _KT rows of K, split as evenly as whole units allow, so no phase
+    runs a second partial wave and every block's share is within one k-tile
+    of the mean."""
+    ktn, slabs = -(-k // _KT), -(-n // _SLAB)
+    tiles = -(-m // _MT) * slabs * ktn
+    blocks = min(grid, tiles)
+    pl = Plan(tiles, blocks, ktn, slabs, 0)
+    most = max(pl.owner((u + 1) * ktn - 1) - pl.owner(u * ktn) + 1
+               for u in range(tiles // ktn))
+    return Plan(tiles, blocks, ktn, slabs, most)
+
+
 def _launch_grid(device: torch.device, instance: int) -> int:
     """Blocks of one cooperative launch of a kernel instance: a K4 mode,
     or _K8."""
@@ -302,6 +362,11 @@ def _launch_grid(device: torch.device, instance: int) -> int:
 
 
 def _workspace(device, L, B, D, F_, QH, KH, HKV, ws_floats) -> dict:
+    """The scratch tensors of one launch shape (kept across launches): the
+    activation rows, the partials' workspace (`ws_floats` f32), the new K/V
+    of a write_cache launch, W8A8's int8 rows and scales, and the streaming
+    kernel's two counters, its grid barrier's and its attention items'
+    (zeroed by every launch)."""
     key = (str(device), L, B, D, F_, QH, KH, ws_floats)
     if key not in _workspaces:
         def e(*shape, dtype=torch.bfloat16):
@@ -317,7 +382,8 @@ def _workspace(device, L, B, D, F_, QH, KH, HKV, ws_floats) -> dict:
             # W8A8: the quantized activation rows and their scales, one row
             # of scales per quantization point (ln1, attention, ln2, silu)
             a8=e(B * max(D, QH, F_), dtype=torch.int8),
-            asc=e(4, B, dtype=torch.float32))
+            asc=e(4, B, dtype=torch.float32),
+            sync=e(2, dtype=torch.int32))
     return _workspaces[key]
 
 
@@ -356,6 +422,10 @@ def _weights(blocks, x, L: int, cfg, name: str, mode: int = W8A16):
     if hd % 16 or hd > _DMAX or hq % hkv or hq // hkv > _GMAX:
         raise ValueError(f"kernel takes head_dim % 16 == 0, <= {_DMAX} and "
                          f"<= {_GMAX} query heads per kv head")
+    if x.shape[1] % 16 or cfg.intermediate_dim % 8:
+        raise ValueError("kernel takes hidden_dim % 16 == 0 and "
+                         "intermediate_dim % 8 == 0 (16-byte weight rows, "
+                         "four-column partial sums)")
     if x.dtype != torch.bfloat16 or blocks["ln1"].dtype != torch.bfloat16 \
             or blocks["ln2"].dtype != torch.bfloat16:
         raise TypeError(f"{name} on CUDA takes bf16 activations and norm "
@@ -371,19 +441,30 @@ def _weights(blocks, x, L: int, cfg, name: str, mode: int = W8A16):
 
 
 def _scratch(x, L: int, cfg, mode: int, paged: bool = False):
-    """(grid, k-splits, workspace) of one launch. The workspace holds the
-    largest phase's partials: f32 (W8A16, W4A16) or int32 (W8A8)."""
+    """(grid, plan, workspace) of one launch. `plan` is what the kernel
+    reads for each GEMM phase: (k-splits, tiles, blocks, k-tiles a slab,
+    slabs), the splits for W4A16 and W8A8, the `_plan` for W8A16 (its most
+    partials of a column in the splits' place). The
+    workspace holds the largest phase's partials: f32 (W8A16, W4A16) or
+    int32 (W8A8)."""
     B = x.shape[0]
     hkv, hd = cfg.num_kv_heads, cfg.head_dim
     grid = _launch_grid(x.device, _K8 if paged else mode)
     shapes = _shapes(x, cfg).values()
-    splits = tuple(_splits(B, n, k, grid,
-                           int4_group_size(k, n) if mode == W4A16 else 0)
-                   for k, n in shapes)
-    ws_floats = B * max(sp * n for sp, (_, n) in zip(splits, shapes))
+    if mode == W8A16:
+        plans = [_plan(B, n, k, grid) for k, n in shapes]
+        plan = [v for pl in plans for v in pl.args()]
+        ws_floats = B * max(pl.partials * n for pl, (_, n) in zip(plans,
+                                                                  shapes))
+    else:
+        splits = [_splits(B, n, k, grid,
+                          int4_group_size(k, n) if mode == W4A16 else 0)
+                  for k, n in shapes]
+        plan = [v for sp in splits for v in (sp, 0, 0, 0, 0)]
+        ws_floats = B * max(sp * n for sp, (_, n) in zip(splits, shapes))
     D, F_, QH = x.shape[1], cfg.intermediate_dim, cfg.num_heads * hd
-    return grid, splits, _workspace(x.device, L, B, D, F_, QH, hkv * hd, hkv,
-                                    ws_floats)
+    return grid, (ctypes.c_int * 20)(*plan), _workspace(
+        x.device, L, B, D, F_, QH, hkv * hd, hkv, ws_floats)
 
 
 def _new_kv(L: int, B: int, KH: int, hkv: int, device):
@@ -471,7 +552,7 @@ def fused_decode_step(blocks, x, k_q, k_s, v_q, v_s, q_slot, valid_from,
     if k_q.data_ptr() % 16 or v_q.data_ptr() % 16:
         raise ValueError("the int8 cache must be 16-byte aligned")
 
-    grid, splits, w = _scratch(x, L, cfg, mode)
+    grid, plan, w = _scratch(x, L, cfg, mode)
     if write_cache:
         new = (w["k_new"], w["ks_new"], w["v_new"], w["vs_new"])
         slot = int(slot)
@@ -485,11 +566,11 @@ def fused_decode_step(blocks, x, k_q, k_s, v_q, v_s, q_slot, valid_from,
         x, blocks["ln1"], blocks["ln2"], wqkv.q, wqkv.s, wo.q, wo.s, wgu.q,
         wgu.s, wdn.q, wdn.s, k_q, k_s, v_q, v_s, cos, sin, qslot, vfrom, *new,
         x_out, w["xf"], w["h"], w["qbuf"], w["attn"], w["ff"], w["ws"],
-        w["a8"], w["asc"])]
+        w["a8"], w["asc"], w["sync"])]
     err = _build.lib().pli_fused_decode_step(
-        *ptr, L, B, S, D, F_, hq, hkv, hd, slot, int(write_cache), *splits,
-        mode, *groups, cfg.norm_eps, 1.0 / math.sqrt(hd),
-        _clock_ptr(clock, L, mode, x), grid, _stream(x))
+        *ptr, _clock_ptr(clock, L, mode, x), ctypes.cast(plan, ctypes.c_void_p),
+        L, B, S, D, F_, hq, hkv, hd, slot, int(write_cache), mode, *groups,
+        cfg.norm_eps, 1.0 / math.sqrt(hd), grid, _stream(x))
     _build.check(err, "fused_decode_step")
     if mode == W4A16:
         w4a16_launches += 1
@@ -610,17 +691,18 @@ def fused_paged_decode_step(blocks, x, kv_pool, kvs_pool, tables, lengths,
     if kv_pool.data_ptr() % 16:
         raise ValueError("the int8 pools must be 16-byte aligned")
 
-    grid, splits, w = _scratch(x, L, cfg, W8A16, paged=True)
+    grid, plan, w = _scratch(x, L, cfg, W8A16, paged=True)
     new = _new_kv(L, B, KH, hkv, x.device)
     x_out = torch.empty_like(x)
     ptr = [t.data_ptr() for t in (
         x, blocks["ln1"], blocks["ln2"], wqkv.q, wqkv.s, wo.q, wo.s, wgu.q,
         wgu.s, wdn.q, wdn.s, kv_pool, kvs_pool, cos, sin, lens, tbl, *new,
-        x_out, w["xf"], w["h"], w["qbuf"], w["attn"], w["ff"], w["ws"])]
+        x_out, w["xf"], w["h"], w["qbuf"], w["attn"], w["ff"], w["ws"],
+        w["sync"])]
     err = _build.lib().pli_fused_paged_decode_step(
-        *ptr, L, B, NB, MB, BS, D, F_, hq, hkv, hd, int(inplace), *splits,
-        cfg.norm_eps, 1.0 / math.sqrt(hd), _clock_ptr(clock, L, W8A16, x),
-        grid, _stream(x))
+        *ptr, _clock_ptr(clock, L, W8A16, x), ctypes.cast(plan, ctypes.c_void_p),
+        L, B, NB, MB, BS, D, F_, hq, hkv, hd, int(inplace), cfg.norm_eps,
+        1.0 / math.sqrt(hd), grid, _stream(x))
     _build.check(err, "fused_paged_decode_step")
     paged_launches += 1
     if inplace:

@@ -183,6 +183,77 @@ def test_fused_decode_kernel_matches_plain(dev, write_cache, mode):
             torch.testing.assert_close(a[held], b[held], rtol=2e-2, atol=0)
 
 
+# a hidden width (and QO, 2F) that is no multiple of the 256-column slab, an
+# intermediate width (w_down's K) no multiple of the 64-row k-tile, B = 5
+RAGGED = ModelConfig(vocab_size=512, hidden_dim=400, num_layers=2,
+                     num_heads=5, num_kv_heads=1, intermediate_dim=296,
+                     max_seq_len=64)
+
+
+@pytest.mark.parametrize("kernel", ["k4", "k8"])
+def test_streaming_kernels_on_ragged_shapes(dev, kernel):
+    """K4 W8A16 and K8 at B = 5 where the plan's slabs, k-tiles and the TMA
+    boxes are cut: against their plain versions, and bit-equal twice."""
+    cfg, B = RAGGED, 5
+    g = _gen(dev, 9)
+    blocks = init_params_int8(g, cfg)["blocks"]
+    L, hkv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    x = torch.randn((B, cfg.hidden_dim), generator=g, device=dev).bfloat16()
+    cos, sin = rope_frequencies(hd, cfg.max_seq_len, device=dev)
+    if kernel == "k4":
+        S, slot = 40, 33
+        cache = [torch.randint(-127, 128, (L, B, S, hkv * hd), dtype=torch.int8,
+                               generator=g, device=dev),
+                 torch.rand((L, B, hkv, S), generator=g, device=dev) * 0.05]
+        cache += [torch.randint(-127, 128, (L, B, S, hkv * hd),
+                                dtype=torch.int8, generator=g, device=dev),
+                  torch.rand((L, B, hkv, S), generator=g, device=dev) * 0.05]
+        qslot = torch.full((B,), slot, dtype=torch.int32, device=dev)
+        vfrom = torch.tensor([0, 3, 30, 12, 33], dtype=torch.int32, device=dev)
+        pos = slot - vfrom
+        args = (qslot, vfrom, cos[pos], sin[pos], cfg)
+
+        def run(fn):
+            return fn(blocks, x, *[t.clone() for t in cache], *args)
+
+        before = t_fd.launches
+        got, again = run(t_fd.fused_decode_step), run(t_fd.fused_decode_step)
+        want = run(t_fd.fused_decode_step_plain)
+        torch.cuda.synchronize()
+        assert t_fd.launches == before + 2
+    else:
+        bs, mb = 16, 3
+        NB = B * mb + 2
+        lens = [0, 15, 16, 40, 47]
+        tables = _paged_tables(g, dev, B, mb, NB, lens, bs, NB - 1)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        kv = torch.randint(-127, 128, (L, NB, 2, bs, hkv * hd),
+                           dtype=torch.int8, generator=g, device=dev)
+        kvs = torch.rand((L, NB, 2, hkv, bs), generator=g, device=dev) * 0.05
+        args = (tables, lengths, cos[lengths.long()], sin[lengths.long()], cfg)
+
+        def run(fn):
+            return fn(blocks, x, kv.clone(), kvs.clone(), *args)
+
+        before = t_fd.paged_launches
+        got = run(t_fd.fused_paged_decode_step)
+        again = run(t_fd.fused_paged_decode_step)
+        want = run(t_fd.fused_paged_decode_step_plain)
+        torch.cuda.synchronize()
+        assert t_fd.paged_launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    # different f32 summation orders over two layers of an f32 residual
+    assert bool(torch.isfinite(got[0].float()).all())
+    assert _row_rel(got[0].float(), want[0].float()) < 2e-2
+    for a, b in ((got[1], want[1]), (got[3], want[3])):
+        # layer 0 sees the same input: a bf16 rounding of qkv may flip a
+        # code; layer 1 also sees layer 0's rounding, on only 5 x 80 codes
+        d = (a.int() - b.int()).abs()
+        assert int(d.max()) <= 1 and float((d[0] == 0).float().mean()) > 0.99
+    for a, b in ((got[2], want[2]), (got[4], want[4])):
+        torch.testing.assert_close(a, b, rtol=2e-2, atol=0)
+
+
 def test_default_config_generates_through_fused_kernel(dev):
     cfg = ModelConfig(vocab_size=512, hidden_dim=512, num_layers=2,
                       num_heads=4, num_kv_heads=2, intermediate_dim=768,
@@ -367,10 +438,20 @@ def test_fused_paged_decode_kernel_matches_plain(dev, inplace):
         assert torch.equal(pools[0].transpose(2, 3)[:, ~mask],
                            kv.transpose(2, 3)[:, ~mask])
         for r in range(B):
-            if bool(active[r]) and int(tables[r, 0]) != trash:
-                assert torch.equal(pools[0][:, blk[r], 0, off[r]], got[1][:, r])
-                assert torch.equal(pools[1][:, blk[r], 1, :, off[r]],
-                                   got[4][:, r])
+            if not bool(active[r]):
+                continue
+            # which of several writes to one position (the trash block's)
+            # lands is unspecified: each element holds one writer's value
+            at = (int(blk[r]), int(off[r]))
+            writers = [s for s in range(B)
+                       if (int(blk[s]), int(off[s])) == at]
+            stored = (pools[0][:, at[0], 0, at[1]],
+                      pools[1][:, at[0], 0, :, at[1]],
+                      pools[0][:, at[0], 1, at[1]],
+                      pools[1][:, at[0], 1, :, at[1]])
+            for have, new in zip(stored, got[1:5]):
+                cand = torch.stack([new[:, s] for s in writers])
+                assert bool((cand == have).any(0).all()), (r, writers)
     # fixed-order sums: a second launch on the same inputs, the same bits
     again = t_fd.fused_paged_decode_step(blocks, x, kv.clone(), kvs.clone(),
                                          tables, lengths, cos[pos], sin[pos],

@@ -245,3 +245,43 @@ def test_per_request_starts_scatter_like_the_uniform_write():
         outs.append((h, kv.k.q, kv.k.s, kv.v.q, kv.v.s))
     for a, b in zip(*outs):
         assert torch.equal(a, b)
+
+
+# (name, B, hidden, intermediate, q + 2 kv head columns): the 7B widths, the
+# toy widths above, and ragged ones (slabs, k-tiles and m-blocks cut)
+PLAN_SHAPES = {"7b": (64, 4096, 11008, 6144), "toy": (8, 512, 768, 1024),
+               "ragged": (5, 400, 296, 560), "two_mblocks": (72, 400, 296, 560)}
+
+
+@pytest.mark.parametrize("grid", [132, 264])
+@pytest.mark.parametrize("shape", list(PLAN_SHAPES))
+def test_w8a16_plan_covers_every_unit_once_in_one_wave(shape, grid):
+    """The streaming kernel's plan of each GEMM phase: every (column slab,
+    k-tile) of every m-block is taken exactly once, each block's share is
+    within one k-tile of the mean, and no column has more partials than
+    the workspace is sized for (indexed 0, 1, ... in block order)."""
+    B, D, F, QO = PLAN_SHAPES[shape]
+    for k, n in ((D, QO), (D, D), (D, 2 * F), (F, D)):
+        pl = t_fd._plan(B, n, k, grid)
+        mblocks, slabs, ktn = -(-B // 64), -(-n // 256), -(-k // 64)
+        assert (pl.ktn, pl.slabs, pl.tiles) == (ktn, slabs,
+                                                 mblocks * slabs * ktn)
+        assert pl.blocks == min(grid, pl.tiles)
+        seen, parts = {}, {}
+        for b in range(pl.blocks):
+            share = 0
+            for mb, sl, k0, k1, j in pl.units(b):
+                assert 0 <= k0 < k1 <= ktn and 0 <= j < pl.partials
+                for kt in range(k0, k1):
+                    seen[mb, sl, kt] = seen.get((mb, sl, kt), 0) + 1
+                parts.setdefault((mb, sl), []).append((b, j))
+                share += k1 - k0
+            assert abs(share - pl.tiles / pl.blocks) < 1
+        assert len(seen) == pl.tiles and set(seen.values()) == {1}
+        for runs in parts.values():
+            # one partial a block, numbered in block order from 0
+            assert [j for _, j in runs] == list(range(len(runs)))
+            assert [b for b, _ in runs] == sorted({b for b, _ in runs})
+        assert max(len(r) for r in parts.values()) == pl.partials
+        # the kernel gets the bound it traps on with the rest of the plan
+        assert pl.args() == (pl.partials, pl.tiles, pl.blocks, ktn, slabs)
