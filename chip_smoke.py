@@ -10,7 +10,8 @@ The phase clock (phase 3b) alone, from the repository's root:
 Phases, each of which raises on failure (exit code != 0, no final line):
 1. device: the card's name and power limit (nvidia-smi); no CUDA -> fail;
 2. build: nvcc compiles csrc/*.cu into build/, one process per source, all
-   in parallel (kernels/_build.py);
+   in parallel (kernels/_build.py), and each kernel entry's registers and
+   spill bytes are logged from ptxas's report;
 3. each CUDA kernel (K1 int8_matmul, K2 int8_kv_decode_attention, K3
    lmhead_greedy, K4 fused_decode_step in its modes W8A16, W4A16 and W8A8,
    K5 flash_attention, K6 int8_paged_decode_attention, K7
@@ -140,6 +141,41 @@ def nvidia_smi() -> str:
     if res.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {res.stderr.strip()}")
     return res.stdout.strip().splitlines()[0]
+
+
+def ptxas_report(logs: dict) -> list:
+    """One line a source from nvcc's -Xptxas -v report: each kernel entry's
+    registers and spill bytes (stores/loads)."""
+    import re
+    import shutil
+
+    lines = []
+    for src, text in sorted(logs.items()):
+        entries, props, cur = {}, None, None
+        for ln in text.splitlines():
+            if m := re.search(r"Compiling entry function '(\w+)'", ln):
+                cur = m.group(1)
+                entries[cur] = [None, None, None]
+            elif m := re.search(r"Function properties for (\w+)", ln):
+                props = m.group(1)
+            elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                                r"loads", ln):
+                if props in entries:
+                    entries[props][1:] = [int(m.group(1)), int(m.group(2))]
+            elif (m := re.search(r"Used (\d+) registers", ln)) and cur:
+                entries[cur][0] = int(m.group(1))
+        names = list(entries)
+        filt = shutil.which("c++filt") or shutil.which("cu++filt")
+        if filt and names:
+            out = subprocess.run([filt], input="\n".join(names), text=True,
+                                 capture_output=True).stdout.splitlines()
+            if len(out) == len(names):
+                strip = r"^void |\(anonymous namespace\)::|\(.*\)$"
+                names = [re.sub(strip, "", n) for n in out]
+        parts = [f"{n} {r} registers, spill {st}/{ld} bytes"
+                 for n, (r, st, ld) in zip(names, entries.values())]
+        lines.append(f"ptxas {src}: " + "; ".join(parts))
+    return lines
 
 
 def time_ms(fn, flush, reps: int = 20, warmup: int = 3) -> float:
@@ -1898,9 +1934,12 @@ def main() -> int:
     from physics_llm_inference_tpu_torch.kernels import _build
 
     t0 = time.perf_counter()
-    _build.build(verbose=True)
+    reports = {}
+    _build.build(ptxas=reports)
     _build.lib()
     log(f"build: {time.perf_counter() - t0:.1f} s -> {_build.LIB_PATH}")
+    for line in ptxas_report(reports):
+        log(line)
 
     flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
     kernels = check_kernels(dev, flush)

@@ -2,113 +2,105 @@
 //
 // K4 replaces the TPU kernel physics_llm_inference_tpu/kernels/
 // fused_decode.py (fused_decode_step -> _kernel) in its three modes, each an
-// instance of fused_decode_kernel<false, kMode> (the mode is a template
-// parameter; no inner loop branches on it at run time):
-//  - W8A16, the default (K-blocked weight tiles, silu per DOWN tile, bf16
-//    activations): the W8A16 tile, f32 K-split partials, the per-channel
-//    scale after their sum;
-//  - W4A16: nibble-packed INT4 weights with group scales (w4a16_tile.cuh).
-//    A work item reads each packed byte once and makes both output columns
-//    it holds (j and N/2 + j); its K range is whole scale groups, and each
-//    group's f32 partial is scaled by the group's scale row and added in K
-//    order in registers (the TPU kernel's `acc += part * s` per K-tile), so
-//    the f32 workspace receives scaled partials;
-//  - W8A8 (act_quant = "int8"): each activation row is quantized to int8
-//    over its absmax after ln1, after attention (one more phase and barrier
-//    a layer), after ln2 and after silu (a per-request phase), into `a8`
-//    with its scale in `asc`; the int8 x int8 tile (w8a8_tile.cuh)
-//    accumulates exact int32 K-split partials, summed as integers, then
-//    (f32(sum) * row_scale) * w_scale.
-// K8 replaces
-// fused_paged_decode_step -> _paged_kernel_r5 of the same file: the same
-// kernel with a paged address mode in the attention phase only (the
-// fused_decode_kernel<true> instance). Its KV lives in the merged INT8 block
-// pools (L, NB, 2, BS, Hkv*d) / (L, NB, 2, Hkv, BS) f32 reached through the
-// block table; request b attends its keys [0, lengths[b]) plus the current
-// token and, in place, writes the new codes and scales at position
-// lengths[b] of block tables[b, min(lengths[b] / BS, MB - 1)], after that
-// item's own reads. Of the TPU kernel's machinery (request groups, rotating
-// value rings, the layer-resident scale copy, DMA semaphores, 8-slot write
-// windows) nothing is needed here: a pool row is addressed directly. Per layer: RMSNorm,
-// QKV, RoPE, KV quantize and write, attention over the INT8 cache plus the
-// current token, WO, RMSNorm, gate/up, silu * up, down. The numerics are the
-// TPU kernel's: the residual stream stays f32 across all layers and is cast
-// to bf16 once at the end; qkv, gate and up are rounded to bf16 after their
-// f32 sums; K is rounded to bf16 after RoPE and quantized per head; the
-// current token attends through the dequantized int8 values the cache will
-// hold; p * v_scale is rounded to bf16 before P@V.
+// instance of fused_decode_stream_kernel<kMode, false> (the mode is a
+// template parameter; no inner loop branches on it at run time):
+//  - W8A16, the default: int8 weights, bf16 activations, f32 partials of
+//    the GEMM phases, the per-channel scale after their sum;
+//  - W4A16 (the `w4` body): nibble-packed INT4 weights with group scales.
+//    A unit reads each packed byte once and makes both output columns it
+//    holds (j and N/2 + j); each scale group's f32 sum is scaled by its
+//    scale row and added in K order (the TPU kernel's `acc += part * s` per
+//    K-tile), so the workspace receives scaled partials;
+//  - W8A8 (the `act8` body, act_quant = "int8"): each activation row is
+//    quantized to int8 over its absmax after ln1, after attention (one more
+//    phase a layer), after ln2 and after silu (two grid-wide phases: the f32
+//    silu row and its absmax, then its codes), into `a8` with its scale in
+//    `asc`; the int8 x int8 products accumulate exact int32 partials, summed
+//    as integers, then (f32(sum) * row_scale) * w_scale.
+// K8 replaces fused_paged_decode_step -> _paged_kernel_r5 of the same file:
+// the W8A16 kernel with a paged address mode in the attention phase only
+// (fused_decode_stream_kernel<W8A16, true>). Its KV lives in the merged INT8
+// block pools (L, NB, 2, BS, Hkv*d) / (L, NB, 2, Hkv, BS) f32 reached through
+// the block table; request b attends its keys [0, lengths[b]) plus the
+// current token and writes the new codes and scales at position lengths[b]
+// of block tables[b, min(lengths[b] / BS, MB - 1)]. Of the TPU kernel's
+// machinery (request groups, rotating value rings, the layer-resident scale
+// copy, DMA semaphores, 8-slot write windows) nothing is needed here: a pool
+// row is addressed directly. Per layer: RMSNorm, QKV, RoPE, KV quantize,
+// attention over the INT8 cache plus the current token, the cache write, WO,
+// RMSNorm, gate/up, silu * up, down. The numerics are the TPU kernel's: the
+// residual stream stays f32 across all layers and is cast to bf16 once at
+// the end; qkv, gate and up are rounded to bf16 after their f32 sums; K is
+// rounded to bf16 after RoPE and quantized per head; the current token
+// attends through the dequantized int8 values the cache will hold; p *
+// v_scale is rounded to bf16 before P@V.
 //
 // Bound on the H100: weight bytes (at B = 64 every int8 weight byte feeds 128
 // operations, every packed INT4 byte 256, far below the ~295 flop/byte bf16
 // and ~590 op/byte int8 ridges) plus the live KV bytes. The TPU kernel keeps
 // activations in VMEM and walks one sequential grid, its weights streaming
 // through VMEM double-buffered across phase and layer boundaries alike; here
-// one persistent cooperative launch covers the step, and the phases of a
-// layer are separated by grid-wide barriers:
+// one persistent cooperative launch covers the step, one block an SM of 8
+// consumer warps and a producer warpgroup, and the phases of a layer are
+// separated by grid-wide barriers:
 //   1. QKV partials;  2. per (request, kv head): the fixed-order sum of the
 //      partials, bf16, RoPE, quantize K/V into the new-KV buffers;
 //   3. per (request, kv head): attention over the cache slots [valid_from,
 //      q_slot) (kv_attn::attend, shared with K2; K8: the request's pool
-//      blocks through the table), merged with the current token, then the
-//      in-place cache write at `slot` (K8: the request's own write position)
-//      after this item's own reads of that cache row;
-//   4. WO partials;  5. per request: x += sum * scale, then RMSNorm -> h;
-//   6. gate/up partials;  7. silu(gate) * up -> ff;
-//   8. DOWN partials;  9. per request: x += sum * scale, then the next
-//      layer's RMSNorm (or the bf16 output after the last layer).
-// Two skeletons run these phases:
-//  - W8A16 (K4's default mode, and K8): fused_decode_stream_kernel, one
-//    block an SM of 8 consumer warps and a producer warpgroup. The GEMM phases
-//    are w8a16_stream.cuh: a plan made on the host splits each phase's
-//    (slab, k-tile) units evenly over the blocks (stream-K), and the
-//    producer streams every weight tile the block will consume, of every
-//    phase and layer, through a TMA ring in shared memory, running ahead
-//    across the grid barriers: the row, RoPE and attention phases no longer
-//    leave the weight stream idle. The grid barrier is written by hand over
-//    the consumer warps (a named barrier, then one thread's release/acquire
-//    on a counter the launch zeroes), so the producer, which may wait on a
-//    free stage, stays out of it. The other phases run on crews of 128
-//    threads, two a block (named barriers 2 and 3).
-//  - W4A16 and W8A8: fused_decode_kernel, 128-thread blocks (two an SM),
-//    cg grid barriers, the GEMM tiles of w4a16_tile.cuh / w8a8_tile.cuh
-//    over (m-tile, n-tile, k-split) items in a grid-stride loop; a block is
-//    one crew.
-// Partials go to an f32 workspace and are summed in a fixed order (no float
-// atomics), so the step is deterministic; the summing phases read them four
-// columns a load. L1 is not coherent across SMs, so everything another block
-// wrote in this launch is read through L2 (ld.global.cg, cp.async.cg).
+//      blocks through the table), merged with the current token;
+//      (W8A8: per request, the attention row quantized);
+//   4. WO partials, and the new K/V written to the cache (after every read
+//      of it in phase 3);  5. per request: x += sum * scale, then RMSNorm ->
+//      h;  6. gate/up partials;  7. silu(gate) * up -> ff (W8A8: the f32 row
+//      and its absmax, then its codes);  8. DOWN partials;  9. per request:
+//      x += sum * scale, then the next layer's RMSNorm (or the bf16 output
+//      after the last layer).
+// The GEMM phases are w8a16_stream.cuh: a plan made on the host splits each
+// phase's (slab, k-tile) units evenly over the blocks (stream-K), and the
+// producer streams every weight tile the block will consume, of every phase
+// and layer, through a TMA ring in shared memory, running ahead across the
+// grid barriers: the row, RoPE and attention phases do not leave the weight
+// stream idle. The grid barrier is written by hand over the consumer warps
+// (a named barrier, then one thread's release/acquire on a counter the
+// launch zeroes), so the producer, which may wait on a free stage, stays out
+// of it. The other phases run on crews of 128 threads, two a block (named
+// barriers 2 and 3), or, the per-request row phases, on whole blocks.
+// Partials go to a workspace and are summed in a fixed order (no float
+// atomics: W8A8's silu absmax is an integer max of non-negative floats'
+// bits, which no order changes), so the step is deterministic; the summing
+// phases read them four columns a load, every partial in flight. L1 is not
+// coherent across SMs, so everything another block wrote in this launch is
+// read through L2 (ld.global.cg).
 
-#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "int8_kv_attention.cuh"
-#include "w4a16_tile.cuh"
 #include "w8a16_stream.cuh"
-#include "w8a8_tile.cuh"
-
-namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int THREADS = 128;   // fused_decode_kernel's block
-constexpr int CREW = 128;      // a crew: the row, RoPE and attention phases' worker
-static_assert(THREADS == w8a16::THREADS && CREW == kv_attn::THREADS &&
-                  THREADS == w8a8::THREADS && THREADS == CREW,
-              "the phases share one block shape");
-static_assert(w8s::CONSUMERS == 2 * CREW, "two crews a streaming block");
-constexpr int NWARPS = CREW / 32;
-constexpr int MAX_WARPS = w8s::CONSUMERS / 32;   // the widest crew: a streaming block
+using w8s::W4A16;
+using w8s::W8A16;
+using w8s::W8A8;
+
+constexpr int CREW = 128;      // a crew: the RoPE and attention phases' worker
+static_assert(CREW == kv_attn::THREADS, "the attention loop's block shape");
+static_assert(w8s::CONSUMERS == 2 * CREW, "two crews a block");
+constexpr int MAX_WARPS = w8s::CONSUMERS / 32;   // the widest crew: a block
 constexpr size_t cmax(size_t a, size_t b) { return a > b ? a : b; }
 
-// The K4 modes (kernels/fused_decode.py numbers them alike).
-constexpr int W8A16 = 0, W4A16 = 1, W8A8 = 2;
-// W8A8: the rows of `asc`, one per activation quantization point.
-constexpr int ASC_LN1 = 0, ASC_ATTN = 1, ASC_LN2 = 2, ASC_FF = 3;
+// W8A8: the rows of `asc`, one per activation quantization point, then the
+// silu row's absmax (the float's bits, atomicMax'd).
+constexpr int ASC_LN1 = 0, ASC_ATTN = 1, ASC_LN2 = 2, ASC_FF = 3, ASC_FFMAX = 4;
 // The GEMM phases, in a layer's order.
 constexpr int QKV = 0, WO = 1, GU = 2, DN = 3;
+
+// W8A8: the bytes between two int8 activation rows of width n, a multiple
+// of 16 (a TMA stride must be).
+static __host__ __device__ __forceinline__ int row_pitch(int n) { return (n + 15) & ~15; }
 
 struct Params {
   const __nv_bfloat16* x0;                 // (B, D)
@@ -135,40 +127,56 @@ struct Params {
   __nv_bfloat16* qbuf;                     // (B, HQ*HD) post-RoPE queries
   __nv_bfloat16* attn;                     // (B, HQ*HD)
   __nv_bfloat16* ff;                       // (B, F)
-  float* ws;                               // f32 partials (W8A8: int32):
-                                           // (split, B, N) or, W8A16, (j, B, N)
-  int8_t* a8;                              // W8A8: (B, K) int8 activation rows
-  float* asc;                              // W8A8: (4, B) their scales
-  unsigned* sync;                          // W8A16: the grid barrier's counter,
-                                           // then the attention items claimed
+  float* ws;                               // the partials (j, B, N): f32
+                                           // (W8A8: int32)
+  int8_t* a8;                              // W8A8: (B, row_pitch(K)) int8 rows
+  float* asc;                              // W8A8: (5, B) their scales, absmax
+  float* ffs;                              // W8A8: (B, F) f32 silu(gate) * up
+  unsigned* sync;                          // the grid barrier's counter, then
+                                           // the attention items claimed
   int L, B, S, D, F, HQ, HKV, HD;
   int NB, MB, BS;                          // K8: pool blocks, table width, block size
   int slot, write_cache;
-  int split[4];                            // W4A16, W8A8: k-splits of each GEMM phase
-  w8s::Plan plan[4];                       // W8A16: each GEMM phase's plan
+  w8s::Plan plan[4];                       // each GEMM phase's plan
   int g_qkv, g_wo, g_gu, g_dn;             // W4A16: K rows of a scale group
   float eps, scale;
   unsigned long long* clock;               // the phase clock, or null
 };
 
 // The phase clock: with p.clock set, thread 0 of block 0 writes
-// %globaltimer (ns) into clock[n] after the n-th grid barrier, so
-// clock[n + 1] - clock[n] is phase n + 1's time as block 0 saw it.
-static __device__ __forceinline__ void stamp(const Params& p, int& n) {
-  if (p.clock != nullptr && blockIdx.x == 0 && threadIdx.x == 0) p.clock[n] = w8s::global_ns();
-  ++n;
+// %globaltimer (ns) into clock[n] once it has seen the n-th grid barrier
+// complete, so clock[n + 1] - clock[n] is phase n + 1's time as block 0 saw
+// it.
+static __device__ __forceinline__ void stamp(const Params& p, int n) {
+  if (p.clock != nullptr && blockIdx.x == 0) p.clock[n] = w8s::global_ns();
 }
 
 // A crew of `size` threads: `count` of them walk a phase's items, crew `id`
 // of them; `tid` is the thread's index in it and `bar` its named barrier.
-// The streaming kernel's crews are half blocks (CREW threads), its row
-// phases run on whole blocks (w8s::CONSUMERS).
+// Crews are half blocks (CREW threads); the row phases run on whole blocks
+// (w8s::CONSUMERS).
 struct Crew {
   int id, count, tid, bar, size;
   __device__ __forceinline__ void sync() const {
     asm volatile("bar.sync %0, %1;\n" ::"r"(bar), "r"(size) : "memory");
   }
 };
+
+// The crews of a phase, made anew from the thread index (w8s::tid_x): half
+// a block (the RoPE, attention and cache-write phases; named barriers 2 and
+// 3) or the whole block (the per-request row phases). Made once for the
+// launch, they stayed live across the GEMM phases, which take every
+// register they may.
+static __device__ __forceinline__ Crew half_crew() {
+  const int t = w8s::tid_x(), half = t / CREW;
+  return Crew{static_cast<int>(blockIdx.x) * 2 + half, static_cast<int>(gridDim.x) * 2,
+              t % CREW, 2 + half, CREW};
+}
+
+static __device__ __forceinline__ Crew block_crew() {
+  return Crew{static_cast<int>(blockIdx.x), static_cast<int>(gridDim.x), w8s::tid_x(),
+              w8s::BAR_CONSUMERS, w8s::CONSUMERS};
+}
 
 // A crew's shared memory in the row, RoPE and attention phases.
 struct CrewSmem {
@@ -226,20 +234,23 @@ static __device__ __forceinline__ void add4(float4& a, const float4& b) {
   a.x += b.x; a.y += b.y; a.z += b.z; a.w += b.w;
 }
 
-// Columns n..n+3 (n % 4 == 0, N % 4 == 0) of request b of the f32 partials
-// ws (cnt, B, N), summed in partial order, BATCH loads in flight (up to 16
-// in the streaming kernel, so a plan's partials are read in one round; 4 in
-// the 128-thread kernel, which has the registers for fewer).
-template <int BATCH>
-static __device__ __forceinline__ float4 partial_sum4(const float* ws, int cnt, int B,
-                                                      int N, int b, int n) {
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+static __device__ __forceinline__ void add4(int4& a, const int4& b) {
+  a.x += b.x; a.y += b.y; a.z += b.z; a.w += b.w;
+}
+
+// Columns n..n+3 (n % 4 == 0, N % 4 == 0) of request b of the partials ws
+// (cnt, B, N) of type V (float4, W8A8 int4), summed in partial order, BATCH
+// loads in flight, so a plan's partials are read in one round.
+template <class V, int BATCH>
+static __device__ __forceinline__ V partial_batch4(const float* ws, int cnt, int B, int N, int b,
+                                                 int n) {
+  const V* w = reinterpret_cast<const V*>(ws);
+  V acc{};
   for (int j0 = 0; j0 < cnt; j0 += BATCH) {
-    float4 v[BATCH];
+    V v[BATCH];
 #pragma unroll
     for (int j = 0; j < BATCH; ++j)
-      v[j] = j0 + j < cnt ? ldcg4(ws + ((size_t)(j0 + j) * B + b) * N + n)
-                          : make_float4(0.f, 0.f, 0.f, 0.f);
+      v[j] = j0 + j < cnt ? __ldcg(w + (((size_t)(j0 + j) * B + b) * N + n) / 4) : V{};
 #pragma unroll
     for (int j = 0; j < BATCH; ++j)
       if (j0 + j < cnt) add4(acc, v[j]);
@@ -247,133 +258,56 @@ static __device__ __forceinline__ float4 partial_sum4(const float* ws, int cnt, 
   return acc;
 }
 
-// The same for W8A8's int32 partials.
-static __device__ __forceinline__ int4 partial_isum4(const float* ws, int cnt, int B,
-                                                     int N, int b, int n) {
-  const int* wi = reinterpret_cast<const int*>(ws);
-  int4 acc = make_int4(0, 0, 0, 0);
-  for (int s = 0; s < cnt; ++s) {
-    const int4 v = __ldcg(reinterpret_cast<const int4*>(wi + ((size_t)s * B + b) * N + n));
-    acc.x += v.x; acc.y += v.y; acc.z += v.z; acc.w += v.w;
-  }
-  return acc;
+// The same with as many loads in flight as the column has partials.
+template <class V>
+static __device__ __forceinline__ V partial_sum4(const float* ws, int cnt, int B, int N, int b,
+                                                 int n) {
+  return cnt <= 4   ? partial_batch4<V, 4>(ws, cnt, B, N, b, n)
+         : cnt <= 8 ? partial_batch4<V, 8>(ws, cnt, B, N, b, n)
+                    : partial_batch4<V, 16>(ws, cnt, B, N, b, n);
 }
 
-// Outputs (b, n..n+3) of GEMM phase `ph` from its partials: W8A16 the sum
-// (its plan's partials of that slab) * scale; W4A16 the sum (the partials
-// carry their group scales); W8A8 (f32(integer sum) * rs) * scale, rs the
-// input row's scale.
+// Outputs (b, n..n+3) of GEMM phase `ph` from its plan's partials of that
+// column: W8A16 the sum * scale; W4A16 the sum (the partials carry their
+// group scales); W8A8 (f32(integer sum) * rs) * scale, rs the input row's
+// scale.
 template <int kMode>
 static __device__ __forceinline__ float4 gemm_out4(const Params& p, int ph, int N, int b,
                                                    int n, const float* scale, float rs) {
+  const int cnt = w8s::partials<kMode>(p.plan[ph], b, n, N);
+  if constexpr (kMode == W4A16) return partial_sum4<float4>(p.ws, cnt, p.B, N, b, n);
+  const float4 sc = __ldg(reinterpret_cast<const float4*>(scale + n));
   if constexpr (kMode == W8A16) {
-    // as many loads in flight as the slab has partials
-    const int cnt = w8s::partials(p.plan[ph], b, n);
-    const float4 v = cnt <= 4   ? partial_sum4<4>(p.ws, cnt, p.B, N, b, n)
-                     : cnt <= 8 ? partial_sum4<8>(p.ws, cnt, p.B, N, b, n)
-                                : partial_sum4<16>(p.ws, cnt, p.B, N, b, n);
-    const float4 sc = __ldg(reinterpret_cast<const float4*>(scale + n));
+    const float4 v = partial_sum4<float4>(p.ws, cnt, p.B, N, b, n);
     return make_float4(v.x * sc.x, v.y * sc.y, v.z * sc.z, v.w * sc.w);
-  } else if constexpr (kMode == W4A16) {
-    return partial_sum4<4>(p.ws, p.split[ph], p.B, N, b, n);
   } else {
-    const int4 v = partial_isum4(p.ws, p.split[ph], p.B, N, b, n);
-    const float4 sc = __ldg(reinterpret_cast<const float4*>(scale + n));
+    const int4 v = partial_sum4<int4>(p.ws, cnt, p.B, N, b, n);
     return make_float4(static_cast<float>(v.x) * rs * sc.x, static_cast<float>(v.y) * rs * sc.y,
                        static_cast<float>(v.z) * rs * sc.z, static_cast<float>(v.w) * rs * sc.w);
   }
 }
 
-// W8A8: output (b, n) of GEMM phase `ph`, one column (its silu row reads
-// them one by one).
-static __device__ __forceinline__ float gemm_out_a8(const Params& p, int ph, int N, int b,
-                                                    int n, const float* scale, float rs) {
-  const int* wi = reinterpret_cast<const int*>(p.ws);
-  int acc = 0;
-  for (int s = 0; s < p.split[ph]; ++s) acc += __ldcg(wi + ((size_t)s * p.B + b) * N + n);
-  return static_cast<float>(acc) * rs * scale[n];
+// W8A8: the int8 code of v at scale s: clip(rint(v / s), +-127).
+static __device__ __forceinline__ int8_t code8(float v, float s) {
+  return static_cast<int8_t>(fminf(fmaxf(rintf(v / s), -127.f), 127.f));
 }
 
-// W4A16: ws[split, m, n] = sum over the split's scale groups g, in K order,
-// of s[g, n] * (x[m, g*G:(g+1)*G] @ w[g*G:(g+1)*G, n]), for x (M, K) bf16, w
-// the packed (K, N/2) bytes and s the (K/G, N) group scales. An item is one
-// m-tile, packed columns [j0, j0 + 64) (output columns j0 + c and N/2 + j0 +
-// c) and one split; thread t owns column t of the 64 x 128 result and keeps
-// its 64 rows in registers across the split's groups.
-static __device__ void gemm_partials_w4(const __nv_bfloat16* x, const int8_t* w,
-                                        const float* s, float* ws, int M, int N,
-                                        int K, int G, int splits, w4a16::Smem& sm) {
-  using namespace w4a16;
-  static_assert(THREADS == 2 * BN, "a thread per column of the two halves");
-  const int NH = N / 2;
-  const int mt = (M + BM - 1) / BM, nt = (NH + BN - 1) / BN;
-  const int groups = K / G;
-  const int per = (groups + splits - 1) / splits;  // groups per split
-  const int items = mt * nt * splits;
-  const bool vec_x = K % 8 == 0, vec_w = NH % 16 == 0;
-  const int c = threadIdx.x;
-  for (int it = blockIdx.x; it < items; it += gridDim.x) {
-    const int split = it % splits, tile = it / splits;
-    const int n0 = (tile % nt) * BN, m0 = (tile / nt) * BM;
-    const int j = n0 + (c < BN ? c : c - BN);         // packed column
-    const bool live = j < NH;
-    const int col = c < BN ? j : NH + j;              // output column
-    float acc[BM];
-#pragma unroll
-    for (int r = 0; r < BM; ++r) acc[r] = 0.f;
-    const int g_end = min(groups, (split + 1) * per);
-    for (int g = split * per; g < g_end; ++g) {
-      tile_gemm(x, w, M, NH, K, g * G, (g + 1) * G, m0, n0, vec_x, vec_w, sm);
-      const float sg = live ? __ldg(s + (size_t)g * N + col) : 0.f;
-      const float* cs = sm.c();
-#pragma unroll
-      for (int r = 0; r < BM; ++r) acc[r] += cs[r * CS_LD + c] * sg;
-      __syncthreads();
-    }
-    if (live) {
-#pragma unroll
-      for (int r = 0; r < BM; ++r)
-        if (m0 + r < M) ws[((size_t)split * M + m0 + r) * N + col] = acc[r];
-    }
-  }
+// W8A8: the scale of a row of absmax `amax`: max(amax, 1e-8) * (1/127), the
+// form in which XLA gives the TPU kernel's `_qrow`.
+static __device__ __forceinline__ float row_scale(float amax) {
+  return fmaxf(amax, 1e-8f) * (1.f / 127.f);
 }
 
-// W8A8: ws[split, m, n] = the int32 sum over the split's K range of
-// x[m, k] * w[k, n], for x (M, K) and w (K, N) int8.
-static __device__ void gemm_partials_a8(const int8_t* x, const int8_t* w, int* ws,
-                                        int M, int N, int K, int splits,
-                                        w8a8::Smem& sm) {
-  using namespace w8a8;
-  const int mt = (M + BM - 1) / BM, nt = (N + BN - 1) / BN;
-  const int per = ((K + BK - 1) / BK + splits - 1) / splits;  // k-tiles per split
-  const int items = mt * nt * splits;
-  const bool vec_x = K % 16 == 0, vec_w = N % 16 == 0;
-  for (int it = blockIdx.x; it < items; it += gridDim.x) {
-    const int split = it % splits, tile = it / splits;
-    const int n0 = (tile % nt) * BN, m0 = (tile / nt) * BM;
-    const int k_begin = split * per * BK;
-    const int k_end = min(K, k_begin + per * BK);
-    tile_gemm(x, w, M, N, K, k_begin, k_end, m0, n0, vec_x, vec_w, sm);
-    for (int i = threadIdx.x; i < BM * BN; i += THREADS) {
-      const int r = i / BN, c = i % BN, gm = m0 + r, gn = n0 + c;
-      if (gm < M && gn < N) ws[((size_t)split * M + gm) * N + gn] = sm.c[r * CS_LD + c];
-    }
-    __syncthreads();
-  }
-}
-
-// W8A8: row b of width n, value(i) in f32, to int8 codes a8[b * n + i] =
-// clip(rint(value(i) / s), +-127) with s = max(absmax, 1e-8) * (1/127) (the
-// scale in the form XLA gives the TPU kernel's `_qrow`), s to *scale_out.
+// W8A8: row b of width n, value(i) in f32, to int8 codes in a8 (rows
+// row_pitch(n) bytes apart), its scale to *scale_out.
 template <class Value>
 static __device__ void quantize_row(const Params& p, const Crew& c, float* red, int b,
                                     int n, float* scale_out, Value value) {
   float amax = 0.f;
   for (int i = c.tid; i < n; i += c.size) amax = fmaxf(amax, fabsf(value(i)));
-  const float s = fmaxf(block_max(amax, c, red), 1e-8f) * (1.f / 127.f);
-  int8_t* row = p.a8 + (size_t)b * n;
-  for (int i = c.tid; i < n; i += c.size)
-    row[i] = static_cast<int8_t>(fminf(fmaxf(rintf(value(i) / s), -127.f), 127.f));
+  const float s = row_scale(block_max(amax, c, red));
+  int8_t* row = p.a8 + (size_t)b * row_pitch(n);
+  for (int i = c.tid; i < n; i += c.size) row[i] = code8(value(i), s);
   if (c.tid == 0) *scale_out = s;
 }
 
@@ -509,12 +443,12 @@ static __device__ void qkv_phase(const Params& p, const Crew& c, CrewSmem& cs, i
     }
     // the scale as a product with the f32 reciprocal of 127, the form in
     // which XLA evaluates the TPU kernel's quantizer; x / s stays a division
-    const float sk = fmaxf(block_max(ak, c, cs.red), 1e-8f) * (1.f / 127.f);
-    const float sv = fmaxf(block_max(av, c, cs.red), 1e-8f) * (1.f / 127.f);
+    const float sk = row_scale(block_max(ak, c, cs.red));
+    const float sv = row_scale(block_max(av, c, cs.red));
     const size_t row = ((size_t)l * p.B + b) * KH + (size_t)g * HD;
     for (int i = c.tid; i < HD; i += c.size) {
-      p.k_new[row + i] = static_cast<int8_t>(fminf(fmaxf(rintf(kf[i] / sk), -127.f), 127.f));
-      p.v_new[row + i] = static_cast<int8_t>(fminf(fmaxf(rintf(vf[i] / sv), -127.f), 127.f));
+      p.k_new[row + i] = code8(kf[i], sk);
+      p.v_new[row + i] = code8(vf[i], sv);
     }
     if (c.tid == 0) {
       p.ks_new[((size_t)l * p.B + b) * p.HKV + g] = sk;
@@ -555,31 +489,28 @@ static __device__ __forceinline__ bool new_kv_position(const Params& p, int l, i
   return true;
 }
 
-// Copy the new K/V codes and scales of (request b, kv head g) of layer l
-// from the new-KV buffers to their cache position.
-template <bool kPaged>
-static __device__ __forceinline__ void write_new_kv(const Params& p, const Crew& c, int l,
-                                                    int b, int g) {
-  int8_t* kw; int8_t* vw; float* ksw; float* vsw;
-  if (!new_kv_position<kPaged>(p, l, b, g, kw, vw, ksw, vsw)) return;
-  const size_t lb = (size_t)l * p.B + b, KH = (size_t)p.HKV * p.HD;
-  const int8_t* kn = p.k_new + lb * KH + (size_t)g * p.HD;
-  const int8_t* vn = p.v_new + lb * KH + (size_t)g * p.HD;
-  for (int cc = c.tid; cc < p.HD; cc += c.size) {
-    kw[cc] = __ldcg(kn + cc);
-    vw[cc] = __ldcg(vn + cc);
-  }
-  if (c.tid == 0) {
-    *ksw = __ldcg(p.ks_new + lb * p.HKV + g);
-    *vsw = __ldcg(p.vs_new + lb * p.HKV + g);
-  }
-}
-
-// The streaming kernel's cache writes of layer l, after every read of its
-// attention phase: no item reads a position another writes in this launch.
+// The cache writes of layer l, after every read of its attention phase: no
+// item reads a position another writes in this launch. Per (request, kv
+// head): the new K/V codes and scales from the new-KV buffers to their
+// cache position.
 template <bool kPaged>
 static __device__ void new_kv_phase(const Params& p, const Crew& c, int l) {
-  for (int it = c.id; it < p.B * p.HKV; it += c.count) write_new_kv<kPaged>(p, c, l, it / p.HKV, it % p.HKV);
+  for (int it = c.id; it < p.B * p.HKV; it += c.count) {
+    const int b = it / p.HKV, g = it % p.HKV;
+    int8_t* kw; int8_t* vw; float* ksw; float* vsw;
+    if (!new_kv_position<kPaged>(p, l, b, g, kw, vw, ksw, vsw)) continue;
+    const size_t lb = (size_t)l * p.B + b, KH = (size_t)p.HKV * p.HD;
+    const int8_t* kn = p.k_new + lb * KH + (size_t)g * p.HD;
+    const int8_t* vn = p.v_new + lb * KH + (size_t)g * p.HD;
+    for (int cc = c.tid; cc < p.HD; cc += c.size) {
+      kw[cc] = __ldcg(kn + cc);
+      vw[cc] = __ldcg(vn + cc);
+    }
+    if (c.tid == 0) {
+      *ksw = __ldcg(p.ks_new + lb * p.HKV + g);
+      *vsw = __ldcg(p.vs_new + lb * p.HKV + g);
+    }
+  }
 }
 
 // The cached keys request b attends (the current token aside).
@@ -589,8 +520,8 @@ static __device__ __forceinline__ int live_keys(const Params& p, int b) {
   return max(0, min(p.q_slot[b] - 1, p.S - 1) - max(p.valid_from[b], 0) + 1);
 }
 
-// The streaming kernel's attention order: order[i] is the request with the
-// i-th most cached keys (ties in request order), B <= MAX_ORDER.
+// The attention order: order[i] is the request with the i-th most cached
+// keys (ties in request order), B <= MAX_ORDER.
 constexpr int MAX_ORDER = 256;
 template <bool kPaged>
 static __device__ void attention_order(const Params& p, short* order) {
@@ -608,17 +539,14 @@ static __device__ void attention_order(const Params& p, short* order) {
 
 // Per (request, kv head): attention over the cache slots [valid_from,
 // q_slot) (K8: the request's keys [0, lengths[b]) through its block table)
-// merged with the current token, -> attn (bf16); then, in the 128-thread
-// kernel (kStream false), the new K/V land at their cache position after
-// this item's own reads (write_new_kv). The streaming kernel's crews claim
-// items one at a time from a counter (kStream), longest requests first
-// (`order`): an item's length varies with its request, and a fixed share
-// left some crews two long items, a claim in request order a long one last.
-// An item is still computed by one crew alone, so the result does not
-// depend on which.
-template <bool kPaged, bool kStream>
+// merged with the current token, -> attn (bf16). The crews claim items one
+// at a time from a counter, longest requests first (`order`): an item's
+// length varies with its request, and a fixed share left some crews two
+// long items, a claim in request order a long one last. An item is still
+// computed by one crew alone, so the result does not depend on which.
+template <bool kPaged>
 static __device__ void attention_phase(const Params& p, const Crew& c, CrewSmem& cs, int l,
-                                       const short* order = nullptr) {
+                                       const short* order) {
   using kv_attn::GMAX;
   kv_attn::Smem& sm = cs.att;
   const int HD = p.HD, group = p.HQ / p.HKV, items = p.B * p.HKV;
@@ -628,18 +556,14 @@ static __device__ void attention_phase(const Params& p, const Crew& c, CrewSmem&
   // every crew makes one claim past the last item, so layer l's claims
   // start at l * (items + crews)
   const int base = l * (items + c.count);
-  for (int it = c.id;; it += c.count) {
-    if constexpr (kStream) {
-      if (tid == 0) cs.item = static_cast<int>(atomicAdd(p.sync + 1, 1u)) - base;
-      c.sync();
-      it = cs.item;
-    }
+  for (;;) {
+    if (tid == 0) cs.item = static_cast<int>(atomicAdd(p.sync + 1, 1u)) - base;
+    c.sync();
+    const int it = cs.item;
     if (it >= items) break;
     int b = it / p.HKV;
     const int g = it % p.HKV;
-    if constexpr (kStream) {
-      if (p.B <= MAX_ORDER) b = order[b];
-    }
+    if (p.B <= MAX_ORDER) b = order[b];
     const size_t lb = (size_t)l * p.B + b;
     const __nv_bfloat16* qg = p.qbuf + (size_t)b * QH + (size_t)g * group * HD;
     float acc[GMAX];
@@ -700,135 +624,111 @@ static __device__ void attention_phase(const Params& p, const Crew& c, CrewSmem&
         }
       }
     }
-    if constexpr (!kStream) write_new_kv<kPaged>(p, c, l, b, g);
     c.sync();
   }
 }
 
-// W8A8, per request: the bf16 attention row quantized into a8.
+// W8A8, per request on whole blocks: the bf16 attention row quantized into
+// a8; and the silu row's absmax of this layer zeroed (silu_phase folds into
+// it, three barriers later).
 static __device__ void attn_quant_phase(const Params& p, const Crew& c, CrewSmem& cs) {
   const int QH = p.HQ * p.HD;
   for (int b = c.id; b < p.B; b += c.count) {
     const __nv_bfloat16* row = p.attn + (size_t)b * QH;
     quantize_row(p, c, cs.red, b, QH, p.asc + (size_t)ASC_ATTN * p.B + b,
                  [&](int i) { return kv_attn::ldcg_bf16(row + i); });
+    if (c.tid == 0) p.asc[(size_t)ASC_FFMAX * p.B + b] = 0.f;
   }
 }
 
-// ff = bf16(silu(bf16(gate)) * bf16(up)), gate/up = the GU phase's output.
-// W8A8: per request, the f32 silu(gate) * up row quantized into a8 (its
-// absmax needs the whole row).
+// silu(bf16(gate)) * bf16(up) in f32 of the GU phase's outputs (b, n..n+3)
+// and (b, F + n..F + n + 3).
 template <int kMode>
-static __device__ void silu_phase(const Params& p, const Crew& c, CrewSmem& cs, int l) {
+static __device__ __forceinline__ float4 silu4(const Params& p, const float* sc, int b, int n,
+                                               float rs) {
   const int F = p.F, N = 2 * F;
-  const float* sc = p.sgu + (size_t)l * N;
+  const float4 g4 = gemm_out4<kMode>(p, GU, N, b, n, sc, rs);
+  const float4 u4 = gemm_out4<kMode>(p, GU, N, b, F + n, sc, rs);
+  const float gv[4] = {bf(g4.x), bf(g4.y), bf(g4.z), bf(g4.w)};
+  const float uv[4] = {bf(u4.x), bf(u4.y), bf(u4.z), bf(u4.w)};
+  float o[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) o[e] = gv[e] / (1.f + expf(-gv[e])) * uv[e];
+  return make_float4(o[0], o[1], o[2], o[3]);
+}
+
+// silu over the whole grid, four columns a consumer thread. W8A16, W4A16:
+// ff = bf16(silu(gate) * up). W8A8, the first of two passes (its row
+// absmax needs the whole row): each warp takes (request, 128 columns)
+// items, writes the f32 values to ffs and folds their absmax into the
+// row's with atomicMax on the float's bits (>= 0, so integer order is
+// float order, and a max does not depend on the order of the arrivals).
+template <int kMode>
+static __device__ void silu_phase(const Params& p, int l) {
+  const int F = p.F;
+  const float* sc = p.sgu + (size_t)l * 2 * F;
   if constexpr (kMode == W8A8) {
-    for (int b = c.id; b < p.B; b += c.count) {
-      const float rs = __ldcg(p.asc + (size_t)ASC_LN2 * p.B + b);
-      auto ff = [&](int n) {
-        const float gate = bf(gemm_out_a8(p, GU, N, b, n, sc, rs));
-        const float up = bf(gemm_out_a8(p, GU, N, b, F + n, sc, rs));
-        return gate / (1.f + expf(-gate)) * up;
-      };
-      quantize_row(p, c, cs.red, b, F, p.asc + (size_t)ASC_FF * p.B + b, ff);
+    const int lane = threadIdx.x & 31, warps = gridDim.x * (w8s::CONSUMERS / 32);
+    const int chunks = (F + 127) / 128;
+    for (int it = blockIdx.x * (w8s::CONSUMERS / 32) + (threadIdx.x >> 5); it < p.B * chunks;
+         it += warps) {
+      const int b = it / chunks, n = (it % chunks) * 128 + 4 * lane;
+      float amax = 0.f;
+      if (n < F) {
+        const float4 o = silu4<kMode>(p, sc, b, n, __ldcg(p.asc + (size_t)ASC_LN2 * p.B + b));
+        *reinterpret_cast<float4*>(p.ffs + (size_t)b * F + n) = o;
+        amax = fmaxf(fmaxf(fabsf(o.x), fabsf(o.y)), fmaxf(fabsf(o.z), fabsf(o.w)));
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+      if (lane == 0)
+        atomicMax(reinterpret_cast<int*>(p.asc + (size_t)ASC_FFMAX * p.B + b),
+                  __float_as_int(amax));
     }
   } else {
     const int total = p.B * F;   // B * F < 2^31
-    for (int i = 4 * (c.id * c.size + c.tid); i < total; i += 4 * c.count * c.size) {
-      const int b = i / F, n = i % F;
-      const float4 g4 = gemm_out4<kMode>(p, GU, N, b, n, sc, 0.f);
-      const float4 u4 = gemm_out4<kMode>(p, GU, N, b, F + n, sc, 0.f);
-      const float gv[4] = {bf(g4.x), bf(g4.y), bf(g4.z), bf(g4.w)};
-      const float uv[4] = {bf(u4.x), bf(u4.y), bf(u4.z), bf(u4.w)};
-      float o[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[e] = gv[e] / (1.f + expf(-gv[e])) * uv[e];
-      stbf4(p.ff + i, o[0], o[1], o[2], o[3]);
+    for (int i = 4 * (blockIdx.x * w8s::CONSUMERS + threadIdx.x); i < total;
+         i += 4 * gridDim.x * w8s::CONSUMERS) {
+      const float4 o = silu4<kMode>(p, sc, i / F, i % F, 0.f);
+      stbf4(p.ff + i, o.x, o.y, o.z, o.w);
     }
   }
 }
 
-// One GEMM phase of layer l in fused_decode_kernel: x (B, K) @ w[l] (K, N)
-// into the workspace. W4A16: x bf16, w the packed bytes, s the group
-// scales, G rows a group, scaled f32 partials; W8A8: x the int8 rows of a8,
-// int32 partials.
-template <int kMode>
-static __device__ void gemm_phase(const Params& p, const __nv_bfloat16* x,
-                                  const int8_t* w, const float* s, int l, int N,
-                                  int K, int G, int ph, unsigned char* smem) {
-  if constexpr (kMode == W4A16) {
-    gemm_partials_w4(x, w + (size_t)l * K * (N / 2), s + (size_t)l * (K / G) * N,
-                     p.ws, p.B, N, K, G, p.split[ph], *reinterpret_cast<w4a16::Smem*>(smem));
-  } else {
-    gemm_partials_a8(p.a8, w + (size_t)l * K * N, reinterpret_cast<int*>(p.ws), p.B, N,
-                     K, p.split[ph], *reinterpret_cast<w8a8::Smem*>(smem));
+// W8A8, the second pass over the whole grid: the f32 silu row's int8 codes
+// at its absmax's scale, four a consumer thread, into a8; the scale to
+// asc[ASC_FF].
+static __device__ void silu_quant_phase(const Params& p) {
+  const int F = p.F, total = p.B * F;
+  for (int i = 4 * (blockIdx.x * w8s::CONSUMERS + threadIdx.x); i < total;
+       i += 4 * gridDim.x * w8s::CONSUMERS) {
+    const int b = i / F, n = i % F;
+    const float s = row_scale(__ldcg(p.asc + (size_t)ASC_FFMAX * p.B + b));
+    const float4 v = ldcg4(p.ffs + i);
+    const uint32_t q = static_cast<uint8_t>(code8(v.x, s)) |
+                       static_cast<uint32_t>(static_cast<uint8_t>(code8(v.y, s))) << 8 |
+                       static_cast<uint32_t>(static_cast<uint8_t>(code8(v.z, s))) << 16 |
+                       static_cast<uint32_t>(static_cast<uint8_t>(code8(v.w, s))) << 24;
+    *reinterpret_cast<uint32_t*>(p.a8 + (size_t)b * row_pitch(F) + n) = q;
+    if (n == 0) p.asc[(size_t)ASC_FF * p.B + b] = s;
   }
 }
 
-constexpr size_t SMEM_BYTES =
-    cmax(cmax(sizeof(w4a16::Smem), sizeof(w8a8::Smem)), sizeof(CrewSmem));
-
-// W4A16 and W8A8 (K4): 128-thread blocks, each one crew, cg grid barriers.
-template <int kMode>
-__global__ void __launch_bounds__(THREADS) fused_decode_kernel(Params p) {
-  static_assert(kMode == W4A16 || kMode == W8A8, "W8A16 streams");
-  __shared__ __align__(128) unsigned char smem_raw[SMEM_BYTES];
-  CrewSmem& cs = *reinterpret_cast<CrewSmem*>(smem_raw);
-  cg::grid_group grid = cg::this_grid();
-  const Crew c{static_cast<int>(blockIdx.x), static_cast<int>(gridDim.x),
-               static_cast<int>(threadIdx.x), 1, CREW};
-
-  const int D = p.D, F = p.F, QH = p.HQ * p.HD;
-  const int QO = QH + 2 * p.HKV * p.HD;
-  int n = 0;   // barriers passed
-  rows_phase<kMode>(p, c, cs, nullptr, 0, 0, p.ln1, ASC_LN1, true);
-  grid.sync(); stamp(p, n);
-  for (int l = 0; l < p.L; ++l) {
-    gemm_phase<kMode>(p, p.h, p.wqkv, p.sqkv, l, QO, D, p.g_qkv, QKV, smem_raw);
-    grid.sync(); stamp(p, n);
-    qkv_phase<kMode>(p, c, cs, l);
-    grid.sync(); stamp(p, n);
-    attention_phase<false, false>(p, c, cs, l);
-    grid.sync(); stamp(p, n);
-    if constexpr (kMode == W8A8) {
-      attn_quant_phase(p, c, cs);
-      grid.sync(); stamp(p, n);
-    }
-    gemm_phase<kMode>(p, p.attn, p.wo, p.swo, l, D, QH, p.g_wo, WO, smem_raw);
-    grid.sync(); stamp(p, n);
-    rows_phase<kMode>(p, c, cs, p.swo + (size_t)l * D, WO, ASC_ATTN, p.ln2 + (size_t)l * D,
-                      ASC_LN2, false);
-    grid.sync(); stamp(p, n);
-    gemm_phase<kMode>(p, p.h, p.wgu, p.sgu, l, 2 * F, D, p.g_gu, GU, smem_raw);
-    grid.sync(); stamp(p, n);
-    silu_phase<kMode>(p, c, cs, l);
-    grid.sync(); stamp(p, n);
-    gemm_phase<kMode>(p, p.ff, p.wdn, p.sdn, l, D, F, p.g_dn, DN, smem_raw);
-    grid.sync(); stamp(p, n);
-    rows_phase<kMode>(p, c, cs, p.sdn + (size_t)l * D, DN, ASC_FF,
-                      l + 1 < p.L ? p.ln1 + (size_t)(l + 1) * D : nullptr, ASC_LN1, false);
-    if (l + 1 < p.L || p.clock != nullptr) {
-      grid.sync();
-      stamp(p, n);
-    }
-  }
-}
-
-// ---- W8A16: the streaming skeleton ----------------------------------------
-
-// The tensor maps (w8a16_stream.cuh) of each GEMM phase: its weights, and
-// its activations (h, attn, h, ff).
+// The tensor maps (w8a16_stream.cuh) of each GEMM phase: its weights, its
+// activations (h, attn, h, ff; W8A8 a8 at each phase's width) and, W4A16,
+// its group scales.
 struct Maps {
   CUtensorMap w[4];
   CUtensorMap x[4];
+  CUtensorMap s[4];
 };
 
-// The grid barrier of the streaming kernel, over its consumer threads only:
-// the n-th barrier of a launch waits for the counter (zeroed before the
-// launch) to reach n * gridDim.x.
+// The grid barrier, over the consumer threads only: the n-th barrier of a
+// launch waits for the counter (zeroed before the launch) to reach n *
+// gridDim.x.
 static __device__ __forceinline__ void grid_sync(const Params& p, int& n) {
   w8s::consumers_sync();
-  if (threadIdx.x == 0) {
+  if (w8s::thread0()) {
     const unsigned target = static_cast<unsigned>(n + 1) * gridDim.x;
     unsigned count;
     __threadfence();
@@ -840,28 +740,51 @@ static __device__ __forceinline__ void grid_sync(const Params& p, int& n) {
       asm volatile("ld.acquire.gpu.u32 %0, [%1];\n" : "=r"(count) : "l"(p.sync) : "memory");
     }
     __threadfence();
+    stamp(p, n);
   }
+  ++n;
   w8s::consumers_sync();
-  stamp(p, n);
+}
+
+// One GEMM phase of layer l on the consumers: x (B, K) @ w[l] (K, N) into
+// the workspace, from the stages the producers fill (W4A16: G rows a scale
+// group, its totals in `crews`, which no phase uses across a barrier).
+template <int kMode>
+static __device__ __forceinline__ void gemm_phase(const Params& p, int l, int ph, int N, int G,
+                                                  const CrewSmem* crews,
+                                                  const w8s::Ring<kMode>& ring, uint32_t& it) {
+  w8s::open_phase(ring, 4 * l + ph);
+  if constexpr (kMode == W8A16) {
+    w8s::consume_w8(p.plan[ph], p.ws, p.B, N, ring, it);
+  } else if constexpr (kMode == W4A16) {
+    w8s::consume_w4(p.plan[ph], p.ws, p.B, N, G, w8s::smem_u32(crews), ring, it);
+  } else {
+    w8s::consume_a8(p.plan[ph], reinterpret_cast<int*>(p.ws), p.B, N, ring, it);
+  }
 }
 
 // The ring (1024-byte aligned), then the two crews' shared memory, then the
 // attention order.
-constexpr size_t RING_SPAN = (w8s::RING_BYTES + 127) / 128 * 128;
+constexpr size_t RING_SPAN =
+    (cmax(cmax(w8s::Geo<W8A16>::RING_BYTES, w8s::Geo<W4A16>::RING_BYTES),
+          w8s::Geo<W8A8>::RING_BYTES) + 127) / 128 * 128;
 constexpr size_t STREAM_SMEM =
     1024 + RING_SPAN + 2 * sizeof(CrewSmem) + MAX_ORDER * sizeof(short);
 static_assert(STREAM_SMEM <= 232448, "over the H100's 227 KB a block");
+static_assert(2 * sizeof(CrewSmem) >= w8s::CONSUMERS / 32 * w8s::TOT_WARP,
+              "W4A16's totals fit in the crews' shared memory");
 
-template <bool kPaged>
+template <int kMode, bool kPaged>
 __global__ void __launch_bounds__(w8s::THREADS, 1)
 fused_decode_stream_kernel(const Params p, const __grid_constant__ Maps maps) {
+  static_assert(!kPaged || kMode == W8A16, "K8 is W8A16, as the reference");
   extern __shared__ unsigned char dsmem[];
   const uint32_t raw = w8s::smem_u32(dsmem);
   const uint32_t base = (raw + 1023) & ~1023u;
-  const w8s::Ring ring{base};
+  const w8s::Ring<kMode> ring{base};
   CrewSmem* crews = reinterpret_cast<CrewSmem*>(dsmem + (base + RING_SPAN - raw));
   short* order = reinterpret_cast<short*>(crews + 2);
-  if (threadIdx.x == 0) w8s::ring_init(ring);
+  if (w8s::thread0()) w8s::ring_init(ring);
   __syncthreads();
 
   const int D = p.D, F = p.F, QH = p.HQ * p.HD;
@@ -871,12 +794,14 @@ fused_decode_stream_kernel(const Params p, const __grid_constant__ Maps maps) {
     // and every x chunk, each once its phase is open
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(w8s::PRODUCER_REGS));
     const int N[4] = {QO, D, 2 * F, D};
+    const int G[4] = {p.g_qkv, p.g_wo, p.g_gu, p.g_dn};
     uint32_t it = 0;
     if (threadIdx.x == w8s::CONSUMERS) {
       for (int l = 0; l < p.L; ++l)
 #pragma unroll
         for (int ph = 0; ph < 4; ++ph)
-          w8s::produce(p.plan[ph], &maps.w[ph], l, N[ph], ring, it);
+          w8s::produce(p.plan[ph], &maps.w[ph], &maps.s[ph], l,
+                       kMode == W4A16 ? N[ph] / 2 : N[ph], G[ph], ring, it);
     } else if (threadIdx.x == w8s::CONSUMERS + 32) {
       for (int l = 0; l < p.L; ++l)
 #pragma unroll
@@ -886,43 +811,42 @@ fused_decode_stream_kernel(const Params p, const __grid_constant__ Maps maps) {
     return;
   }
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(w8s::CONSUMER_REGS));
-  const int half = threadIdx.x / CREW;
-  const Crew c{static_cast<int>(blockIdx.x) * 2 + half, static_cast<int>(gridDim.x) * 2,
-               static_cast<int>(threadIdx.x) % CREW, 2 + half, CREW};
-  // the row phases: one request a block, all its consumers
-  const Crew rc{static_cast<int>(blockIdx.x), static_cast<int>(gridDim.x),
-                static_cast<int>(threadIdx.x), w8s::BAR_CONSUMERS, w8s::CONSUMERS};
-  CrewSmem& cs = crews[half];
+  // a half block's crew shared memory (crews[0] also the whole block's)
+  auto cs = [crews]() -> CrewSmem& { return crews[w8s::tid_x() / CREW]; };
   uint32_t it = 0;   // ring stages consumed
   int n = 0;         // barriers passed
   attention_order<kPaged>(p, order);   // read after the first grid barrier
-  rows_phase<W8A16>(p, rc, crews[0], nullptr, 0, 0, p.ln1, ASC_LN1, true);
+  rows_phase<kMode>(p, block_crew(), crews[0], nullptr, 0, 0, p.ln1, ASC_LN1, true);
   grid_sync(p, n);
   for (int l = 0; l < p.L; ++l) {
-    w8s::open_phase(ring, 4 * l + QKV);
-    w8s::consume(p.plan[QKV], p.ws, p.B, QO, ring, it);
+    gemm_phase(p, l, QKV, QO, p.g_qkv, crews, ring, it);
     grid_sync(p, n);
-    qkv_phase<W8A16>(p, c, cs, l);
+    qkv_phase<kMode>(p, half_crew(), cs(), l);
     grid_sync(p, n);
-    attention_phase<kPaged, true>(p, c, cs, l, order);
+    attention_phase<kPaged>(p, half_crew(), cs(), l, order);
     grid_sync(p, n);
-    w8s::open_phase(ring, 4 * l + WO);
-    w8s::consume(p.plan[WO], p.ws, p.B, D, ring, it);
-    new_kv_phase<kPaged>(p, c, l);
+    if constexpr (kMode == W8A8) {
+      attn_quant_phase(p, block_crew(), crews[0]);
+      grid_sync(p, n);
+    }
+    gemm_phase(p, l, WO, D, p.g_wo, crews, ring, it);
+    new_kv_phase<kPaged>(p, half_crew(), l);
     grid_sync(p, n);
-    rows_phase<W8A16>(p, rc, crews[0], p.swo + (size_t)l * D, WO, 0,
-                      p.ln2 + (size_t)l * D, 0, false);
+    rows_phase<kMode>(p, block_crew(), crews[0], p.swo + (size_t)l * D, WO, ASC_ATTN,
+                      p.ln2 + (size_t)l * D, ASC_LN2, false);
     grid_sync(p, n);
-    w8s::open_phase(ring, 4 * l + GU);
-    w8s::consume(p.plan[GU], p.ws, p.B, 2 * F, ring, it);
+    gemm_phase(p, l, GU, 2 * F, p.g_gu, crews, ring, it);
     grid_sync(p, n);
-    silu_phase<W8A16>(p, c, cs, l);
+    silu_phase<kMode>(p, l);
     grid_sync(p, n);
-    w8s::open_phase(ring, 4 * l + DN);
-    w8s::consume(p.plan[DN], p.ws, p.B, D, ring, it);
+    if constexpr (kMode == W8A8) {
+      silu_quant_phase(p);
+      grid_sync(p, n);
+    }
+    gemm_phase(p, l, DN, D, p.g_dn, crews, ring, it);
     grid_sync(p, n);
-    rows_phase<W8A16>(p, rc, crews[0], p.sdn + (size_t)l * D, DN, 0,
-                      l + 1 < p.L ? p.ln1 + (size_t)(l + 1) * D : nullptr, 0, false);
+    rows_phase<kMode>(p, block_crew(), crews[0], p.sdn + (size_t)l * D, DN, ASC_FF,
+                      l + 1 < p.L ? p.ln1 + (size_t)(l + 1) * D : nullptr, ASC_LN1, false);
     if (l + 1 < p.L || p.clock != nullptr) grid_sync(p, n);
   }
 }
@@ -932,64 +856,65 @@ fused_decode_stream_kernel(const Params p, const __grid_constant__ Maps maps) {
 // The kernel instances: 0-2 K4 in the modes W8A16, W4A16, W8A8; 3 K8.
 constexpr int K8 = 3;
 
-static bool streams(int instance) { return instance == W8A16 || instance == K8; }
-
 static const void* kernel_of(int instance) {
   switch (instance) {
-    case W8A16: return reinterpret_cast<const void*>(&fused_decode_stream_kernel<false>);
-    case W4A16: return reinterpret_cast<const void*>(&fused_decode_kernel<W4A16>);
-    case W8A8: return reinterpret_cast<const void*>(&fused_decode_kernel<W8A8>);
-    case K8: return reinterpret_cast<const void*>(&fused_decode_stream_kernel<true>);
+    case W8A16: return reinterpret_cast<const void*>(&fused_decode_stream_kernel<W8A16, false>);
+    case W4A16: return reinterpret_cast<const void*>(&fused_decode_stream_kernel<W4A16, false>);
+    case W8A8: return reinterpret_cast<const void*>(&fused_decode_stream_kernel<W8A8, false>);
+    case K8: return reinterpret_cast<const void*>(&fused_decode_stream_kernel<W8A16, true>);
     default: return nullptr;
   }
 }
 
-static cudaError_t prepare(int instance, int* threads, int* smem) {
-  *threads = streams(instance) ? w8s::THREADS : THREADS;
-  *smem = streams(instance) ? static_cast<int>(STREAM_SMEM) : 0;
-  if (!streams(instance)) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel_of(instance),
-                              cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
+static cudaError_t prepare(int instance) {
+  return cudaFuncSetAttribute(kernel_of(instance), cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(STREAM_SMEM));
 }
 
-// plan: four GEMM phases x {k-splits (W8A16: the most partials of a
-// column), tiles, blocks, k-tiles a slab, slabs}
+// plan: four GEMM phases x {the most partials of a column, tiles, blocks,
+// k-tiles a slab, slabs}
 static void set_plan(Params& p, const int* plan) {
   for (int ph = 0; ph < 4; ++ph) {
     const int* q = plan + 5 * ph;
-    p.split[ph] = q[0];
     p.plan[ph] = w8s::Plan{q[1], q[2], q[3], q[4], q[0]};
   }
 }
 
-static int launch(Params& p, int instance, int grid, void* stream) {
+// The tensor maps of `mode`: weights (L, K, N) int8 or (L, K, N/2) packed,
+// activations bf16 or, W8A8, the int8 rows of a8; W4A16 its group scales,
+// as many rows a box as a stage holds groups.
+static bool encode_maps(Maps& maps, const Params& p, int mode) {
+  const int QH = p.HQ * p.HD, QO = QH + 2 * p.HKV * p.HD;
+  const void* w[4] = {p.wqkv, p.wo, p.wgu, p.wdn};
+  const float* s[4] = {p.sqkv, p.swo, p.sgu, p.sdn};
+  const void* x[4] = {p.h, p.attn, p.h, p.ff};
+  const int K[4] = {p.D, QH, p.D, p.F}, N[4] = {QO, p.D, 2 * p.F, p.D};
+  const int G[4] = {p.g_qkv, p.g_wo, p.g_gu, p.g_dn};
+  for (int ph = 0; ph < 4; ++ph) {
+    const bool a8 = mode == W8A8, w4 = mode == W4A16;
+    if (!w8s::encode_weights(&maps.w[ph], w[ph], p.L, K[ph], w4 ? N[ph] / 2 : N[ph]) ||
+        !w8s::encode_x(&maps.x[ph], a8 ? p.a8 : x[ph], p.B, K[ph],
+                       a8 ? row_pitch(K[ph]) : 2 * K[ph], a8))
+      return false;
+    if (w4 && !w8s::encode_scales(&maps.s[ph], s[ph], p.L, K[ph] / G[ph], N[ph],
+                                  G[ph] < w8s::KT ? w8s::KT / G[ph] : 1))
+      return false;
+  }
+  return true;
+}
+
+static int launch(Params& p, int instance, int mode, int grid, void* stream) {
   if (kernel_of(instance) == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  int threads = 0, smem = 0;
-  cudaError_t err = prepare(instance, &threads, &smem);
+  cudaError_t err = prepare(instance);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (streams(instance)) {
-    const int QH = p.HQ * p.HD, QO = QH + 2 * p.HKV * p.HD;
-    Maps maps;
-    if (!w8s::encode_weights(&maps.w[QKV], p.wqkv, p.L, p.D, QO) ||
-        !w8s::encode_weights(&maps.w[WO], p.wo, p.L, QH, p.D) ||
-        !w8s::encode_weights(&maps.w[GU], p.wgu, p.L, p.D, 2 * p.F) ||
-        !w8s::encode_weights(&maps.w[DN], p.wdn, p.L, p.F, p.D) ||
-        !w8s::encode_x(&maps.x[QKV], p.h, p.B, p.D) ||
-        !w8s::encode_x(&maps.x[WO], p.attn, p.B, QH) ||
-        !w8s::encode_x(&maps.x[GU], p.h, p.B, p.D) ||
-        !w8s::encode_x(&maps.x[DN], p.ff, p.B, p.F))
-      return static_cast<int>(cudaErrorInvalidValue);
-    err = cudaMemsetAsync(p.sync, 0, 2 * sizeof(unsigned), st);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    void* args[] = {&p, &maps};
-    err = cudaLaunchCooperativeKernel(kernel_of(instance), dim3(grid), dim3(threads), args,
-                                      smem, st);
-  } else {
-    void* args[] = {&p};
-    err = cudaLaunchCooperativeKernel(kernel_of(instance), dim3(grid), dim3(threads), args,
-                                      smem, st);
-  }
+  Maps maps;
+  if (!encode_maps(maps, p, mode)) return static_cast<int>(cudaErrorInvalidValue);
+  err = cudaMemsetAsync(p.sync, 0, 2 * sizeof(unsigned), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  void* args[] = {&p, &maps};
+  err = cudaLaunchCooperativeKernel(kernel_of(instance), dim3(grid), dim3(w8s::THREADS), args,
+                                    STREAM_SMEM, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1039,16 +964,16 @@ static void set_common(Params& p, const void* x0, const void* ln1, const void* l
 // dynamic shared memory (a cooperative launch needs the whole grid
 // resident). Returns cudaSuccess or the error; an occupancy of zero is one.
 extern "C" int pli_fused_decode_grid(int instance, int* grid) {
-  int dev = 0, sms = 0, per_sm = 0, threads = 0, smem = 0;
+  int dev = 0, sms = 0, per_sm = 0;
   *grid = 0;
   if (kernel_of(instance) == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) err = prepare(instance, &threads, &smem);
+  if (err == cudaSuccess) err = prepare(instance);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel_of(instance),
-                                                        threads, smem);
+                                                        w8s::THREADS, STREAM_SMEM);
   if (err == cudaSuccess && per_sm < 1) err = cudaErrorCooperativeLaunchTooLarge;
   *grid = sms * per_sm;
   return static_cast<int>(err);
@@ -1057,14 +982,14 @@ extern "C" int pli_fused_decode_grid(int instance, int* grid) {
 // K4 in `mode` (W8A16, W4A16 or W8A8). Every pointer is contiguous on one
 // device in the layouts of Params; the int8 cache rows and weight rows are
 // 16-byte aligned, HD % 16 == 0, HD <= 128, HQ / HKV <= 8, D % 16 == 0,
-// F % 8 == 0 (W4A16: N/2 % 16 == 0) (checked by the Python wrapper). plan
-// (host memory) holds, for each GEMM phase, {k-splits, tiles, blocks,
-// k-tiles a slab, slabs}: W4A16 and W8A8 read the splits (W4A16: each
-// covers whole groups of g_* rows), W8A16 the rest and, in place of the
-// splits, the most partials of a column; ws holds the largest
-// phase's partials; sync two unsigned (W8A16). W8A8: a8 holds B * max(D,
-// HQ*HD, F) bytes, asc 4 * B floats. clock: null, or 1 + L * phases stamps.
-// `grid` comes from pli_fused_decode_grid(mode). Returns the launch's error.
+// F % 8 == 0 (W4A16: N/2 % 16 == 0 and group sizes g_* % 16 == 0) (checked
+// by the Python wrapper). plan (host memory) holds, for each GEMM phase,
+// {the most partials of a column, tiles, blocks, k-tiles a slab, slabs}
+// (kernels/fused_decode._plan; W4A16 over the packed bytes); ws holds the
+// largest phase's partials; sync two unsigned. W8A8: a8 holds B rows of
+// row_pitch(max(D, HQ*HD, F)) bytes, asc 5 * B floats, ffs B * F floats.
+// clock: null, or 1 + L * phases stamps. `grid` comes from
+// pli_fused_decode_grid(mode). Returns the launch's error.
 extern "C" int pli_fused_decode_step(
     const void* x0, const void* ln1, const void* ln2, const void* wqkv,
     const void* sqkv, const void* wo, const void* swo, const void* wgu,
@@ -1072,7 +997,7 @@ extern "C" int pli_fused_decode_step(
     void* vq, void* vs, const void* cos, const void* sin, const void* q_slot,
     const void* valid_from, void* k_new, void* ks_new, void* v_new,
     void* vs_new, void* x_out, void* xf, void* h, void* qbuf, void* attn,
-    void* ff, void* ws, void* a8, void* asc, void* sync, void* clock,
+    void* ff, void* ws, void* a8, void* asc, void* ffs, void* sync, void* clock,
     const int* plan, int L, int B, int S, int D, int F, int HQ, int HKV, int HD,
     int slot, int write_cache, int mode, int g_qkv, int g_wo, int g_gu,
     int g_dn, float eps, float scale, int grid, void* stream) {
@@ -1084,6 +1009,7 @@ extern "C" int pli_fused_decode_step(
              clock, plan);
   p.a8 = static_cast<int8_t*>(a8);
   p.asc = static_cast<float*>(asc);
+  p.ffs = static_cast<float*>(ffs);
   p.g_qkv = g_qkv; p.g_wo = g_wo; p.g_gu = g_gu; p.g_dn = g_dn;
   p.kq = static_cast<int8_t*>(kq);
   p.ks = static_cast<float*>(ks);
@@ -1097,7 +1023,7 @@ extern "C" int pli_fused_decode_step(
   p.NB = 0; p.MB = 0; p.BS = 0;
   p.slot = slot; p.write_cache = write_cache;
   p.eps = eps; p.scale = scale;
-  return launch(p, mode, grid, stream);
+  return launch(p, mode, mode, grid, stream);
 }
 
 // K8. As K4 W8A16, with the merged pools kv (L, NB, 2, BS, HKV*HD) int8 and
@@ -1120,6 +1046,7 @@ extern "C" int pli_fused_paged_decode_step(
              clock, plan);
   p.a8 = nullptr;
   p.asc = nullptr;
+  p.ffs = nullptr;
   p.g_qkv = p.g_wo = p.g_gu = p.g_dn = 0;
   p.kq = static_cast<int8_t*>(kv);
   p.ks = static_cast<float*>(kvs);
@@ -1133,5 +1060,5 @@ extern "C" int pli_fused_paged_decode_step(
   p.NB = NB; p.MB = MB; p.BS = BS;
   p.slot = -1; p.write_cache = inplace;
   p.eps = eps; p.scale = scale;
-  return launch(p, K8, grid, stream);
+  return launch(p, K8, W8A16, grid, stream);
 }

@@ -1,53 +1,75 @@
-// The streaming W8A16 GEMM phases of the fused decode kernel (K4 W8A16, K8):
-// ws[j, m, n] = a partial sum over k of x[m, k] * w[l, k, n] for x (M, K)
-// bf16 and w (L, K, N) int8, unscaled.
+// The streaming GEMM phases of the fused decode kernel (K4 in its three
+// modes, K8): ws[j, m, n] = a partial sum over k of x[m, k] * w[l, k, n].
+//  - W8A16 (K4's default, K8): x (M, K) bf16, w (L, K, N) int8, f32
+//    partials, unscaled;
+//  - W4A16: x bf16, w the nibble-packed (L, K, N/2) bytes (models/quant:
+//    byte j of a row holds column j in its low nibble and N/2 + j in its
+//    high one, both two's complement), the (L, K/G, N) group scales applied
+//    inside: f32 partials of sum over groups of s[g, n] * (x_g @ w_g);
+//  - W8A8: x the (M, K) int8 activation rows (row pitch a multiple of 16
+//    bytes), w (L, K, N) int8, exact int32 partials.
 //
-// Bound on the H100: the int8 weight bytes (at M = 64 each feeds 128
-// operations, far below the ~295 flop/byte bf16 ridge), 177 MB a layer at the
-// 7B widths. The design keeps enough of them in flight, across the grid
-// barriers of the fused kernel too, and touches each of them once:
+// Bound on the H100: the weight bytes (at M = 64 each int8 byte feeds 128
+// operations, each packed INT4 byte 256, far below the ~295 flop/byte bf16
+// and ~590 op/byte int8 ridges), 177 MB a layer at the 7B widths (INT4: 89
+// MB). The design keeps enough of them in flight, across the grid barriers
+// of the fused kernel too, and touches each of them once:
 //  - The plan. Each GEMM phase is a flat list of (m-block, slab, k-tile)
-//    units: 64 rows, SLAB = 256 columns, KT = 64 rows of K. Block b of G
-//    takes units [b*T/G, (b+1)*T/G) (stream-K), so shares differ by at most
-//    one k-tile and no phase runs a second partial wave. A block's run of
-//    k-tiles within one slab is one partial, written to ws[j] with j = b
-//    minus the first block of that slab; the consuming phase sums j = 0,
-//    1, ... in order (`partials`), so the step stays deterministic. The
-//    plan depends only on shapes and the grid: kernels/fused_decode.py
+//    units: 64 rows, a slab of weight bytes (SLAB: 256 int8 columns, or 128
+//    packed INT4 bytes, which are 256 output columns), KT = 64 rows of K.
+//    Block b of G takes units [b*T/G, (b+1)*T/G) (stream-K), so shares
+//    differ by at most one k-tile and no phase runs a second partial wave. A
+//    block's run of k-tiles within one slab is one partial, written to ws[j]
+//    with j = b minus the first block of that slab; the consuming phase sums
+//    j = 0, 1, ... in order (`partials`), so the step stays deterministic.
+//    The plan depends only on shapes and the grid: kernels/fused_decode.py
 //    `_plan` computes the same ranges, sizes the workspace for its most
 //    partials of a column and passes that bound in; a block whose partial
 //    index reaches it (the two copies of the split apart) traps.
 //  - The stream. A producer thread (in a warpgroup of its own) walks the
 //    block's units of every GEMM phase of every layer and issues each weight
-//    tile (KT x SLAB int8, two 128-column boxes of a 3-D tensor map over
-//    (L, K, N), 128-byte swizzled, zero-filled past K and N) with TMA into a
-//    ring of STAGES stages, each with a full and an empty mbarrier. It waits
-//    only for a free stage, never on a grid barrier: weights do not depend
-//    on activations, so the next phase's and the next layer's first tiles
-//    land while the row, RoPE and attention phases run. Weights stay in
-//    their (L, K, N) layout; no copy is made.
+//    tile (KT rows x SLAB bytes, 128-byte boxes of a 3-D tensor map over (L,
+//    K, row bytes), 128-byte swizzled, zero-filled past K and N) with TMA into
+//    a ring of stages, each with a full and an empty mbarrier. It waits only
+//    for a free stage, never on a grid barrier: weights do not depend on
+//    activations, so the next phase's and the next layer's first tiles land
+//    while the row, RoPE and attention phases run. Weights stay in their
+//    layout; no copy is made.
 //  - Activations. A second producer thread puts the unit's x chunk (64 rows x
-//    KT, bf16, 128-byte swizzled, zero-filled past M and K) into the same
-//    stage with TMA, once a phase's activations exist: the consumers open
-//    each GEMM phase after its grid barrier (`open_phase`), and the x
-//    producer fences the async proxy before it reads what other blocks
-//    wrote. A chunk feeds all 256 columns: 0.5 activation bytes a weight
-//    byte. The consumers do no copies and meet at no barrier inside a
-//    phase: loading x themselves (cp.async) with a consumer barrier a stage
-//    held the stream well below what the same loop ran at without them.
-//  - The math. Eight consumer warps, each all 64 rows x 32 columns of the
-//    slab: mma.sync m16n8k16 (bf16, f32 accumulators in registers). A lane
-//    reads four 32-bit words of its stage (rows 2t, 2t+1, 2t+8, 2t+9 of a
-//    k16 step, columns 4g..4g+3; conflict-free under the swizzle) and
-//    makes the B fragments of four n8 tiles from them in registers: each
-//    byte is moved into an f32 2^23 + 128 + q with prmt, the bias is
-//    subtracted (exact), and two upper halves are packed to bf16x2 with
-//    prmt; n8 tile j holds columns 4g + j, so a lane ends with columns
-//    8t..8t+7 of rows g and g + 8 and writes them as two float4. A-
-//    fragments come from the x chunk with ldmatrix. The route is mma.sync;
-//    wgmma was not built: this loop streams the gate/up phase at ~1.95
-//    TB/s on an H100 SXM at 700 W (chip_smoke.py's phase clock), and what
-//    the clock shows left is in the short phases and the barriers.
+//    KT; bf16 128-byte swizzled, int8 64-byte swizzled; zero-filled past M
+//    and K) into the same stage with TMA, once a phase's activations exist:
+//    the consumers open each GEMM phase after its grid barrier
+//    (`open_phase`), and the x producer fences the async proxy before it
+//    reads what other blocks wrote. The consumers do no copies and meet at
+//    no barrier inside a phase: loading x themselves (cp.async) with a
+//    consumer barrier a stage held the stream well below what the same loop
+//    ran at without them.
+//  - The math. Eight consumer warps, each all 64 rows of its slice of the
+//    slab, on mma.sync with the accumulators in registers; A-fragments come
+//    from the x chunk with ldmatrix, B-fragments are made in registers from
+//    32-bit words of the stage (conflict-free under the swizzle but for
+//    W8A8's, which reads rows 8 apart):
+//    W8A16: m16n8k16 bf16, 32 columns a warp; each byte becomes an f32
+//      2^23 + 128 + q with prmt, the bias is subtracted (exact), and two
+//      upper halves are packed to bf16x2;
+//    W4A16: m16n8k16 bf16, 16 packed bytes (32 output columns) a warp; a
+//      nibble pair of two k-rows is masked into the mantissa of bf16 128
+//      with its sign bit flipped (offset binary; one lop3) and 136
+//      subtracted in bf16x2 (exact). Each scale group is summed in f32 on
+//      its own and added, times its scale row (TMA'd with the tile), to the
+//      run's total at the group's end and at the run's end, in K order, as
+//      the TPU kernel's `acc += (x_g @ q_g) * s_g`; the total waits in
+//      shared memory. A warp's slice is half as wide: the group's sum has
+//      the registers a W8A16 warp's accumulators have;
+//    W8A8: m16n8k32 s8 with int32 accumulators, 32 columns a warp; four
+//      k-rows' words are transposed (prmt) into four columns' k-quads.
+//    In every mode n8 tile j holds columns 4g + j of the warp's slice (W4A16:
+//    the packed bytes 2g + j % 2, nibble j / 2), so a lane ends with 8
+//    neighbouring columns of rows g and g + 8 (W4A16: 4 low and 4 high).
+//    The route is mma.sync; wgmma was not built: this loop streams W8A16's
+//    gate/up phase at ~1.95 TB/s on an H100 SXM at 700 W (chip_smoke.py's
+//    phase clock), and 8-bit wgmma takes only a K-major B, which the (K, N)
+//    weights are not.
 //  - Registers. The block is three warpgroups: the producers' gives its
 //    registers up (setmaxnreg) and the two consumer warpgroups take them,
 //    232 a thread, so the fused kernel's other phases do not spill.
@@ -58,24 +80,45 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "int8_kv_attention.cuh"   // byte_f32
 
 namespace w8s {
 
+// The K4 modes (kernels/fused_decode.py numbers them alike).
+constexpr int W8A16 = 0, W4A16 = 1, W8A8 = 2;
+
 constexpr int KT = 64;                 // k rows a stage
-constexpr int SLAB = 256;              // columns a unit
-constexpr int BOX = 128;               // columns a TMA box: the 128-byte swizzle span
+constexpr int BOX = 128;               // weight bytes of a row a TMA box: the swizzle span
 constexpr int MT = 64;                 // rows (requests) a unit
-constexpr int STAGES = 5;              // 80 KB of weights in flight a block
-constexpr int W_BYTES = KT * SLAB;     // a stage: the weight tile, then
-constexpr int X_BYTES = MT * KT * 2;   // the x chunk (64 rows of 128 bytes)
-constexpr int STAGE_BYTES = W_BYTES + X_BYTES;
 constexpr int CONSUMERS = 256;         // 8 consumer warps: warpgroups 0-1
 constexpr int THREADS = CONSUMERS + 128; // + the producer's warpgroup
 // Registers a thread after setmaxnreg: the consumers take what the producer
 // gives up (2 x 128 x 232 + 128 x 40 <= 65,536).
 constexpr int CONSUMER_REGS = 232, PRODUCER_REGS = 40;
 constexpr int BAR_CONSUMERS = 1;       // named barrier of the 256 consumers
+constexpr int RING_DATA = 5 * 24576;   // 120 KB of stages, every mode
+
+// A mode's stage: the weight tile (KT rows x SLAB bytes), then the x chunk
+// (MT rows x KT values), then (W4A16) the group scales of the tile's rows:
+// up to SROWS rows of the slab's 128 low-half columns, then as many of its
+// high-half columns; as many stages as RING_DATA holds (W8A16 5, W4A16 6,
+// W8A8 6): 48-96 KB of weights in flight a block.
+constexpr int SROWS = KT / 16;         // W4A16: groups a stage at most (G >= 16)
+template <int kMode>
+struct Geo {
+  static constexpr int SLAB = kMode == W4A16 ? BOX : 2 * BOX;
+  static constexpr int BOXES = SLAB / BOX;
+  static constexpr int W_BYTES = KT * SLAB;
+  static constexpr int X_BYTES = MT * KT * (kMode == W8A8 ? 1 : 2);
+  static constexpr int S_HALF = SROWS * BOX * 4;   // a half's scale rows
+  static constexpr int S_BYTES = kMode == W4A16 ? 2 * S_HALF : 0;
+  static constexpr int STAGE_BYTES = W_BYTES + X_BYTES + S_BYTES;
+  static constexpr int STAGES = RING_DATA / STAGE_BYTES;
+  // the stages, a full and an empty mbarrier each, the opened count
+  static constexpr int RING_BYTES = STAGES * STAGE_BYTES + 16 * STAGES + 16;
+};
 
 // One GEMM phase's plan (kernels/fused_decode.py `_plan`).
 struct Plan {
@@ -86,20 +129,37 @@ struct Plan {
   int most;     // the most partials of a column: the workspace's bound
 };
 
-// The first unit of block b.
+// The first unit of block b (tiles * blocks < 2^32: `_plan` checks it, so
+// 32-bit unsigned arithmetic holds; a 64-bit division is a subroutine whose
+// registers the GEMM loops' neighbours spilled for).
 static __device__ __forceinline__ int first_tile(const Plan& pl, int b) {
-  return static_cast<int>((long long)b * pl.tiles / pl.blocks);
+  return static_cast<int>(static_cast<unsigned>(b) * pl.tiles / pl.blocks);
 }
 
 // The block that takes unit t.
 static __device__ __forceinline__ int owner(const Plan& pl, int t) {
-  return static_cast<int>(((long long)(t + 1) * pl.blocks - 1) / pl.tiles);
+  return static_cast<int>((static_cast<unsigned>(t + 1) * pl.blocks - 1) / pl.tiles);
 }
 
-// The partials of output (m, n): one from each block that took a part of
-// its slab, j = 0, 1, ... in block order.
-static __device__ __forceinline__ int partials(const Plan& pl, int m, int n) {
-  const int u = (m / MT) * pl.slabs + n / SLAB;
+// threadIdx.x read anew at each use: what the compiler derives from it once
+// for the whole launch (a predicate, a lane's addresses) stays live across
+// every phase, and the GEMM loops, which take every register they may, made
+// it spill.
+static __device__ __forceinline__ int tid_x() {
+  unsigned t;
+  asm volatile("mov.u32 %0, %%tid.x;\n" : "=r"(t));
+  return static_cast<int>(t);
+}
+
+static __device__ __forceinline__ bool thread0() { return tid_x() == 0; }
+
+// The partials of output (m, n) of an N-column phase: one from each block
+// that took a part of its slab, j = 0, 1, ... in block order. W4A16: the
+// slab of its packed byte, n mod N/2.
+template <int kMode>
+static __device__ __forceinline__ int partials(const Plan& pl, int m, int n, int N) {
+  const int col = kMode == W4A16 ? n % (N / 2) : n;
+  const int u = (m / MT) * pl.slabs + col / Geo<kMode>::SLAB;
   return owner(pl, (u + 1) * pl.ktn - 1) - owner(pl, u * pl.ktn) + 1;
 }
 
@@ -177,30 +237,33 @@ static __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorM
       : "memory");
 }
 
-// The ring: STAGES stages (1024-byte aligned: the swizzle needs it), each a
-// weight tile and an x chunk, then a full and an empty mbarrier a stage,
-// then the count of GEMM phases the consumers have opened.
+// The ring of a mode: its stages (1024-byte aligned: the swizzle needs it),
+// each a weight tile and an x chunk, then a full and an empty mbarrier a
+// stage, then the count of GEMM phases the consumers have opened.
+template <int kMode>
 struct Ring {
+  using G = Geo<kMode>;
   uint32_t base;
-  __device__ __forceinline__ uint32_t stage(int s) const { return base + s * STAGE_BYTES; }
-  __device__ __forceinline__ uint32_t xchunk(int s) const { return stage(s) + W_BYTES; }
+  __device__ __forceinline__ uint32_t stage(int s) const { return base + s * G::STAGE_BYTES; }
+  __device__ __forceinline__ uint32_t xchunk(int s) const { return stage(s) + G::W_BYTES; }
+  __device__ __forceinline__ uint32_t scales(int s) const { return xchunk(s) + G::X_BYTES; }
   __device__ __forceinline__ uint32_t opened() const {
-    return base + STAGES * STAGE_BYTES + 16 * STAGES;
+    return base + G::STAGES * G::STAGE_BYTES + 16 * G::STAGES;
   }
   __device__ __forceinline__ uint32_t full(int s) const {
-    return base + STAGES * STAGE_BYTES + 8 * s;
+    return base + G::STAGES * G::STAGE_BYTES + 8 * s;
   }
   __device__ __forceinline__ uint32_t empty(int s) const {
-    return base + STAGES * STAGE_BYTES + 8 * (STAGES + s);
+    return base + G::STAGES * G::STAGE_BYTES + 8 * (G::STAGES + s);
   }
 };
-constexpr int RING_BYTES = STAGES * STAGE_BYTES + 16 * STAGES + 16;
 
 // One thread: every stage's barriers (the full one counts the two
 // producers' arrivals plus the TMA bytes, the empty one an arrive of each
 // consumer warp), and no phase opened.
-static __device__ __forceinline__ void ring_init(const Ring& r) {
-  for (int s = 0; s < STAGES; ++s) {
+template <int kMode>
+static __device__ __forceinline__ void ring_init(const Ring<kMode>& r) {
+  for (int s = 0; s < Geo<kMode>::STAGES; ++s) {
     mbar_init(r.full(s), 2);
     mbar_init(r.empty(s), CONSUMERS / 32);
   }
@@ -209,21 +272,32 @@ static __device__ __forceinline__ void ring_init(const Ring& r) {
 }
 
 // The producer: issue this block's weight tiles of one GEMM phase of layer
-// `layer`, `it` counting the tiles issued so far.
+// `layer`, whose weight rows are NW bytes (W4A16: N/2), `it` counting the
+// tiles issued so far. W4A16: with each tile, the rows of its groups (G
+// rows a group; rows past K/G zero-filled) of the slab's columns of both
+// halves from `smap`, the (L, K/G, N) scales.
+template <int kMode>
 static __device__ __forceinline__ void produce(const Plan& pl, const CUtensorMap* map,
-                                               int layer, int N, const Ring& r,
-                                               uint32_t& it) {
+                                               const CUtensorMap* smap, int layer, int NW,
+                                               int G, const Ring<kMode>& r, uint32_t& it) {
+  using G_ = Geo<kMode>;
   if (static_cast<int>(blockIdx.x) >= pl.blocks) return;
   const int t1 = first_tile(pl, blockIdx.x + 1);
+  const int srows = kMode == W4A16 && G < KT ? KT / G : 1;
   for (int t = first_tile(pl, blockIdx.x); t < t1; ++t, ++it) {
-    const int s = it % STAGES;
-    mbar_wait(r.empty(s), ((it / STAGES) & 1) ^ 1);   // round 0 passes
-    const int n0 = ((t / pl.ktn) % pl.slabs) * SLAB, k0 = (t % pl.ktn) * KT;
-    // a box wholly past N is not loaded; its columns are never stored
-    const int boxes = N - n0 > BOX ? 2 : 1;
-    mbar_expect_tx(r.full(s), boxes * KT * BOX);   // a box past K counts whole
+    const int s = it % G_::STAGES;
+    mbar_wait(r.empty(s), ((it / G_::STAGES) & 1) ^ 1);   // round 0 passes
+    const int n0 = ((t / pl.ktn) % pl.slabs) * G_::SLAB, k0 = (t % pl.ktn) * KT;
+    // a box wholly past the row is not loaded; its columns are never stored
+    const int boxes = G_::BOXES == 2 && NW - n0 > BOX ? 2 : 1;
+    // a box past K (or K/G) counts whole
+    mbar_expect_tx(r.full(s), boxes * KT * BOX + (kMode == W4A16 ? 2 * srows * BOX * 4 : 0));
     for (int i = 0; i < boxes; ++i)
       tma_load_3d(r.stage(s) + i * KT * BOX, map, r.full(s), n0 + i * BOX, k0, layer);
+    if constexpr (kMode == W4A16) {
+      tma_load_3d(r.scales(s), smap, r.full(s), n0, k0 / G, layer);
+      tma_load_3d(r.scales(s) + G_::S_HALF, smap, r.full(s), NW + n0, k0 / G, layer);
+    }
   }
 }
 
@@ -231,8 +305,11 @@ static __device__ __forceinline__ void produce(const Plan& pl, const CUtensorMap
 // of the launch (its activations are written, by every block), then issue
 // the x chunk of each of this block's units of it. Every phase is waited
 // for, whether or not this block has units in it.
+template <int kMode>
 static __device__ __forceinline__ void produce_x(const Plan& pl, const CUtensorMap* map,
-                                                 int phase, const Ring& r, uint32_t& it) {
+                                                 int phase, const Ring<kMode>& r,
+                                                 uint32_t& it) {
+  using G = Geo<kMode>;
   unsigned long long since = 0;
   for (;;) {
     uint32_t opened;
@@ -247,9 +324,9 @@ static __device__ __forceinline__ void produce_x(const Plan& pl, const CUtensorM
   if (static_cast<int>(blockIdx.x) >= pl.blocks) return;
   const int t1 = first_tile(pl, blockIdx.x + 1);
   for (int t = first_tile(pl, blockIdx.x); t < t1; ++t, ++it) {
-    const int s = it % STAGES;
-    mbar_wait(r.empty(s), ((it / STAGES) & 1) ^ 1);
-    mbar_expect_tx(r.full(s), X_BYTES);   // rows past M count whole
+    const int s = it % G::STAGES;
+    mbar_wait(r.empty(s), ((it / G::STAGES) & 1) ^ 1);
+    mbar_expect_tx(r.full(s), G::X_BYTES);   // rows past M count whole
     tma_load_2d(r.xchunk(s), map, r.full(s), (t % pl.ktn) * KT,
                 (t / pl.ktn / pl.slabs) * MT);
   }
@@ -259,8 +336,9 @@ static __device__ __forceinline__ void produce_x(const Plan& pl, const CUtensorM
 
 // One consumer thread, after the grid barrier before GEMM phase `phase`:
 // its activations are in; the x producer may read them.
-static __device__ __forceinline__ void open_phase(const Ring& r, int phase) {
-  if (threadIdx.x == 0)
+template <int kMode>
+static __device__ __forceinline__ void open_phase(const Ring<kMode>& r, int phase) {
+  if (thread0())
     asm volatile("st.release.cta.shared.u32 [%0], %1;\n" ::"r"(r.opened()), "r"(phase + 1)
                  : "memory");
 }
@@ -273,6 +351,14 @@ static __device__ __forceinline__ uint32_t lds32(uint32_t addr) {
   uint32_t v;
   asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr));
   return v;
+}
+
+// ldmatrix x4: the A fragment of one m16 tile and 32-byte k step (bf16 k16,
+// int8 k32); lane l gives the address of row l % 16, 16-byte chunk l / 16
+static __device__ __forceinline__ void ldsm_x4(uint32_t (&a)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr));
 }
 
 // bf16x2 of two small integers held exactly in f32: their upper halves.
@@ -289,26 +375,121 @@ static __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+static __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
+                                              uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Walk this block's share of `pl` run by run: run(t, end, m0, slab, j) for
+// its units [t, end) of one slab, rows from m0, its partial j.
+template <class Run>
+static __device__ __forceinline__ void for_each_run(const Plan& pl, Run run) {
+  const int b = blockIdx.x;
+  if (b >= pl.blocks) return;
+  const int t1 = first_tile(pl, b + 1);
+  for (int t = first_tile(pl, b); t < t1;) {
+    const int u = t / pl.ktn, end = min(t1, (u + 1) * pl.ktn);
+    const int j = b - owner(pl, u * pl.ktn);
+    if (j >= pl.most) __trap();   // past the workspace: the plans disagree
+    run(t, end, (u / pl.slabs) * MT, u % pl.slabs, j);
+    t = end;
+  }
+}
+
+// Wait for stage `it`, run the lane's share of it, hand it back.
+template <int kMode, class Stage>
+static __device__ __forceinline__ void take_stage(const Ring<kMode>& r, uint32_t it,
+                                                  Stage stage) {
+  const int s = it % Geo<kMode>::STAGES;
+  mbar_wait(r.full(s), (it / Geo<kMode>::STAGES) & 1);
+  stage(r.stage(s), r.xchunk(s));
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(r.empty(s));
+}
+
+// The m16 tiles live in a run of M rows from m0, as a template parameter: a
+// run-time row guard inside the unrolled ldmatrix/mma loops kept them from
+// being scheduled together and halved the stream.
+template <class Body>
+static __device__ __forceinline__ void with_live_tiles(int rows, Body body) {
+  switch (min(4, (rows + 15) / 16)) {
+    case 1: body(std::integral_constant<int, 1>()); break;
+    case 2: body(std::integral_constant<int, 2>()); break;
+    case 3: body(std::integral_constant<int, 3>()); break;
+    default: body(std::integral_constant<int, 4>()); break;
+  }
+}
+
+template <class T>
+static __device__ __forceinline__ void zero(T (&acc)[4][4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+}
+
+// Store a run's 8-bit-mode partial j: the lane's columns col..col+7 (n8
+// tile j' holds col + j' and col + 4 + j') of rows g and g + 8 of each m16
+// tile. N % 16 == 0, so a lane's 8 columns are in or out.
+template <class T, class T4>
+static __device__ __forceinline__ void store8(T* ws, const T (&acc)[4][4][4], int j, int M,
+                                              int N, int m0, int col) {
+  const int g = (threadIdx.x & 31) >> 2;
+  if (col >= N) return;
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + mt * 16 + g + 8 * h;
+      if (m < M) {
+        T4* dst = reinterpret_cast<T4*>(ws + ((size_t)j * M + m) * N + col);
+        dst[0] = T4{acc[mt][0][2 * h], acc[mt][1][2 * h], acc[mt][2][2 * h], acc[mt][3][2 * h]};
+        dst[1] = T4{acc[mt][0][2 * h + 1], acc[mt][1][2 * h + 1], acc[mt][2][2 * h + 1],
+                    acc[mt][3][2 * h + 1]};
+      }
+    }
+  }
+}
+
+// The lane's weight words in an 8-bit mode: box warp / 4, 16-byte chunk
+// 2 (warp % 4) + g / 4 of a 128-byte row, word g % 4 (columns 4 g..4 g + 3
+// of the warp's 32); a row's chunk is swizzled by its low three bits.
+struct Words8 {
+  uint32_t box;   // byte offset of the lane's word in a row's box
+  uint32_t chunk; // its chunk before the swizzle
+  __device__ __forceinline__ Words8() {
+    const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2;
+    box = (warp >> 2) * KT * BOX + (g & 3) * 4;
+    chunk = 2 * (warp & 3) + (g >> 2);
+  }
+  __device__ __forceinline__ uint32_t at(uint32_t w, int row) const {
+    return lds32(w + box + row * BOX + ((chunk ^ (row & 7)) << 4));
+  }
+};
+
+// ---- W8A16 -----------------------------------------------------------------
+
 // The lane's share of one stage: four k16 steps of its warp's 32 columns
-// against the first MT m16 tiles of the x chunk at xb. MT is a template
-// parameter: a run-time row guard inside these unrolled loops kept the
-// ldmatrix and mma from being scheduled together and halved the stream.
+// against the first MT_N m16 tiles of the x chunk at xb. A lane reads rows
+// 2t, 2t+1, 2t+8, 2t+9 of each k16 step (all (row % 8) distinct).
 template <int MT_N>
-static __device__ __forceinline__ void mma_stage(float (&acc)[4][4][4], uint32_t w0,
-                                                 uint32_t wchunk, uint32_t xb, int lane) {
-  const int tq = lane & 3;
-  // ldmatrix: lane l gives row l % 16, 16-byte chunk l / 16 of an m16k16
-  // tile; the chunk is swizzled by the row's low three bits
-  const uint32_t xrow = xb + (lane & 15) * 128;
+static __device__ __forceinline__ void mma_stage_w8(float (&acc)[4][4][4], const Words8& wl,
+                                                    uint32_t w, uint32_t xb) {
+  const int lane = threadIdx.x & 31, tq = lane & 3;
+  const uint32_t xrow = xb + (lane & 15) * 128;   // 128-byte rows, 128-byte swizzle
   const int xhi = lane >> 4, xsw = lane & 7;
 #pragma unroll
   for (int kk = 0; kk < KT / 16; ++kk) {
     uint32_t wd[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = kk * 16 + 2 * tq + (i & 1) + (i >> 1) * 8;
-      wd[i] = lds32(w0 + row * BOX + ((wchunk ^ (row & 7)) << 4)) ^ 0x80808080u;
-    }
+    for (int i = 0; i < 4; ++i)
+      wd[i] = wl.at(w, kk * 16 + 2 * tq + (i & 1) + (i >> 1) * 8) ^ 0x80808080u;
     uint32_t bf[4][2];   // n8 tile j: columns 4 g + j
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -318,86 +499,258 @@ static __device__ __forceinline__ void mma_stage(float (&acc)[4][4][4], uint32_t
 #pragma unroll
     for (int mt = 0; mt < MT_N; ++mt) {
       uint32_t a[4];
-      asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                   : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-                   : "r"(xrow + mt * 16 * 128 + (((2 * kk + xhi) ^ xsw) << 4)));
+      ldsm_x4(a, xrow + mt * 16 * 128 + (((2 * kk + xhi) ^ xsw) << 4));
 #pragma unroll
       for (int j = 0; j < 4; ++j) mma_bf16(acc[mt][j], a, bf[j][0], bf[j][1]);
     }
   }
 }
 
-// The consumers' walk of this block's units [t, end) of one slab, MT_N m16
-// tiles of rows live: wait for a stage, compute, hand it back.
+// W8A16: this block's units of `pl` (M rows, N columns) into the f32
+// partials ws (P, M, N). A warp past N computes on stale bytes and stores
+// nothing.
+static __device__ void consume_w8(const Plan& pl, float* ws, int M, int N,
+                                  const Ring<W8A16>& r, uint32_t& it) {
+  const int warp = threadIdx.x >> 5, tq = threadIdx.x & 3;
+  const Words8 wl;
+  for_each_run(pl, [&](int t, int end, int m0, int slab, int j) {
+    float acc[4][4][4];
+    zero(acc);
+    with_live_tiles(M - m0, [&](auto mt_n) {
+      for (; t < end; ++t, ++it)
+        take_stage(r, it, [&](uint32_t w, uint32_t xb) {
+          mma_stage_w8<decltype(mt_n)::value>(acc, wl, w, xb);
+        });
+    });
+    store8<float, float4>(ws, acc, j, M, N, m0, slab * Geo<W8A16>::SLAB + warp * 32 + 8 * tq);
+  });
+}
+
+// ---- W8A8 ------------------------------------------------------------------
+
+// Columns of four k-rows' words: out[j] holds byte j of in[0..3], k order.
+static __device__ __forceinline__ void transpose4(uint32_t (&out)[4], const uint32_t* in) {
+  const uint32_t t0 = __byte_perm(in[0], in[1], 0x5140), t1 = __byte_perm(in[0], in[1], 0x7362);
+  const uint32_t t2 = __byte_perm(in[2], in[3], 0x5140), t3 = __byte_perm(in[2], in[3], 0x7362);
+  out[0] = __byte_perm(t0, t2, 0x5410);
+  out[1] = __byte_perm(t0, t2, 0x7632);
+  out[2] = __byte_perm(t1, t3, 0x5410);
+  out[3] = __byte_perm(t1, t3, 0x7632);
+}
+
+// The lane's share of one stage: two k32 steps of its warp's 32 columns
+// against the first MT_N m16 tiles of the int8 x chunk (64-byte rows,
+// 64-byte swizzle: chunk c of row R at c ^ (R / 2 % 4)). A lane reads rows
+// 4t..4t+3 and 16+4t..16+4t+3 of each k32 step; rows 8 apart share a bank
+// (a 2-way conflict the layout leaves).
 template <int MT_N>
-static __device__ __forceinline__ void consume_run(float (&acc)[4][4][4], const Ring& r,
-                                                   int t, int end, uint32_t& it) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  // the lane's weight words: box warp / 4, 16-byte chunk 2 (warp % 4) + g / 4
-  // of a 128-byte row, word g % 4; rows 2 tq, 2 tq + 1, 2 tq + 8, 2 tq + 9 of
-  // each k16 step, all with (row % 8) = 2 tq (+ 1)
-  const uint32_t wbox = (warp >> 2) * KT * BOX + (g & 3) * 4;
-  const uint32_t wchunk = 2 * (warp & 3) + (g >> 2);
-  for (; t < end; ++t, ++it) {
-    const int s = it % STAGES;
-    mbar_wait(r.full(s), (it / STAGES) & 1);
-    mma_stage<MT_N>(acc, r.stage(s) + wbox, wchunk, r.xchunk(s), lane);
-    __syncwarp();
-    if (lane == 0) mbar_arrive(r.empty(s));
+static __device__ __forceinline__ void mma_stage_a8(int (&acc)[4][4][4], const Words8& wl,
+                                                    uint32_t w, uint32_t xb) {
+  const int lane = threadIdx.x & 31, tq = lane & 3;
+  const uint32_t xrow = xb + (lane & 15) * 64;
+  const int xhi = lane >> 4, xsw = ((lane & 15) >> 1) & 3;
+#pragma unroll
+  for (int kk = 0; kk < KT / 32; ++kk) {
+    uint32_t wd[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) wd[i] = wl.at(w, kk * 32 + (i >> 2) * 16 + 4 * tq + (i & 3));
+    uint32_t b0[4], b1[4];   // n8 tile j: columns 4 g + j
+    transpose4(b0, wd);
+    transpose4(b1, wd + 4);
+#pragma unroll
+    for (int mt = 0; mt < MT_N; ++mt) {
+      uint32_t a[4];
+      ldsm_x4(a, xrow + mt * 16 * 64 + (((2 * kk + xhi) ^ xsw) << 4));
+#pragma unroll
+      for (int j = 0; j < 4; ++j) mma_s8(acc[mt][j], a, b0[j], b1[j]);
+    }
   }
 }
 
-// One GEMM phase on the consumers (threadIdx.x < CONSUMERS): this block's
-// units of `pl` (M rows, N columns) against the stages the producers fill,
-// the partials into ws (P, M, N). `it` counts the ring's stages consumed so
-// far. A warp past N computes on stale bytes and stores nothing.
-static __device__ void consume(const Plan& pl, float* ws, int M, int N, const Ring& r,
-                               uint32_t& it) {
-  const int b = blockIdx.x;
-  if (b >= pl.blocks) return;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tq = lane & 3;
-  const int t0 = first_tile(pl, b), t1 = first_tile(pl, b + 1);
-  float acc[4][4][4];
-  for (int t = t0; t < t1;) {
-    // a run: this block's units of one slab, one partial
-    const int u = t / pl.ktn, end = min(t1, (u + 1) * pl.ktn);
-    const int m0 = (u / pl.slabs) * MT, n0 = (u % pl.slabs) * SLAB;
+// W8A8: this block's units of `pl` into the exact int32 partials ws.
+static __device__ void consume_a8(const Plan& pl, int* ws, int M, int N,
+                                  const Ring<W8A8>& r, uint32_t& it) {
+  const int warp = threadIdx.x >> 5, tq = threadIdx.x & 3;
+  const Words8 wl;
+  for_each_run(pl, [&](int t, int end, int m0, int slab, int j) {
+    int acc[4][4][4];
+    zero(acc);
+    with_live_tiles(M - m0, [&](auto mt_n) {
+      for (; t < end; ++t, ++it)
+        take_stage(r, it, [&](uint32_t w, uint32_t xb) {
+          mma_stage_a8<decltype(mt_n)::value>(acc, wl, w, xb);
+        });
+    });
+    store8<int, int4>(ws, acc, j, M, N, m0, slab * Geo<W8A8>::SLAB + warp * 32 + 8 * tq);
+  });
+}
+
+// ---- W4A16 -----------------------------------------------------------------
+
+// bf16x2 of the two nibbles at bits 0-3 and 16-19 of x (two's complement):
+// (x & 0x000F000F) ^ 0x43084308 puts each, offset by 8, in the mantissa of
+// bf16 128; 136 subtracted leaves it, exactly.
+static __device__ __forceinline__ uint32_t nibbles_bf16(uint32_t x) {
+  const uint32_t y = (x & 0x000F000Fu) ^ 0x43084308u;
+  uint32_t r;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(r) : "r"(y), "r"(0x3F803F80u), "r"(0xC308C308u));
+  return r;
+}
+
+static __device__ __forceinline__ float4 lds128(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr));
+  return v;
+}
+
+static __device__ __forceinline__ void sts128(uint32_t addr, float4 v) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "f"(v.x), "f"(v.y),
+               "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
+// W4A16 keeps a run's total in shared memory, not in registers beside the
+// group's sum: both sets (128 registers) left the rest of the kernel too few
+// and it spilled. A warp's total is TOT_WARP bytes, its lane's float4 of
+// n8 tile j of m16 tile mt at ((4 mt + j) * 32 + lane) * 16.
+constexpr int TOT_WARP = 16 * 32 * 16;
+
+// tot += grp * s, grp = 0, for s the scale row at `row` in the stage (the
+// lane's columns col..col+3 there, and S_HALF on those of the high half)
+// and tot the lane's total at `tot`. The product is rounded, then the sum,
+// as the TPU kernel's `acc += part * s`.
+template <int MT_N>
+static __device__ __forceinline__ void flush_group(float (&grp)[4][4][4], uint32_t row,
+                                                   uint32_t tot) {
+  const float4 l = lds128(row), h = lds128(row + Geo<W4A16>::S_HALF);
+  const float lo[4] = {l.x, l.y, l.z, l.w}, hi[4] = {h.x, h.y, h.z, h.w};
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int mt = 0; mt < MT_N; ++mt)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < 4; ++j) {
+      const uint32_t at = tot + (4 * mt + j) * 32 * 16;
+      const float4 t = lds128(at);
+      float v[4] = {t.x, t.y, t.z, t.w};
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-    switch (min(4, (M - m0 + 15) / 16)) {
-      case 1: consume_run<1>(acc, r, t, end, it); break;
-      case 2: consume_run<2>(acc, r, t, end, it); break;
-      case 3: consume_run<3>(acc, r, t, end, it); break;
-      default: consume_run<4>(acc, r, t, end, it); break;
+      for (int e = 0; e < 4; ++e) {
+        const float sc = j < 2 ? lo[2 * (e & 1) + (j & 1)] : hi[2 * (e & 1) + (j & 1)];
+        v[e] = __fadd_rn(v[e], __fmul_rn(grp[mt][j][e], sc));
+        grp[mt][j][e] = 0.f;
+      }
+      sts128(at, make_float4(v[0], v[1], v[2], v[3]));
     }
-    t = end;
-    // the run's partial j; N % 16 == 0, so a lane's 8 columns are in or out
-    const int j = b - owner(pl, u * pl.ktn);
-    if (j >= pl.most) __trap();   // past the workspace: the plans disagree
-    const int col = n0 + warp * 32 + 8 * tq;
-    if (col < N) {
+}
+
+// The lane's share of one stage: four k16 steps of its warp's 16 packed
+// bytes (chunk `warp` of the 128-byte box) against the first MT_N m16
+// tiles of the x chunk. A lane reads the word holding packed bytes 2g, 2g+1
+// of rows 2t, 2t+1, 2t+8, 2t+9 and keeps their half (`sel`). GS = G / 16
+// when a group is shorter than a stage (each ends inside it and is flushed
+// there, its scales at row kk / GS of `srow`, the lane's columns of the
+// stage's first scale row); else 4, and `last` says whether a group or the
+// run ends with this stage.
+template <int MT_N, int GS>
+static __device__ __forceinline__ void mma_stage_w4(float (&grp)[4][4][4], uint32_t w,
+                                                    uint32_t xb, uint32_t srow, bool last,
+                                                    int warp, int lane, uint32_t tot) {
+  const int tq = lane & 3, g = lane >> 2;
+  const uint32_t sel = g & 1 ? 0x7632u : 0x5410u;
+  const uint32_t wq = w + 4 * (g >> 1);
+  const uint32_t c0 = (warp ^ (2 * tq)) << 4, c1 = (warp ^ (2 * tq + 1)) << 4;
+  const uint32_t xrow = xb + (lane & 15) * 128;
+  const int xhi = lane >> 4, xsw = lane & 7;
 #pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
+  for (int kk = 0; kk < KT / 16; ++kk) {
+    const uint32_t r0 = wq + (kk * 16 + 2 * tq) * BOX;
+    const uint32_t u01 = __byte_perm(lds32(r0 + c0), lds32(r0 + BOX + c1), sel);
+    const uint32_t u89 = __byte_perm(lds32(r0 + 8 * BOX + c0), lds32(r0 + 9 * BOX + c1), sel);
+    // n8 tile j: packed byte 2 g + j % 2, low nibble (j < 2) or high
+    uint32_t bf[4][2];
+    bf[0][0] = nibbles_bf16(u01);
+    bf[1][0] = nibbles_bf16(u01 >> 8);
+    bf[2][0] = nibbles_bf16(u01 >> 4);
+    bf[3][0] = nibbles_bf16(u01 >> 12);
+    bf[0][1] = nibbles_bf16(u89);
+    bf[1][1] = nibbles_bf16(u89 >> 8);
+    bf[2][1] = nibbles_bf16(u89 >> 4);
+    bf[3][1] = nibbles_bf16(u89 >> 12);
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int m = m0 + mt * 16 + g + 8 * h;
-          if (m < M) {
-            float4* dst = reinterpret_cast<float4*>(ws + ((size_t)j * M + m) * N + col);
-            dst[0] = make_float4(acc[mt][0][2 * h], acc[mt][1][2 * h], acc[mt][2][2 * h],
-                                 acc[mt][3][2 * h]);
-            dst[1] = make_float4(acc[mt][0][2 * h + 1], acc[mt][1][2 * h + 1],
-                                 acc[mt][2][2 * h + 1], acc[mt][3][2 * h + 1]);
-          }
+    for (int mt = 0; mt < MT_N; ++mt) {
+      uint32_t a[4];
+      ldsm_x4(a, xrow + mt * 16 * 128 + (((2 * kk + xhi) ^ xsw) << 4));
+#pragma unroll
+      for (int j = 0; j < 4; ++j) mma_bf16(grp[mt][j], a, bf[j][0], bf[j][1]);
+    }
+    if constexpr (GS < 4) {
+      if ((kk + 1) % GS == 0) flush_group<MT_N>(grp, srow + (kk / GS) * BOX * 4, tot);
+    }
+  }
+  if constexpr (GS == 4) {
+    if (last) flush_group<MT_N>(grp, srow, tot);
+  }
+}
+
+// W4A16: this block's units of `pl` over the packed (K, N/2) bytes, with G
+// rows a scale group (G % 16 == 0), into the f32 partials ws (P, M, N): a
+// lane's packed columns col..col+3 give output columns col..col+3 and N/2 +
+// col..N/2 + col+3 (N/2 % 16 == 0, so they are in or out). `scratch`: the
+// consumer warps' totals, 8 TOT_WARP bytes of shared memory free during a
+// GEMM phase.
+static __device__ void consume_w4(const Plan& pl, float* ws, int M, int N, int G,
+                                  uint32_t scratch, const Ring<W4A16>& r, uint32_t& it) {
+  // the lane's constants made here, not once for the launch (tid_x)
+  const int tid = tid_x(), warp = tid >> 5, lane = tid & 31, tq = lane & 3;
+  const int NH = N / 2;
+  const uint32_t scol = (16 * warp + 4 * tq) * 4;   // the lane's scale columns
+  const uint32_t tot = scratch + warp * TOT_WARP + lane * 16;
+  for_each_run(pl, [&](int t, int end, int m0, int slab, int j) {
+    float grp[4][4][4];
+    zero(grp);
+#pragma unroll
+    for (int q = 0; q < 16; ++q) sts128(tot + q * 32 * 16, make_float4(0.f, 0.f, 0.f, 0.f));
+    with_live_tiles(M - m0, [&](auto mt_n) {
+      constexpr int MT_N = decltype(mt_n)::value;
+      auto run = [&](auto gsteps) {
+        constexpr int GS = decltype(gsteps)::value;
+        for (; t < end; ++t, ++it) {
+          // a group of whole stages ends with this one, or the run does
+          const bool last = ((t % pl.ktn) * KT + KT) % G == 0 || t + 1 == end;
+          take_stage(r, it, [&](uint32_t w, uint32_t xb) {
+            mma_stage_w4<MT_N, GS>(grp, w, xb,
+                                   w + Geo<W4A16>::W_BYTES + Geo<W4A16>::X_BYTES + scol,
+                                   last, warp, lane, tot);
+          });
+        }
+      };
+      if (G == 16) run(std::integral_constant<int, 1>());
+      else if (G == 32) run(std::integral_constant<int, 2>());
+      else run(std::integral_constant<int, 4>());
+    });
+    const int col = slab * Geo<W4A16>::SLAB + 16 * warp + 4 * tq;
+    if (col >= NH) return;
+    const int g = lane >> 2;
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt) {
+      float4 v[4];   // n8 tiles 0-3 (low, low, high, high) of rows g, g + 8
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) v[jj] = lds128(tot + (4 * mt + jj) * 32 * 16);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + mt * 16 + g + 8 * h;
+        if (m < M) {
+          float* dst = ws + ((size_t)j * M + m) * N + col;
+          *reinterpret_cast<float4*>(dst) =
+              h ? make_float4(v[0].z, v[1].z, v[0].w, v[1].w)
+                : make_float4(v[0].x, v[1].x, v[0].y, v[1].y);
+          *reinterpret_cast<float4*>(dst + NH) =
+              h ? make_float4(v[2].z, v[3].z, v[2].w, v[3].w)
+                : make_float4(v[2].x, v[3].x, v[2].y, v[3].y);
         }
       }
     }
-  }
+  });
 }
 
 // ---- host: the tensor maps -------------------------------------------------
@@ -429,15 +782,16 @@ static EncodeTiled encode_tiled() {
   return fn;
 }
 
-// w (L, K, N) int8, N % 16 == 0, 16-byte aligned: boxes of KT rows x BOX
-// columns of one layer, 128-byte swizzled, zero-filled past K and N.
-static bool encode_weights(CUtensorMap* map, const void* w, int L, int K, int N) {
+// w (L, K, NW) bytes (int8, or packed INT4 with NW = N/2), NW % 16 == 0,
+// 16-byte aligned: boxes of KT rows x BOX bytes of one layer, 128-byte
+// swizzled, zero-filled past K and NW.
+static bool encode_weights(CUtensorMap* map, const void* w, int L, int K, int NW) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(N), static_cast<cuuint64_t>(K),
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(NW), static_cast<cuuint64_t>(K),
                               static_cast<cuuint64_t>(L)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(N),
-                                 static_cast<cuuint64_t>(K) * N};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(NW),
+                                 static_cast<cuuint64_t>(K) * NW};
   const cuuint32_t box[3] = {BOX, KT, 1};
   const cuuint32_t estrides[3] = {1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(w), dims, strides, box,
@@ -446,17 +800,38 @@ static bool encode_weights(CUtensorMap* map, const void* w, int L, int K, int N)
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// x (M, K) bf16, K % 8 == 0, 16-byte aligned: chunks of MT rows x KT
-// columns (128 bytes), 128-byte swizzled, zero-filled past M and K.
-static bool encode_x(CUtensorMap* map, const void* x, int M, int K) {
+// s (L, K/G, N) f32 group scales, N % 4 == 0: boxes of BOX columns x
+// `rows` groups of one layer, zero-filled past K/G and N.
+static bool encode_scales(CUtensorMap* map, const float* s, int L, int groups, int N,
+                          int rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(N), static_cast<cuuint64_t>(groups),
+                              static_cast<cuuint64_t>(L)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(N) * 4,
+                                 static_cast<cuuint64_t>(groups) * N * 4};
+  const cuuint32_t box[3] = {BOX, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t estrides[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(s), dims, strides,
+            box, estrides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// x (M, K) rows `pitch` bytes apart (a multiple of 16), 16-byte aligned:
+// chunks of MT rows x KT values, zero-filled past M and K. bf16 (W8A16,
+// W4A16): 128-byte rows, 128-byte swizzle; `bytes`, int8 (W8A8): 64-byte
+// rows, 64-byte swizzle.
+static bool encode_x(CUtensorMap* map, const void* x, int M, int K, int pitch, bool bytes) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(M)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K) * 2};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(pitch)};
   const cuuint32_t box[2] = {KT, MT};
   const cuuint32_t estrides[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(x), dims, strides,
-            box, estrides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  return fn(map, bytes ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+            const_cast<void*>(x), dims, strides, box, estrides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            bytes ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

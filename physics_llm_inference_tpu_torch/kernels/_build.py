@@ -50,11 +50,11 @@ SIGNATURES = {
     "pli_fused_decode_grid": [_I, _P],
     # x0, ln1, ln2, wqkv, sqkv, wo, swo, wgu, sgu, wdn, sdn, k_q, k_s, v_q,
     # v_s, cos, sin, q_slot, valid_from, k_new, ks_new, v_new, vs_new, x_out,
-    # then the workspaces xf, h, qbuf, attn, ff, ws, a8, asc, the grid
+    # then the workspaces xf, h, qbuf, attn, ff, ws, a8, asc, ffs, the grid
     # barrier's counter, the phase clock (null: off), the plan (host: four
     # GEMM phases x 5 ints); L, B, S, D, F, Hq, Hkv, hd, slot, write_cache,
     # mode, the four INT4 group sizes; eps, scale; grid, stream
-    "pli_fused_decode_step": [_P] * 35 + [_I] * 15 + [_F, _F, _I, _P],
+    "pli_fused_decode_step": [_P] * 36 + [_I] * 15 + [_F, _F, _I, _P],
     # x0, ln1, ln2, wqkv, sqkv, wo, swo, wgu, sgu, wdn, sdn, kv, kvs, cos,
     # sin, lengths, tables, k_new, ks_new, v_new, vs_new, x_out, then the
     # workspaces xf, h, qbuf, attn, ff, ws, the counter, the phase clock, the
@@ -94,15 +94,16 @@ def _stale() -> bool:
                if p.suffix in (".cu", ".cuh"))
 
 
-def build(verbose: bool = False) -> Path:
+def build(ptxas: dict | None = None) -> Path:
     """Compile csrc/*.cu into build/libpli_kernels.so if missing or stale:
-    one nvcc per source, all in parallel, then one link."""
+    one nvcc per source, all in parallel, then one link. With `ptxas`,
+    each source's ptxas report (registers, spills) is put into it."""
     if not _stale():
         return LIB_PATH
     nvcc = _nvcc()
     obj_dir = BUILD_DIR / f"obj.{os.getpid()}"
     obj_dir.mkdir(parents=True, exist_ok=True)
-    flags = ["-Xptxas=-v", *NVCC_FLAGS] if verbose else NVCC_FLAGS
+    flags = NVCC_FLAGS if ptxas is None else ["-Xptxas=-v", *NVCC_FLAGS]
     jobs = []
     for src in sorted(CSRC.glob("*.cu")):
         obj = obj_dir / f"{src.stem}.o"
@@ -114,8 +115,8 @@ def build(verbose: bool = False) -> Path:
         _, err = proc.communicate()
         if proc.returncode != 0:
             errors.append(f"{name} ({proc.returncode}):\n{err}")
-        elif verbose and err:
-            print(f"{name}:\n{err}")
+        elif ptxas is not None:
+            ptxas[name] = err
     if errors:
         raise RuntimeError("nvcc failed: " + "\n".join(errors))
     tmp = LIB_PATH.with_suffix(f".{os.getpid()}.tmp")

@@ -3,28 +3,27 @@
 Replaces the TPU kernel `physics_llm_inference_tpu/kernels/fused_decode.py`
 `fused_decode_step` (`_kernel`, `_fused_decode_step`) in its three modes,
 each a template instance of the CUDA kernel `csrc/fused_decode.cu`:
-- W8A16 (the default): int8 weights, bf16 activations, K-blocked tiles,
-  silu per DOWN tile. The weight tiles are the W8A16 tile of K1; K-split
-  partials land in an f32 workspace and are summed in a fixed order, and
+- W8A16 (the default): int8 weights, bf16 activations; f32 partials of
+  each GEMM phase land in a workspace and are summed in a fixed order, and
   the per-channel scale comes after the sum.
 - W4A16 (`QuantizedTensor4` stacks): nibble-packed weights with group
-  scales (`int4_group_size`). One work item reads each packed byte once and
-  makes both output columns it holds; every K-split covers whole groups,
-  and each group's partial is scaled by its scale row and added in K order
-  inside the item, as the TPU kernel adds `acc * s` per K-tile.
+  scales (`int4_group_size`). A unit reads each packed byte once and makes
+  both output columns it holds; each scale group's product is scaled by
+  its scale row and added in K order, as the TPU kernel adds `acc * s` per
+  K-tile.
 - W8A8 (`cfg.act_quant == "int8"`, int8 stacks): each activation row is
   quantized to int8 (absmax over the row) after ln1, attention, ln2 and
-  silu; int8 x int8 tiles accumulate exact int32 K-split partials, then
+  silu; int8 x int8 products accumulate exact int32 partials, then
   `(f32(sum) * row_scale) * w_scale`, as the TPU kernel's N-phase tiles.
 The step is one persistent cooperative launch whose per-layer phases (QKV
 partials; RoPE and KV quantize; attention over the INT8 cache plus the
 current token; WO; norm; gate/up; silu·up; down) are separated by
-grid-wide barriers; the attention loop is K2's. W8A16 (and K8) stream their
+grid-wide barriers; the attention loop is K2's. Every mode streams its
 weights: `_plan` gives each block an even share of every GEMM phase's
-(slab, k-tile) units, and a producer warp a block streams the tiles of
-that share, phase after phase and layer after layer, through a TMA ring
-that runs ahead across the barriers (`csrc/w8a16_stream.cuh`). W4A16 and
-W8A8 keep their (m-tile, n-tile, k-split) items (`_splits`).
+(slab, k-tile) units (W4A16: over the packed bytes), and a producer warp a
+block streams the tiles of that share, phase after phase and layer after
+layer, through a TMA ring that runs ahead across the barriers
+(`csrc/w8a16_stream.cuh`).
 
 The numerics are the TPU kernel's, not the per-op path's: the residual
 stream stays f32 across all layers and is cast once at the end; qkv, gate
@@ -69,15 +68,17 @@ paged_launches = 0   # kernel launches made by fused_paged_decode_step
 W8A16, W4A16, W8A8 = 0, 1, 2     # the modes, as csrc/fused_decode.cu numbers them
 _K8 = 3                          # K8's kernel instance in csrc/fused_decode.cu
 _NEG_INF = -1e30
-_BM = _BN = _BK = 64    # the W4A16 and W8A8 weight tiles
-_KT, _SLAB, _MT = 64, 256, 64   # W8A16's k-tile, slab and m-block (w8s::)
+# the stream's k-tile, slab (weight bytes of a row a unit: 256 int8 columns,
+# or 128 packed INT4 bytes) and m-block (w8s::)
+_KT, _SLAB, _SLAB4, _MT = 64, 256, 128, 64
 _DMAX, _GMAX = 128, 8   # the attention loop's head_dim and group limits
 _MATS = ("wqkv", "wo", "w_gate_up", "w_down")
 # the phases of one layer in the kernel's order, each ended by a grid
 # barrier: the phase clock's stamps (`clock=`) fall at these barriers
 PHASES = ("qkv_gemm", "rope_kv", "attention", "wo_gemm", "norm2", "gu_gemm",
           "silu", "down_gemm", "norm1")
-PHASES_W8A8 = PHASES[:3] + ("attn_quant",) + PHASES[3:]
+PHASES_W8A8 = (PHASES[:3] + ("attn_quant",) + PHASES[3:7] + ("silu_quant",)
+               + PHASES[7:])
 GEMM_PHASES = {"qkv_gemm": "wqkv", "wo_gemm": "wo", "gu_gemm": "w_gate_up",
                "down_gemm": "w_down"}
 _grid: dict[tuple, int] = {}  # (device index, instance) -> blocks of one launch
@@ -277,32 +278,15 @@ def fused_decode_step_plain(blocks, x, k_q, k_s, v_q, v_s, q_slot, valid_from,
     return (x_out, *(torch.stack(t) for t in zip(*new)))
 
 
-def _splits(m: int, n: int, k: int, grid: int, group: int = 0) -> int:
-    """k-splits of one GEMM phase: as many as keep its (m-tile, n-tile,
-    split) items within one wave of the grid, with >= 4 k-tiles a split.
-    W4A16 (`group` > 0): a tile covers 64 packed bytes of a row, so both
-    halves of N, and a split covers whole scale groups."""
-    if group:
-        tiles = -(-m // _BM) * -(-(n // 2) // _BN)
-        units = k // group
-        splits = max(1, min(grid // tiles, units))
-    else:
-        tiles = -(-m // _BM) * -(-n // _BN)
-        units = -(-k // _BK)
-        splits = max(1, min(grid // tiles, units // 4))
-    per = -(-units // splits)
-    return -(-units // per)
-
-
 @dataclass(frozen=True)
 class Plan:
-    """One W8A16 GEMM phase split over the grid, as `csrc/w8a16_stream.cuh`
-    walks it: `tiles` (m-block, slab, k-tile) units, m-block-major with the
-    k-tile innermost; block b of `blocks` takes units [first(b),
-    first(b + 1)); a block's run of k-tiles within one slab is one partial,
-    stored at index b - owner(the slab's first unit). The kernel gets
-    `partials` too, sizes nothing by its own copy of the split, and traps
-    on an index at or past it."""
+    """One GEMM phase split over the grid, as `csrc/w8a16_stream.cuh` walks
+    it: `tiles` (m-block, slab, k-tile) units, m-block-major with the k-tile
+    innermost; block b of `blocks` takes units [first(b), first(b + 1)); a
+    block's run of k-tiles within one slab is one partial, stored at index
+    b - owner(the slab's first unit). The kernel gets `partials` too, sizes
+    nothing by its own copy of the split, and traps on an index at or past
+    it."""
     tiles: int
     blocks: int
     ktn: int        # k-tiles a slab
@@ -332,15 +316,19 @@ class Plan:
         return self.partials, self.tiles, self.blocks, self.ktn, self.slabs
 
 
-def _plan(m: int, n: int, k: int, grid: int) -> Plan:
-    """The W8A16 stream-K plan of one GEMM phase, x (m, k) @ w (k, n), over
-    `grid` blocks: (m-block, slab, k-tile) units of _MT rows, _SLAB columns
+def _plan(m: int, n: int, k: int, grid: int, slab: int = _SLAB) -> Plan:
+    """The stream-K plan of one GEMM phase, x (m, k) @ w (k, n) with rows
+    of n weight bytes (W4A16: the packed n = N/2 and slab = _SLAB4), over
+    `grid` blocks: (m-block, slab, k-tile) units of _MT rows, `slab` bytes
     and _KT rows of K, split as evenly as whole units allow, so no phase
     runs a second partial wave and every block's share is within one k-tile
     of the mean."""
-    ktn, slabs = -(-k // _KT), -(-n // _SLAB)
+    ktn, slabs = -(-k // _KT), -(-n // slab)
     tiles = -(-m // _MT) * slabs * ktn
     blocks = min(grid, tiles)
+    if tiles * blocks >= 1 << 32:
+        raise ValueError(f"a GEMM phase of {tiles} units over {blocks} blocks "
+                         "is past the kernel's 32-bit plan arithmetic")
     pl = Plan(tiles, blocks, ktn, slabs, 0)
     most = max(pl.owner((u + 1) * ktn - 1) - pl.owner(u * ktn) + 1
                for u in range(tiles // ktn))
@@ -364,9 +352,9 @@ def _launch_grid(device: torch.device, instance: int) -> int:
 def _workspace(device, L, B, D, F_, QH, KH, HKV, ws_floats) -> dict:
     """The scratch tensors of one launch shape (kept across launches): the
     activation rows, the partials' workspace (`ws_floats` f32), the new K/V
-    of a write_cache launch, W8A8's int8 rows and scales, and the streaming
-    kernel's two counters, its grid barrier's and its attention items'
-    (zeroed by every launch)."""
+    of a write_cache launch, W8A8's int8 rows (16-byte row pitch: a TMA
+    stride), their scales and silu's f32 row, and the kernel's two counters,
+    its grid barrier's and its attention items' (zeroed by every launch)."""
     key = (str(device), L, B, D, F_, QH, KH, ws_floats)
     if key not in _workspaces:
         def e(*shape, dtype=torch.bfloat16):
@@ -379,10 +367,12 @@ def _workspace(device, L, B, D, F_, QH, KH, HKV, ws_floats) -> dict:
             ks_new=e(L, B, HKV, dtype=torch.float32),
             v_new=e(L, B, KH, dtype=torch.int8),
             vs_new=e(L, B, HKV, dtype=torch.float32),
-            # W8A8: the quantized activation rows and their scales, one row
-            # of scales per quantization point (ln1, attention, ln2, silu)
-            a8=e(B * max(D, QH, F_), dtype=torch.int8),
-            asc=e(4, B, dtype=torch.float32),
+            # W8A8: the quantized activation rows, a row of scales per
+            # quantization point (ln1, attention, ln2, silu) and the silu
+            # row's absmax, and silu's f32 (B, F) row
+            a8=e(B * -(-max(D, QH, F_) // 16) * 16, dtype=torch.int8),
+            asc=e(5, B, dtype=torch.float32),
+            ffs=e(B, F_, dtype=torch.float32),
             sync=e(2, dtype=torch.int32))
     return _workspaces[key]
 
@@ -400,17 +390,18 @@ def _shapes(x, cfg) -> dict:
 def _weights(blocks, x, L: int, cfg, name: str, mode: int = W8A16):
     """Check the stacked block weights of `mode`, activations and norms the
     kernel takes; returns (wqkv, wo, w_gate_up, w_down). INT8: q (L, K, N),
-    s (L, 1, N). INT4: packed q (L, K, N/2) with N/2 a multiple of 16 (the
-    tile's 16-byte rows), s (L, K/G, N) with G = int4_group_size(K, N)."""
+    s (L, 1, N). INT4: packed q (L, K, N/2) with N/2 a multiple of 16 (a
+    TMA stride), s (L, K/G, N) with G = int4_group_size(K, N), a multiple
+    of 16 (the consumer's k16 step)."""
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     for n, (k, nn) in _shapes(x, cfg).items():
         w = blocks[n]
         if mode == W4A16:
             g = int4_group_size(k, nn)
             want, want_s = (L, k, nn // 2), (L, k // g, nn)
-            if nn % 32 or k % g:
+            if nn % 32 or k % g or g % 16:
                 raise ValueError(f"{name}: {n} ({k}, {nn}) needs N % 32 == 0 "
-                                 "and whole scale groups")
+                                 "and whole scale groups of 16k rows, k >= 1")
         else:
             want, want_s = (L, k, nn), (L, 1, nn)
         if tuple(w.q.shape) != want or tuple(w.s.shape) != want_s:
@@ -442,26 +433,17 @@ def _weights(blocks, x, L: int, cfg, name: str, mode: int = W8A16):
 
 def _scratch(x, L: int, cfg, mode: int, paged: bool = False):
     """(grid, plan, workspace) of one launch. `plan` is what the kernel
-    reads for each GEMM phase: (k-splits, tiles, blocks, k-tiles a slab,
-    slabs), the splits for W4A16 and W8A8, the `_plan` for W8A16 (its most
-    partials of a column in the splits' place). The
-    workspace holds the largest phase's partials: f32 (W8A16, W4A16) or
-    int32 (W8A8)."""
+    reads for each GEMM phase: `Plan.args()` of its `_plan` (W4A16: over the
+    packed bytes). The workspace holds the largest phase's partials: f32
+    (W8A16, W4A16) or int32 (W8A8)."""
     B = x.shape[0]
     hkv, hd = cfg.num_kv_heads, cfg.head_dim
     grid = _launch_grid(x.device, _K8 if paged else mode)
     shapes = _shapes(x, cfg).values()
-    if mode == W8A16:
-        plans = [_plan(B, n, k, grid) for k, n in shapes]
-        plan = [v for pl in plans for v in pl.args()]
-        ws_floats = B * max(pl.partials * n for pl, (_, n) in zip(plans,
-                                                                  shapes))
-    else:
-        splits = [_splits(B, n, k, grid,
-                          int4_group_size(k, n) if mode == W4A16 else 0)
-                  for k, n in shapes]
-        plan = [v for sp in splits for v in (sp, 0, 0, 0, 0)]
-        ws_floats = B * max(sp * n for sp, (_, n) in zip(splits, shapes))
+    plans = [_plan(B, n // 2, k, grid, _SLAB4) if mode == W4A16
+             else _plan(B, n, k, grid) for k, n in shapes]
+    ws_floats = B * max(pl.partials * n for pl, (_, n) in zip(plans, shapes))
+    plan = [v for pl in plans for v in pl.args()]
     D, F_, QH = x.shape[1], cfg.intermediate_dim, cfg.num_heads * hd
     return grid, (ctypes.c_int * 20)(*plan), _workspace(
         x.device, L, B, D, F_, QH, hkv * hd, hkv, ws_floats)
@@ -566,7 +548,7 @@ def fused_decode_step(blocks, x, k_q, k_s, v_q, v_s, q_slot, valid_from,
         x, blocks["ln1"], blocks["ln2"], wqkv.q, wqkv.s, wo.q, wo.s, wgu.q,
         wgu.s, wdn.q, wdn.s, k_q, k_s, v_q, v_s, cos, sin, qslot, vfrom, *new,
         x_out, w["xf"], w["h"], w["qbuf"], w["attn"], w["ff"], w["ws"],
-        w["a8"], w["asc"], w["sync"])]
+        w["a8"], w["asc"], w["ffs"], w["sync"])]
     err = _build.lib().pli_fused_decode_step(
         *ptr, _clock_ptr(clock, L, mode, x), ctypes.cast(plan, ctypes.c_void_p),
         L, B, S, D, F_, hq, hkv, hd, slot, int(write_cache), mode, *groups,

@@ -248,26 +248,46 @@ def test_per_request_starts_scatter_like_the_uniform_write():
 
 
 # (name, B, hidden, intermediate, q + 2 kv head columns): the 7B widths, the
-# toy widths above, and ragged ones (slabs, k-tiles and m-blocks cut)
+# toy widths above, and ragged ones (slabs, k-tiles and m-blocks cut; at
+# "ragged" INT4 w_down's scale group is 8 rows)
 PLAN_SHAPES = {"7b": (64, 4096, 11008, 6144), "toy": (8, 512, 768, 1024),
                "ragged": (5, 400, 296, 560), "two_mblocks": (72, 400, 296, 560)}
 
 
+def _partials(pl, m: int, slab: int) -> int:
+    """The partials of row m's outputs in `slab`: one from each block that
+    took a part of it (the kernel's `w8s::partials`)."""
+    u = (m // 64) * pl.slabs + slab
+    return pl.owner((u + 1) * pl.ktn - 1) - pl.owner(u * pl.ktn) + 1
+
+
 @pytest.mark.parametrize("grid", [132, 264])
 @pytest.mark.parametrize("shape", list(PLAN_SHAPES))
-def test_w8a16_plan_covers_every_unit_once_in_one_wave(shape, grid):
-    """The streaming kernel's plan of each GEMM phase: every (column slab,
-    k-tile) of every m-block is taken exactly once, each block's share is
-    within one k-tile of the mean, and no column has more partials than
-    the workspace is sized for (indexed 0, 1, ... in block order)."""
+@pytest.mark.parametrize("mode", MODES)
+def test_w8a16_plan_covers_every_unit_once_in_one_wave(mode, shape, grid):
+    """The streaming kernel's plan of each GEMM phase in each K4 mode (W4A16
+    over the packed bytes, 128 a slab): every (column slab, k-tile) of every
+    m-block is taken exactly once, each block's share is within one k-tile
+    of the mean, and no column has more partials than the workspace is
+    sized for (indexed 0, 1, ... in block order). W4A16: the packed slabs
+    cover both halves of N once, an output column counts the partials of
+    its packed slab, and every scale group's rows are scaled once, in
+    pieces cut where runs of k-tiles start or end."""
+    mode = getattr(t_fd, mode.upper())
     B, D, F, QO = PLAN_SHAPES[shape]
+    groups = []
     for k, n in ((D, QO), (D, D), (D, 2 * F), (F, D)):
-        pl = t_fd._plan(B, n, k, grid)
-        mblocks, slabs, ktn = -(-B // 64), -(-n // 256), -(-k // 64)
+        w4 = mode == t_fd.W4A16
+        nw, slab = (n // 2, 128) if w4 else (n, 256)
+        pl = t_fd._plan(B, nw, k, grid, slab) if w4 else t_fd._plan(B, n, k,
+                                                                      grid)
+        mblocks, slabs, ktn = -(-B // 64), -(-nw // slab), -(-k // 64)
         assert (pl.ktn, pl.slabs, pl.tiles) == (ktn, slabs,
                                                  mblocks * slabs * ktn)
         assert pl.blocks == min(grid, pl.tiles)
-        seen, parts = {}, {}
+        seen, parts, rows = {}, {}, {}
+        G = t_fd.int4_group_size(k, n)
+        groups.append(G)
         for b in range(pl.blocks):
             share = 0
             for mb, sl, k0, k1, j in pl.units(b):
@@ -276,6 +296,12 @@ def test_w8a16_plan_covers_every_unit_once_in_one_wave(shape, grid):
                     seen[mb, sl, kt] = seen.get((mb, sl, kt), 0) + 1
                 parts.setdefault((mb, sl), []).append((b, j))
                 share += k1 - k0
+                # the consumer's group pieces: a run's rows cut at group ends
+                lo, hi = k0 * 64, min(k1 * 64, k)
+                for g0 in range(lo - lo % G, hi, G) if w4 else ():
+                    key = (mb, sl, g0 // G)
+                    piece = min(hi, g0 + G) - max(lo, g0)
+                    rows[key] = rows.get(key, 0) + piece
             assert abs(share - pl.tiles / pl.blocks) < 1
         assert len(seen) == pl.tiles and set(seen.values()) == {1}
         for runs in parts.values():
@@ -285,3 +311,21 @@ def test_w8a16_plan_covers_every_unit_once_in_one_wave(shape, grid):
         assert max(len(r) for r in parts.values()) == pl.partials
         # the kernel gets the bound it traps on with the rest of the plan
         assert pl.args() == (pl.partials, pl.tiles, pl.blocks, ktn, slabs)
+        # every output column in one slab (W4A16: that of its packed byte,
+        # col mod N/2), with the partials the blocks of that slab write
+        cover = [0] * n
+        for sl in range(slabs):
+            for c in range(sl * slab, min((sl + 1) * slab, nw)):
+                for col in ((c, nw + c) if w4 else (c,)):
+                    cover[col] += 1
+                    assert (col % nw) // slab == sl
+        assert cover == [1] * n
+        for m in range(0, B, 7):
+            for col in range(0, n, 4):
+                sl = (col % nw) // slab
+                assert _partials(pl, m, sl) == len(parts[m // 64, sl])
+        if w4:
+            assert len(rows) == mblocks * slabs * (k // G)
+            assert set(rows.values()) == {G}
+    if mode == t_fd.W4A16 and shape == "ragged":
+        assert min(groups) < 16
