@@ -985,7 +985,7 @@ extern "C" int pli_fused_decode_grid(int instance, int* grid) {
 // F % 8 == 0 (W4A16: N/2 % 16 == 0 and group sizes g_* % 16 == 0) (checked
 // by the Python wrapper). plan (host memory) holds, for each GEMM phase,
 // {the most partials of a column, tiles, blocks, k-tiles a slab, slabs}
-// (kernels/fused_decode._plan; W4A16 over the packed bytes); ws holds the
+// (kernels/w8a16_stream.plan; W4A16 over the packed bytes); ws holds the
 // largest phase's partials; sync two unsigned. W8A8: a8 holds B rows of
 // row_pitch(max(D, HQ*HD, F)) bytes, asc 5 * B floats, ffs B * F floats.
 // clock: null, or 1 + L * phases stamps. `grid` comes from

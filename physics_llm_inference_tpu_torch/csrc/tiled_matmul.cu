@@ -31,8 +31,8 @@
 // x 2 fragments, 64 f32 accumulators a thread), K in slices of 32 staged in
 // shared memory (rows padded by 8 elements against bank conflicts). The
 // next slice is loaded into registers, 16 bytes a thread a load, while the
-// tensor cores work on the current one (one-stage register prefetch, as
-// w8a16_tile.cuh). At the end each warp passes its fragments through a 16 x
+// tensor cores work on the current one (one-stage register prefetch). At
+// the end each warp passes its fragments through a 16 x
 // 16 f32 scratch in shared memory and writes them cast to the output dtype.
 //
 // f32: full f32 on the CUDA cores (no TF32, which wgmma would need): a 128
@@ -50,6 +50,8 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "wgmma.cuh"
 
 namespace {
 
@@ -124,39 +126,6 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
-         (1ull << 62);   // 128-byte swizzle
-}
-
-#define D8(i)                                                                \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), \
-      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-
-// d (64 x 256 f32, the warpgroup's fragments) += A (64 x 16, K-major) *
-// B (16 x 256, MN-major: transpose bit set)
-__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da,
-                                                 uint64_t db) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
-      : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56), D8(64), D8(72), D8(80),
-        D8(88), D8(96), D8(104), D8(112), D8(120)
-      : "l"(da), "l"(db), "r"(1));
-}
-
-#undef D8
 
 __global__ void __launch_bounds__(G_THREADS, 1)
 tiled_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,

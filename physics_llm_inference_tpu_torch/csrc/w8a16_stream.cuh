@@ -1,5 +1,7 @@
 // The streaming GEMM phases of the fused decode kernel (K4 in its three
-// modes, K8): ws[j, m, n] = a partial sum over k of x[m, k] * w[l, k, n].
+// modes, K8), and in W8A16 the decode-sized route of K1 (int8_matmul.cu)
+// and K3's head (lmhead.cu): ws[j, m, n] = a partial sum over k of x[m, k]
+// * w[l, k, n].
 //  - W8A16 (K4's default, K8): x (M, K) bf16, w (L, K, N) int8, f32
 //    partials, unscaled;
 //  - W4A16: x bf16, w the nibble-packed (L, K, N/2) bytes (models/quant:
@@ -22,8 +24,8 @@
 //    block's run of k-tiles within one slab is one partial, written to ws[j]
 //    with j = b minus the first block of that slab; the consuming phase sums
 //    j = 0, 1, ... in order (`partials`), so the step stays deterministic.
-//    The plan depends only on shapes and the grid: kernels/fused_decode.py
-//    `_plan` computes the same ranges, sizes the workspace for its most
+//    The plan depends only on shapes and the grid: kernels/w8a16_stream.py
+//    `plan` computes the same ranges, sizes the workspace for its most
 //    partials of a column and passes that bound in; a block whose partial
 //    index reaches it (the two copies of the split apart) traps.
 //  - The stream. A producer thread (in a warpgroup of its own) walks the
@@ -120,7 +122,7 @@ struct Geo {
   static constexpr int RING_BYTES = STAGES * STAGE_BYTES + 16 * STAGES + 16;
 };
 
-// One GEMM phase's plan (kernels/fused_decode.py `_plan`).
+// One GEMM phase's plan (kernels/w8a16_stream.py `plan`).
 struct Plan {
   int tiles;    // (m-block, slab, k-tile) units, m-block-major, k innermost
   int blocks;   // blocks that take part: min(grid, tiles)
@@ -129,7 +131,7 @@ struct Plan {
   int most;     // the most partials of a column: the workspace's bound
 };
 
-// The first unit of block b (tiles * blocks < 2^32: `_plan` checks it, so
+// The first unit of block b (tiles * blocks < 2^32: `plan` checks it, so
 // 32-bit unsigned arithmetic holds; a 64-bit division is a subroutine whose
 // registers the GEMM loops' neighbours spilled for).
 static __device__ __forceinline__ int first_tile(const Plan& pl, int b) {
@@ -819,15 +821,16 @@ static bool encode_scales(CUtensorMap* map, const float* s, int L, int groups, i
 }
 
 // x (M, K) rows `pitch` bytes apart (a multiple of 16), 16-byte aligned:
-// chunks of MT rows x KT values, zero-filled past M and K. bf16 (W8A16,
-// W4A16): 128-byte rows, 128-byte swizzle; `bytes`, int8 (W8A8): 64-byte
-// rows, 64-byte swizzle.
-static bool encode_x(CUtensorMap* map, const void* x, int M, int K, int pitch, bool bytes) {
+// chunks of `rows` (a unit's MT, or K1's prefill route's 128) rows x KT
+// values, zero-filled past M and K. bf16 (W8A16, W4A16): 128-byte rows,
+// 128-byte swizzle; `bytes`, int8 (W8A8): 64-byte rows, 64-byte swizzle.
+static bool encode_x(CUtensorMap* map, const void* x, int M, int K, int pitch, bool bytes,
+                     int rows = MT) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(M)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(pitch)};
-  const cuuint32_t box[2] = {KT, MT};
+  const cuuint32_t box[2] = {KT, static_cast<cuuint32_t>(rows)};
   const cuuint32_t estrides[2] = {1, 1};
   return fn(map, bytes ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
             const_cast<void*>(x), dims, strides, box, estrides, CU_TENSOR_MAP_INTERLEAVE_NONE,

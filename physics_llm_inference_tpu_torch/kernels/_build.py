@@ -30,17 +30,20 @@ _L = ctypes.c_longlong
 # argtypes of every C entry point: a pointer or the stream is c_void_p (a
 # plain int would be cut to 32 bits), sizes are c_int.
 SIGNATURES = {
-    # x, w, scale, out, workspace, M, N, K, splits, k_tiles_per_split,
-    # vec_x, vec_w, stream
-    "pli_int8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, w, scale, out, workspace, M, N, K, then the stream route's plan
+    # (most partials, tiles, blocks, k-tiles a slab, slabs), stream
+    "pli_int8_matmul_stream": [_P] * 5 + [_I] * 8 + [_P],
+    # x, w, scale, out, workspace, M, N, K, x rows a block (128 or 256), K
+    # splits, stream
+    "pli_int8_matmul_wgmma": [_P] * 5 + [_I] * 5 + [_P],
     # q, k_q, k_s, v_q, v_s, q_slot, valid_from, out, B, S, Hq, Hkv, d,
     # scale, stream
     "pli_int8_kv_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P,
                                      _I, _I, _I, _I, _I, _F, _P],
-    # x, norm_w, lm_q, lm_s, xn scratch, packed scratch, tokens, B, D, V,
-    # eps, vec_w, stream
-    "pli_lmhead_greedy": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
-                          _P],
+    # x, norm_w, lm_q, lm_s, xn scratch, partials scratch, packed scratch,
+    # tokens, B, D, D padded, V, V padded, eps, the stream plan (5 ints),
+    # stream
+    "pli_lmhead_greedy": [_P] * 8 + [_I] * 5 + [_F] + [_I] * 5 + [_P],
     # q, k, v, out, q_offset, valid_from, B, Hq, Hkv, Sq, Sk, d, kv_len,
     # causal, the (b, h, s) element strides of q, k and v, scale * log2(e),
     # stream

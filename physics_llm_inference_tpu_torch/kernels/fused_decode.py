@@ -19,7 +19,7 @@ The step is one persistent cooperative launch whose per-layer phases (QKV
 partials; RoPE and KV quantize; attention over the INT8 cache plus the
 current token; WO; norm; gate/up; silu·up; down) are separated by
 grid-wide barriers; the attention loop is K2's. Every mode streams its
-weights: `_plan` gives each block an even share of every GEMM phase's
+weights: `w8a16_stream.plan` gives each block an even share of every GEMM phase's
 (slab, k-tile) units (W4A16: over the packed bytes), and a producer warp a
 block streams the tiles of that share, phase after phase and layer after
 layer, through a TMA ring that runs ahead across the barriers
@@ -49,7 +49,6 @@ from __future__ import annotations
 
 import ctypes
 import math
-from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
@@ -59,6 +58,8 @@ from ..ops.norms import rms_norm
 from . import _build
 from .int8_matmul import int8_matmul_plain
 from .paged_attention import write_position
+from .w8a16_stream import SLAB4
+from .w8a16_stream import plan as _plan
 
 launches = 0         # W8A16 launches of fused_decode_step
 w4a16_launches = 0   # W4A16 launches of fused_decode_step
@@ -68,9 +69,6 @@ paged_launches = 0   # kernel launches made by fused_paged_decode_step
 W8A16, W4A16, W8A8 = 0, 1, 2     # the modes, as csrc/fused_decode.cu numbers them
 _K8 = 3                          # K8's kernel instance in csrc/fused_decode.cu
 _NEG_INF = -1e30
-# the stream's k-tile, slab (weight bytes of a row a unit: 256 int8 columns,
-# or 128 packed INT4 bytes) and m-block (w8s::)
-_KT, _SLAB, _SLAB4, _MT = 64, 256, 128, 64
 _DMAX, _GMAX = 128, 8   # the attention loop's head_dim and group limits
 _MATS = ("wqkv", "wo", "w_gate_up", "w_down")
 # the phases of one layer in the kernel's order, each ended by a grid
@@ -278,63 +276,6 @@ def fused_decode_step_plain(blocks, x, k_q, k_s, v_q, v_s, q_slot, valid_from,
     return (x_out, *(torch.stack(t) for t in zip(*new)))
 
 
-@dataclass(frozen=True)
-class Plan:
-    """One GEMM phase split over the grid, as `csrc/w8a16_stream.cuh` walks
-    it: `tiles` (m-block, slab, k-tile) units, m-block-major with the k-tile
-    innermost; block b of `blocks` takes units [first(b), first(b + 1)); a
-    block's run of k-tiles within one slab is one partial, stored at index
-    b - owner(the slab's first unit). The kernel gets `partials` too, sizes
-    nothing by its own copy of the split, and traps on an index at or past
-    it."""
-    tiles: int
-    blocks: int
-    ktn: int        # k-tiles a slab
-    slabs: int      # slabs an m-block
-    partials: int   # the most partials of one output column
-
-    def first(self, b: int) -> int:
-        return b * self.tiles // self.blocks
-
-    def owner(self, t: int) -> int:
-        return ((t + 1) * self.blocks - 1) // self.tiles
-
-    def units(self, b: int) -> list[tuple[int, int, int, int, int]]:
-        """Block b's share: (m-block, slab, first k-tile, end k-tile,
-        partial index) runs."""
-        out, t, end = [], self.first(b), self.first(b + 1)
-        while t < end:
-            u, k0 = divmod(t, self.ktn)
-            k1 = min(self.ktn, k0 + end - t)
-            out.append((u // self.slabs, u % self.slabs, k0, k1,
-                        b - self.owner(u * self.ktn)))
-            t += k1 - k0
-        return out
-
-    def args(self) -> tuple[int, int, int, int, int]:
-        """The five ints the kernel reads for this phase."""
-        return self.partials, self.tiles, self.blocks, self.ktn, self.slabs
-
-
-def _plan(m: int, n: int, k: int, grid: int, slab: int = _SLAB) -> Plan:
-    """The stream-K plan of one GEMM phase, x (m, k) @ w (k, n) with rows
-    of n weight bytes (W4A16: the packed n = N/2 and slab = _SLAB4), over
-    `grid` blocks: (m-block, slab, k-tile) units of _MT rows, `slab` bytes
-    and _KT rows of K, split as evenly as whole units allow, so no phase
-    runs a second partial wave and every block's share is within one k-tile
-    of the mean."""
-    ktn, slabs = -(-k // _KT), -(-n // slab)
-    tiles = -(-m // _MT) * slabs * ktn
-    blocks = min(grid, tiles)
-    if tiles * blocks >= 1 << 32:
-        raise ValueError(f"a GEMM phase of {tiles} units over {blocks} blocks "
-                         "is past the kernel's 32-bit plan arithmetic")
-    pl = Plan(tiles, blocks, ktn, slabs, 0)
-    most = max(pl.owner((u + 1) * ktn - 1) - pl.owner(u * ktn) + 1
-               for u in range(tiles // ktn))
-    return Plan(tiles, blocks, ktn, slabs, most)
-
-
 def _launch_grid(device: torch.device, instance: int) -> int:
     """Blocks of one cooperative launch of a kernel instance: a K4 mode,
     or _K8."""
@@ -440,7 +381,7 @@ def _scratch(x, L: int, cfg, mode: int, paged: bool = False):
     hkv, hd = cfg.num_kv_heads, cfg.head_dim
     grid = _launch_grid(x.device, _K8 if paged else mode)
     shapes = _shapes(x, cfg).values()
-    plans = [_plan(B, n // 2, k, grid, _SLAB4) if mode == W4A16
+    plans = [_plan(B, n // 2, k, grid, SLAB4) if mode == W4A16
              else _plan(B, n, k, grid) for k, n in shapes]
     ws_floats = B * max(pl.partials * n for pl, (_, n) in zip(plans, shapes))
     plan = [v for pl in plans for v in pl.args()]

@@ -3,11 +3,15 @@
 Replaces the TPU kernel `physics_llm_inference_tpu/kernels/lmhead.py`
 `lmhead_greedy` (`_lmhead_kernel`). The CUDA kernel is `csrc/lmhead.cu`:
 bound by the (D, V) int8 head bytes, it normalizes each row once, streams the
-head through the shared W8A16 tile over V-tiles, and folds each tile's
+head through K1's weight stream (its "stream" route, on the plan
+`w8a16_stream.plan`) into f32 partials, then sums each logit's
+partials in a fixed order, rounds it to bf16 and folds each column range's
 (max, first index) into a per-row 64-bit atomicMax, so the (B, V) logits
 never reach device memory. The logits are rounded to bf16 before the argmax
 and ties go to the first index: both are part of the contract
-(lmhead.py:50-57 in the JAX package).
+(lmhead.py:50-57 in the JAX package). A head whose rows are not whole
+16-byte vectors (D % 8, V % 16) runs on a zero-padded copy; the padded
+columns take no part in the argmax.
 
 `lmhead_greedy` is the entry point: a CPU tensor goes to
 `lmhead_greedy_plain`; a CUDA tensor goes to the kernel or raises.
@@ -20,7 +24,8 @@ import torch
 
 from ..ops.norms import rms_norm
 from . import _build
-from .int8_matmul import int8_matmul_plain
+from .int8_matmul import int8_matmul_plain, num_sms
+from .w8a16_stream import plan
 
 launches = 0  # kernel launches made by lmhead_greedy
 
@@ -72,13 +77,22 @@ def lmhead_greedy(x, norm_w, lm_q, lm_s, eps: float = 1e-5):
     for t in (x, norm_w, lm_q, lm_s):
         if t.device != x.device or not t.is_contiguous():
             raise ValueError("kernel needs contiguous tensors on one device")
-    xn = torch.empty_like(x)
+    dp, vp = -(-D // 8) * 8, -(-V // 16) * 16
+    lm_s = lm_s.reshape(-1)
+    if (dp, vp) != (D, V) or lm_q.data_ptr() % 16 or lm_s.data_ptr() % 16:
+        q, s = lm_q.new_zeros((dp, vp)), lm_s.new_zeros((vp,))
+        q[:D, :V], s[:V] = lm_q, lm_s
+        lm_q, lm_s = q, s
+    pl = plan(B, vp, dp, num_sms(x.device))
+    xn = torch.empty((B, dp), dtype=torch.bfloat16, device=x.device)
+    ws = torch.empty((pl.partials, B, vp), dtype=torch.float32,
+                     device=x.device)
     packed = torch.empty((B,), dtype=torch.int64, device=x.device)
     tok = torch.empty((B,), dtype=torch.int32, device=x.device)
-    vec_w = int(V % 16 == 0 and lm_q.data_ptr() % 16 == 0)
     err = _build.lib().pli_lmhead_greedy(
         x.data_ptr(), norm_w.data_ptr(), lm_q.data_ptr(), lm_s.data_ptr(),
-        xn.data_ptr(), packed.data_ptr(), tok.data_ptr(), B, D, V, eps, vec_w,
+        xn.data_ptr(), ws.data_ptr(), packed.data_ptr(), tok.data_ptr(), B,
+        D, dp, V, vp, eps, *pl.args(),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "lmhead_greedy")
     launches += 1

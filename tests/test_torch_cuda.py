@@ -39,22 +39,36 @@ def _gen(dev, seed=0):
     return torch.Generator(device=dev).manual_seed(seed)
 
 
-@pytest.mark.parametrize("m,k,n", [(64, 256, 384), (7, 200, 130),
-                                   (1, 64, 16), (300, 520, 1000)])
-def test_int8_matmul_kernel_matches_plain(dev, m, k, n):
+# K1 at the 7B widths (wqkv, w_down) at decode and prefill rows, and the
+# ragged shapes (K % 8 or N % 16: zero-padded copies)
+K1_CASES = [(m, k, n) for m in (1, 7, 64, 65, 128, 256, 300, 512, 1024, 2047)
+            for k, n in ((4096, 6144), (11008, 4096))] + [
+    (64, 256, 384), (7, 200, 130), (1, 64, 16), (300, 520, 1000)]
+
+
+@pytest.mark.parametrize("route", t_mm.ROUTES)
+@pytest.mark.parametrize("m,k,n", K1_CASES)
+def test_int8_matmul_kernel_matches_plain(dev, m, k, n, route):
     g = _gen(dev)
     x = torch.randn((m, k), generator=g, device=dev).bfloat16()
     wq = torch.randint(-127, 128, (2, k, n), dtype=torch.int8, generator=g,
                        device=dev)
     s = torch.rand((2, 1, n), generator=g, device=dev) / (73.9 * k ** 0.5)
-    before = t_mm.launches
-    got = t_mm.int8_matmul(x, wq, s, layer=1)
+    before = (t_mm.launches, t_mm.stream_launches, t_mm.wgmma_launches)
+    got = t_mm._launch(route, x, wq[1], s[1])
     torch.cuda.synchronize()
-    assert t_mm.launches == before + 1
+    assert (t_mm.launches, t_mm.stream_launches, t_mm.wgmma_launches) == (
+        before[0] + 1, before[1] + (route == "stream"),
+        before[2] + (route == "wgmma"))
     want = t_mm.int8_matmul_plain(x, wq, s, layer=1)
     # different f32 summation order, then one bf16 round
     torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
                                atol=1e-3 * float(want.float().abs().max()))
+    # fixed-order sums: a second launch gives the same bits
+    assert torch.equal(t_mm._launch(route, x, wq[1], s[1]), got)
+    # the entry point takes the rule's route: the same bits on that route
+    if route == t_mm.pick_route(m, n, k):
+        assert torch.equal(t_mm.int8_matmul(x, wq, s, layer=1), got)
 
 
 def test_int8_kv_attention_kernel_matches_plain(dev):
@@ -76,9 +90,9 @@ def test_int8_kv_attention_kernel_matches_plain(dev):
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=2e-2)
 
 
-def test_lmhead_kernel_token_is_a_bf16_max(dev):
+@pytest.mark.parametrize("B,D,V", [(9, 512, 1000), (64, 4096, 32000)])
+def test_lmhead_kernel_token_is_a_bf16_max(dev, B, D, V):
     g = _gen(dev, 2)
-    B, D, V = 9, 512, 1000
     x = torch.randn((B, D), generator=g, device=dev).bfloat16()
     nw = torch.ones((D,), device=dev, dtype=torch.bfloat16)
     lq = torch.randint(-127, 128, (D, V), dtype=torch.int8, generator=g,

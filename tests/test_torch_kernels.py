@@ -16,6 +16,7 @@ from physics_llm_inference_tpu.kernels.lmhead import \
 from physics_llm_inference_tpu_torch.kernels import int8_kv_attention as t_attn
 from physics_llm_inference_tpu_torch.kernels import int8_matmul as t_mm
 from physics_llm_inference_tpu_torch.kernels import lmhead as t_head
+from physics_llm_inference_tpu_torch.kernels import w8a16_stream as t_ws
 from torch_parity import t2n
 
 
@@ -146,13 +147,64 @@ def test_cpu_tensors_take_plain_versions_without_launching():
         (0, 0, 0)
 
 
+def _check_k1_plans(m, n, k):
+    """Both routes' splits of K1: the stream route's (64-row m-block,
+    256-column slab, 64-row k-tile) units are each taken once, every
+    block's share within one unit of the mean; the wgmma route's K splits
+    cover the k-tiles once, shares within one k-tile of each other; the
+    rule sends decode rows (M <= 64) to the stream and prefill rows to
+    wgmma."""
+    for sms in (132, 114):
+        pl = t_ws.plan(m, n, k, sms)
+        seen = {}
+        for b in range(pl.blocks):
+            share = 0
+            for mb, slab, k0, k1, j in pl.units(b):
+                assert 0 <= j < pl.partials
+                for kt in range(k0, k1):
+                    seen[mb, slab, kt] = seen.get((mb, slab, kt), 0) + 1
+                share += k1 - k0
+            assert abs(share - pl.tiles / pl.blocks) < 1
+        assert len(seen) == pl.tiles == -(-m // 64) * -(-n // 256) * \
+            -(-k // 64) and set(seen.values()) == {1}
+        splits, kt = t_mm._splits(m, n, k, sms), -(-k // 64)
+        cuts = [z * kt // splits for z in range(splits + 1)]
+        assert cuts[0] == 0 and cuts[-1] == kt
+        shares = [b - a for a, b in zip(cuts, cuts[1:])]
+        assert min(shares) >= 1 and max(shares) - min(shares) <= 1
+    assert t_mm.pick_route(m, n, k) == ("stream" if m <= 64 else "wgmma")
+
+
 def test_split_k_covers_k_exactly():
+    """K1's splits at the decode shapes (the 7B linears, the lm_head, a
+    ragged M and a small shape)."""
     for m, n, k in [(64, 4096, 4096), (64, 4096, 11008), (64, 6144, 4096),
                     (64, 22016, 4096), (64, 32000, 4096), (7, 6208, 4096),
                     (3, 10, 100)]:
-        splits, per = t_mm._split_k(m, n, k)
-        k_tiles = -(-k // 64)
-        assert splits >= 1 and (splits - 1) * per < k_tiles <= splits * per
+        _check_k1_plans(m, n, k)
+
+
+@pytest.mark.parametrize("m,n,k", [
+    (m, n, k) for m in (128, 256, 512, 1024, 2047)
+    for k, n in ((4096, 6144), (4096, 4096), (4096, 22016), (11008, 4096))])
+def test_int8_matmul_plans_cover_every_unit_once(m, n, k):
+    """K1's splits at the prefill rows of the 7B linears (K, N)."""
+    _check_k1_plans(m, n, k)
+
+
+def test_int8_matmul_padding_keeps_the_product():
+    """Shapes whose rows are not whole 16-byte vectors (K % 8, N % 16) run
+    on zero-padded copies: the first N columns of the padded product are
+    the product."""
+    for m, k, n in [(7, 200, 130), (300, 520, 1000), (5, 61, 33)]:
+        x, wq, s = _mm_inputs(6, L=1, M=m, K=k, N=n)
+        args = torch.from_numpy(x), torch.from_numpy(wq[0]), \
+            torch.from_numpy(s[0])
+        xp, wp, sp = t_mm._padded(*args)
+        assert xp.shape[1] % 8 == 0 and wp.shape[1] % 16 == 0
+        got = t_mm.int8_matmul_plain(xp, wp, sp)[:, :n]
+        torch.testing.assert_close(got, t_mm.int8_matmul_plain(*args),
+                                   rtol=1e-6, atol=1e-6)
 
 
 def test_gpu_spec_knows_the_h100_sxm_only():
