@@ -10,11 +10,13 @@ The phase clock (phase 3b) alone, from the repository's root:
 Parts alone, after phases 1-2 (each tree's package beside the script: a
 copy of this script in another tree's root measures that tree):
 
-    python3 chip_smoke.py [--k1] [--fused] [--serving]
+    python3 chip_smoke.py [--k1] [--attention] [--fused] [--decode] [--serving]
 
---k1: phase 3's K1 sweep and K3; --fused: K4 in each mode and K8, with
-output digests, and the phase clock; --serving: the bench_serving7b wave
-with K1's calls counted by route and M, then one wave under torch.profiler.
+--k1: phase 3's K1 sweep and K3; --attention: phase 3's K2 (S = 256,
+1,024, 4,096), K6 and K7; --fused: K4 in each mode and K8, with output
+digests, and the phase clock; --decode: phase 5's cached_generate at prompt
+128 in each K4 mode; --serving: the bench_serving7b wave with K1's calls
+counted by route and M, then one wave under torch.profiler.
 
 Phases, each of which raises on failure (exit code != 0, no final line):
 1. device: the card's name and power limit (nvidia-smi); no CUDA -> fail;
@@ -31,7 +33,11 @@ Phases, each of which raises on failure (exit code != 0, no final line):
    where one PyTorch call computes the same function, that call's time;
    3b. the phase clock: one clocked launch of each K4 mode at 32 layers
    and of K8 at 32 layers in the engine's geometry, each phase's mean us a
-   layer and each GEMM phase's GB/s of weights;
+   layer and each GEMM phase's GB/s of weights, then each kernel's
+   attention phase with the GB/s of its live KV;
+   K2 also at S = 1,024 and 4,096, each with the GB/s of its live KV; K2,
+   K6 and K7 each launched twice on the same inputs, bit-equal; K7 also at
+   head_dim 120;
    K1 at each 7B linear for M = 64-2047 and the lm_head, on each route,
    beside torch._weight_int8pack_mm and a bf16 torch.mm yardstick;
    K5 also at the paged chunk's shape, GQA groups 1 and 8, head_dim 64 and
@@ -454,46 +460,12 @@ def check_kernels(dev, flush) -> dict:
     """Phase 3. Returns {kernel: entry}."""
     import torch
 
-    from physics_llm_inference_tpu_torch.kernels import int8_kv_attention as ka
-
     g = torch.Generator(device=dev).manual_seed(SEED)
-    d = WIDTHS["hidden_dim"]
-    hq, hkv = WIDTHS["num_heads"], WIDTHS["num_kv_heads"]
-    hd = d // hq
     out = {}
 
     out.update(check_k1(dev, flush, g))
 
-    # K2 at B=64, S=256, Hq=32, Hkv=8, d=128, ragged q_slot / valid_from
-    L, B, S = 2, 64, 256
-    q = torch.randn((B, hq, hd), generator=g, device=dev).bfloat16()
-    kq = torch.randint(-127, 128, (L, B, S, hkv * hd), dtype=torch.int8,
-                       generator=g, device=dev)
-    vq = torch.randint(-127, 128, (L, B, S, hkv * hd), dtype=torch.int8,
-                       generator=g, device=dev)
-    ks = torch.rand((L, B, hkv, S), generator=g, device=dev) * 0.03
-    vs = torch.rand((L, B, hkv, S), generator=g, device=dev) * 0.03
-    qslot = torch.randint(128, S, (B,), generator=g, device=dev).int()
-    vfrom = torch.randint(0, 128, (B,), generator=g, device=dev).int()
-    args = (q, kq, ks, vq, vs, qslot, vfrom)
-    got = ka.int8_kv_decode_attention(*args, layer=1).float()
-    want = ka.int8_kv_decode_attention_plain(*args, layer=1).float()
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    if not bool(torch.isfinite(got).all()) or err > 2e-2:
-        raise AssertionError(f"K2: max abs err {err:.4g} > 2e-2")
-    ms = time_ms(lambda: ka.int8_kv_decode_attention(*args, layer=1), flush)
-    pms = time_ms(lambda: ka.int8_kv_decode_attention_plain(*args, layer=1),
-                  flush)
-    live = int((qslot - vfrom + 1).sum()) * hkv * hd * 2
-    log(f"K2 int8_kv_decode_attention B={B} S={S} Hq={hq} Hkv={hkv} d={hd}: "
-        f"max_abs_err {err:.4g} (atol 2e-2), kernel {ms:.4f} ms "
-        f"({live / ms / 1e6:.0f} GB/s of live KV), plain {pms:.4f} ms")
-    keys = int((qslot - vfrom + 1).sum())  # live keys, one layer
-    out["int8_kv_decode_attention"] = entry(
-        err, ms, pms, keys * hkv * (2 * hd + 2 * 4) + 2 * nbytes(q)
-        + nbytes(qslot, vfrom), 4 * hq * hd * keys)
-
+    out["int8_kv_decode_attention"] = check_k2(dev, flush, g)
     out["lmhead_greedy"] = check_k3(dev, flush, g)
     for mode, (_, _, name, _) in FUSED_MODES.items():
         out[name] = check_fused(dev, flush, mode)
@@ -502,6 +474,58 @@ def check_kernels(dev, flush) -> dict:
     out["fused_paged_decode_step"] = check_fused_paged(dev, flush)
     out.update(check_teaching(dev, flush))
     return out
+
+
+def check_k2(dev, flush, g) -> dict:
+    """K2 at B = 64, Hq 32, Hkv 8, d 128 over a 2-layer cache with ragged
+    ranges (q_slot in [S/2, S), valid_from in [0, S/2)), at S = 256 (the
+    per-op path's cache: prompt 128 + 128 tokens), 1,024 and 4,096: held
+    against its plain version, two launches bit-equal, timed with the GB/s
+    of live KV. Returns the entry at S = 256."""
+    import torch
+
+    from physics_llm_inference_tpu_torch.kernels import int8_kv_attention as ka
+
+    hq, hkv = WIDTHS["num_heads"], WIDTHS["num_kv_heads"]
+    hd = WIDTHS["hidden_dim"] // hq
+    L, B = 2, 64
+    g_long = torch.Generator(device=dev).manual_seed(SEED + 10)
+    for S in (256, 1024, 4096):
+        gen = g if S == 256 else g_long   # S = 256 draws what it always drew
+        q = torch.randn((B, hq, hd), generator=gen, device=dev).bfloat16()
+        kq, vq = (torch.randint(-127, 128, (L, B, S, hkv * hd),
+                                dtype=torch.int8, generator=gen, device=dev)
+                  for _ in "kv")
+        ks, vs = (torch.rand((L, B, hkv, S), generator=gen, device=dev) * 0.03
+                  for _ in "kv")
+        qslot = torch.randint(S // 2, S, (B,), generator=gen, device=dev).int()
+        vfrom = torch.randint(0, S // 2, (B,), generator=gen, device=dev).int()
+        args = (q, kq, ks, vq, vs, qslot, vfrom)
+        got = ka.int8_kv_decode_attention(*args, layer=1).float()
+        want = ka.int8_kv_decode_attention_plain(*args, layer=1).float()
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not bool(torch.isfinite(got).all()) or err > 2e-2:
+            raise AssertionError(f"K2 S={S}: max abs err {err:.4g} > 2e-2")
+        if not torch.equal(ka.int8_kv_decode_attention(*args, layer=1).float(),
+                           got):
+            raise AssertionError(f"K2 S={S}: two launches differ")
+        ms = time_ms(lambda: ka.int8_kv_decode_attention(*args, layer=1),
+                     flush)
+        pms = time_ms(lambda: ka.int8_kv_decode_attention_plain(
+            *args, layer=1), flush, reps=5 if S > 256 else 20)
+        keys = int((qslot - vfrom + 1).sum())  # live keys, one layer
+        live = keys * hkv * hd * 2
+        log(f"K2 int8_kv_decode_attention B={B} S={S} Hq={hq} Hkv={hkv} "
+            f"d={hd}: max_abs_err {err:.4g} (atol 2e-2), two launches "
+            f"bit-equal, kernel {ms:.4f} ms ({live / ms / 1e6:.0f} GB/s of "
+            f"live KV), plain {pms:.4f} ms")
+        if S == 256:
+            row = entry(err, ms, pms, keys * hkv * (2 * hd + 2 * 4)
+                        + 2 * nbytes(q) + nbytes(qslot, vfrom),
+                        4 * hq * hd * keys)
+        del kq, vq, ks, vs
+    return row
 
 
 def check_k3(dev, flush, g) -> dict:
@@ -816,17 +840,18 @@ def check_fused(dev, flush, mode="w8a16"):
     return bound
 
 
-def clock_reading(kf, clock, blocks, L: int, mode: int) -> str:
+def clock_reading(kf, clock, blocks, L: int, mode: int):
     """Each phase's mean us a layer from a phase_clock buffer, and for the
-    GEMM phases the GB/s of that layer's weights (codes and scales)."""
+    GEMM phases the GB/s of that layer's weights (codes and scales): the
+    line, and {phase: us a layer}."""
     names = kf.PHASES_W8A8 if mode == kf.W8A8 else kf.PHASES
     t = clock.cpu().double()
     if bool((t[1:] <= t[:-1]).any()):
         raise AssertionError("phase clock: stamps not increasing")
     dt = (t[1:] - t[:-1]).reshape(L, len(names)) / 1e3   # us
-    parts = []
+    parts, by_phase = [], {}
     for i, name in enumerate(names):
-        us = float(dt[:, i].mean())
+        us = by_phase[name] = float(dt[:, i].mean())
         part = f"{name} {us:.2f}"
         if name in kf.GEMM_PHASES:
             w = blocks[kf.GEMM_PHASES[name]]
@@ -834,7 +859,7 @@ def clock_reading(kf, clock, blocks, L: int, mode: int) -> str:
             part += f" ({gb / us * 1e6:.0f} GB/s)"
         parts.append(part)
     return (f"{float(dt.sum()) / L:.2f} us a layer, {float(dt.sum()) / 1e3:.3f}"
-            f" ms in all; us a layer: " + ", ".join(parts))
+            f" ms in all; us a layer: " + ", ".join(parts)), by_phase
 
 
 def phase_clock(dev):
@@ -864,6 +889,9 @@ def phase_clock(dev):
     qslot = torch.full((B,), slot, dtype=torch.int32, device=dev)
     vfrom = torch.randint(0, 128, (B,), generator=g, device=dev).int()
     pos = slot - vfrom
+    # the attention phase reads each live cached key's K/V codes and scales
+    kv_bytes = int((slot - vfrom).sum()) * hkv * (2 * hd + 8)
+    attention = []
     weights = {}
     for mode, (init, act, _, _) in FUSED_MODES.items():
         mcfg = ModelConfig(num_layers=L, act_quant=act, **WIDTHS)
@@ -877,8 +905,10 @@ def phase_clock(dev):
         kf.fused_decode_step(blocks, x, *cache, *args)
         kf.fused_decode_step(blocks, x, *cache, *args, clock=clock)
         torch.cuda.synchronize()
-        log(f"phase clock, K4 {mode.upper()} L={L} B={B} S={S}: "
-            + clock_reading(kf, clock, blocks, L, kmode))
+        line, us = clock_reading(kf, clock, blocks, L, kmode)
+        log(f"phase clock, K4 {mode.upper()} L={L} B={B} S={S}: {line}")
+        attention.append(f"K4 {mode.upper()} {us['attention']:.2f} "
+                         f"({kv_bytes / us['attention'] / 1e3:.0f} GB/s)")
     blocks = weights.pop("init_params_int8")
     del cache, weights
     torch.cuda.empty_cache()
@@ -894,8 +924,13 @@ def phase_clock(dev):
     kf.fused_paged_decode_step(blocks, x, kv, kvs, *args, inplace=True,
                                clock=clock)
     torch.cuda.synchronize()
-    log(f"phase clock, K8 L={L} B={B} BS={BS} MB={MB} NB={NB}: "
-        + clock_reading(kf, clock, blocks, L, kf.W8A16))
+    line, us = clock_reading(kf, clock, blocks, L, kf.W8A16)
+    log(f"phase clock, K8 L={L} B={B} BS={BS} MB={MB} NB={NB}: {line}")
+    kv_bytes = int(lens.sum()) * hkv * (2 * hd + 8)
+    attention.append(f"K8 {us['attention']:.2f} "
+                     f"({kv_bytes / us['attention'] / 1e3:.0f} GB/s)")
+    log("phase clock, attention phase, us a layer (GB/s of live KV codes "
+        "and scales): " + ", ".join(attention))
     del kv, kvs, blocks
     torch.cuda.empty_cache()
 
@@ -1057,8 +1092,9 @@ def check_paged_attention(dev, flush) -> dict:
     """K6 (INT8 merged pools) and K7 (bf16 pools) at B = 64, Hq 32, Hkv 8,
     d 128 over 2-layer pools, in the per-op route's geometry (BS 16, MB 64)
     and the default one (BS 512, MB 2): scattered tables, ragged lengths
-    with 1, block boundaries and the whole table. Returns their entries,
-    from the per-op geometry that the engine's per-op routes run."""
+    with 1, block boundaries and the whole table; then K7 at d 120. Returns
+    their entries, from the per-op geometry that the engine's per-op routes
+    run."""
     import torch
 
     from physics_llm_inference_tpu_torch.kernels import paged_attention as kp
@@ -1110,6 +1146,30 @@ def check_paged_attention(dev, flush) -> dict:
                     err, ms, pms, keys * hkv * (2 * d * elt + (8 if elt == 1
                                                                else 0))
                     + 2 * nbytes(q) + nbytes(tables, ctx), 4 * hq * d * keys)
+    # K7 at head_dim 120 (a multiple of 8, not of 16: the loop zero-fills
+    # its last k16 chunk) in the per-op geometry, over the same tables
+    d = 120
+    bs, mb = 16, 64
+    NB = B * mb + 17
+    lens = torch.randint(1, bs * mb + 1, (B,), generator=g, device=dev)
+    tables = _scattered_tables(g, dev, B, mb, NB, -(-lens // bs), NB - 1)
+    q = torch.randn((B, hq, d), generator=g, device=dev).bfloat16()
+    kpool, vpool = (torch.randn((L, NB, bs, hkv, d), generator=g,
+                                device=dev).bfloat16() for _ in "kv")
+    args = (q, kpool, vpool, tables, lens.int())
+    got = kp.paged_decode_attention(*args, layer=1).float()
+    want = kp.paged_decode_attention_plain(*args, layer=1).float()
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not bool(torch.isfinite(got).all()) or err > 2e-2:
+        raise AssertionError(f"K7 d={d}: max abs err {err:.4g} > 2e-2")
+    if not torch.equal(kp.paged_decode_attention(*args, layer=1).float(), got):
+        raise AssertionError(f"K7 d={d}: two launches differ")
+    ms = time_ms(lambda: kp.paged_decode_attention(*args, layer=1), flush)
+    live = int(lens.sum()) * hkv * d * 2 * 2
+    log(f"K7 paged_decode_attention B={B} Hq={hq} Hkv={hkv} d={d} BS={bs} "
+        f"MB={mb}: max_abs_err {err:.4g} (atol 2e-2), two launches bit-equal, "
+        f"kernel {ms:.4f} ms ({live / ms / 1e6:.0f} GB/s of live KV)")
     return out
 
 
@@ -1794,6 +1854,26 @@ def full_run(dev, params, prompt: int, fused: bool, layers: int,
     return counts
 
 
+def decode_alone(dev):
+    """--decode: phase 5's cached_generate at prompt 128 in each K4 mode,
+    32 layers, each a warm-up run and a timed run."""
+    import torch
+
+    from physics_llm_inference_tpu_torch.models.config import ModelConfig
+    from physics_llm_inference_tpu_torch.models.quant import (init_params_int4,
+                                                              init_params_int8)
+
+    cfg = ModelConfig(num_layers=32, **WIDTHS)
+    for mode, (init, _, name, _) in FUSED_MODES.items():
+        init_fn = {"init_params_int8": init_params_int8,
+                   "init_params_int4": init_params_int4}[init]
+        params = init_fn(torch.Generator(device=dev).manual_seed(SEED), cfg)
+        full_run(dev, params, PROMPT, True, 32,
+                 ("int8_matmul", name, "lmhead_greedy"), mode=mode)
+        del params
+        torch.cuda.empty_cache()
+
+
 def full_runs(dev) -> dict:
     """Phase 5: the default config at prompt 128 and 512, then the per-op
     decode path, then W8A8 and W4A16 at prompt 128. Returns each kernel's
@@ -2232,9 +2312,14 @@ def main(argv=()) -> int:
         log(line)
 
     flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
-    if set(argv) & {"--k1", "--fused", "--serving"}:
-        # parts alone, for comparing trees: K1 in phase 3; K4 in each mode,
-        # K8 and the phase clock; the bench_serving7b wave
+    if set(argv) & {"--k1", "--attention", "--fused", "--decode",
+                    "--serving"}:
+        # parts alone, for comparing trees: K1 in phase 3; K2, K6 and K7
+        # in phase 3; K4 in each mode, K8 and the phase clock; decode at
+        # prompt 128 in each K4 mode; the bench_serving7b wave
+        if "--attention" in argv:
+            check_k2(dev, flush, torch.Generator(device=dev).manual_seed(SEED))
+            check_paged_attention(dev, flush)
         if "--k1" in argv:
             check_k1(dev, flush, torch.Generator(device=dev).manual_seed(SEED))
             check_k3(dev, flush, torch.Generator(device=dev).manual_seed(SEED))
@@ -2246,6 +2331,8 @@ def main(argv=()) -> int:
         torch.cuda.empty_cache()
         if "--fused" in argv:
             phase_clock(dev)
+        if "--decode" in argv:
+            decode_alone(dev)
         if "--serving" in argv:
             serving_alone(dev)
         log(nvidia_smi())

@@ -46,8 +46,10 @@
 //   1. QKV partials;  2. per (request, kv head): the fixed-order sum of the
 //      partials, bf16, RoPE, quantize K/V into the new-KV buffers;
 //   3. per (request, kv head): attention over the cache slots [valid_from,
-//      q_slot) (kv_attn::attend, shared with K2; K8: the request's pool
-//      blocks through the table), merged with the current token;
+//      q_slot) (kv_attn::attend, the tensor-core loop of K2, K6 and K7: a
+//      crew's four warps split the keys, each streams them through its own
+//      cp.async ring; K8: the request's pool blocks through the table),
+//      merged with the current token;
 //      (W8A8: per request, the attention row quantized);
 //   4. WO partials, and the new K/V written to the cache (after every read
 //      of it in phase 3);  5. per request: x += sum * scale, then RMSNorm ->
@@ -180,7 +182,7 @@ static __device__ __forceinline__ Crew block_crew() {
 
 // A crew's shared memory in the row, RoPE and attention phases.
 struct CrewSmem {
-  kv_attn::Smem att;
+  kv_attn::Smem<int8_t> att;
   float kv[2 * kv_attn::DMAX];             // one head's K and V rows
   float red[MAX_WARPS];
   double red_d[MAX_WARPS];
@@ -400,7 +402,7 @@ static __device__ void qkv_phase(const Params& p, const Crew& c, CrewSmem& cs, i
   const int HD = p.HD, hd2 = HD / 2, group = p.HQ / p.HKV;
   const int QH = p.HQ * HD, KH = p.HKV * HD, QO = QH + 2 * KH;
   const float* sc = p.sqkv + (size_t)l * QO;
-  float* qkv = reinterpret_cast<float*>(cs.att.k);   // (group + 2) x HD
+  float* qkv = reinterpret_cast<float*>(cs.att.ring);   // (group + 2) x HD
   float* kf = cs.kv;
   float* vf = cs.kv + HD;
   for (int it = c.id; it < p.B * p.HKV; it += c.count) {
@@ -548,7 +550,7 @@ template <bool kPaged>
 static __device__ void attention_phase(const Params& p, const Crew& c, CrewSmem& cs, int l,
                                        const short* order) {
   using kv_attn::GMAX;
-  kv_attn::Smem& sm = cs.att;
+  kv_attn::Smem<int8_t>& sm = cs.att;
   const int HD = p.HD, group = p.HQ / p.HKV, items = p.B * p.HKV;
   const int QH = p.HQ * HD, KH = p.HKV * HD;
   const int tid = c.tid, lane = tid & 31, warp = tid >> 5;
@@ -590,15 +592,18 @@ static __device__ void attention_phase(const Params& p, const Crew& c, CrewSmem&
     const int8_t* vn = p.v_new + lb * KH + (size_t)g * HD;
     const float ksc = __ldcg(p.ks_new + lb * p.HKV + g);
     const float vsc = __ldcg(p.vs_new + lb * p.HKV + g);
-    // HD <= 128: one 4-byte load a lane
+    // HD <= 128: one 4-byte load of the key and one 8-byte load of q a lane
     const uint32_t kw4 = 4 * lane < HD ? __ldcg(reinterpret_cast<const unsigned*>(kn) + lane) : 0u;
     for (int r = warp; r < group; r += c.size / 32) {
       float dot = 0.f;
       if (4 * lane < HD) {
+        const uint2 q4 = __ldcg(reinterpret_cast<const uint2*>(qg + r * HD + 4 * lane));
+        const float qf[4] = {kv_attn::lo_f32(q4.x), kv_attn::hi_f32(q4.x),
+                             kv_attn::lo_f32(q4.y), kv_attn::hi_f32(q4.y)};
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const float kq = static_cast<float>(static_cast<int8_t>(kw4 >> (8 * e)));
-          dot += sm.q[r][4 * lane + e] * bf(kq * ksc);
+          dot += qf[e] * bf(kq * ksc);
         }
       }
 #pragma unroll
@@ -609,7 +614,7 @@ static __device__ void attention_phase(const Params& p, const Crew& c, CrewSmem&
         const float alpha = expf(sm.m[r] - m_new);
         const float p_cur = expf(s_cur - m_new);
         sm.alpha[r] = alpha;
-        sm.p[r][0] = p_cur;
+        sm.pc[r] = p_cur;
         sm.l[r] = sm.l[r] * alpha + p_cur;
       }
     }
@@ -619,7 +624,7 @@ static __device__ void attention_phase(const Params& p, const Crew& c, CrewSmem&
 #pragma unroll
       for (int r = 0; r < GMAX; ++r) {
         if (r < group) {
-          const float o = (acc[r] * sm.alpha[r] + sm.p[r][0] * v_cur) / sm.l[r];
+          const float o = (acc[r] * sm.alpha[r] + sm.pc[r] * v_cur) / sm.l[r];
           p.attn[(size_t)b * QH + (size_t)(g * group + r) * HD + tid] = __float2bfloat16(o);
         }
       }

@@ -8,12 +8,17 @@
 // by element; the mask is valid_from[b] <= k <= q_slot[b]; the softmax is an
 // f32 online softmax whose denominator is never zero.
 //
-// Bound on the H100: KV bytes (each int8 byte of the live cache is read once
-// and feeds 2 flop per query row of its group). One block per (kv head,
-// request) walks the cache only over [valid_from, q_slot] -- the Hopper form
-// of the TPU kernel's clamped index map: masked tiles are never read at all.
-// The loop itself is kv_attn::attend (int8_kv_attention.cuh), which the
-// fused decode kernels and the paged kernel share.
+// Bound on the H100: the live KV bytes (each int8 byte of the live cache is
+// read once and feeds 2 flop per query row of its group). One block per
+// (kv head, request) walks the cache only over [valid_from, q_slot] -- the
+// Hopper form of the TPU kernel's clamped index map: masked tiles are never
+// read at all. The loop is kv_attn::attend (int8_kv_attention.cuh), which
+// K4, K6, K7 and K8 share: its four warps split the live keys, each streams
+// its 16-key steps through its own cp.async ring and runs both products on
+// mma.sync, so the next step's bytes are in flight while a step computes.
+// p * v_scale stays f32 in value: P@V runs on its bf16 high part and the
+// bf16 of its remainder. 38.4 KB of shared memory and 128 registers a
+// thread: four blocks an SM, so the B 64 x Hkv 8 grid is one wave.
 
 #include <cuda_runtime.h>
 
@@ -31,10 +36,9 @@ int8_kv_decode_attention_kernel(
     const float* __restrict__ vs, const int* __restrict__ q_slot,
     const int* __restrict__ valid_from, __nv_bfloat16* __restrict__ out,
     int S, int Hq, int Hkv, int d, float scale) {
-  __shared__ kv_attn::Smem sm;
+  __shared__ kv_attn::Smem<int8_t> sm;
 
   const int h = blockIdx.x, b = blockIdx.y;
-  const int tid = threadIdx.x;
   const int group = Hq / Hkv;
   const size_t row = (size_t)Hkv * d;             // bytes between keys
   const size_t qrow = ((size_t)b * Hq + (size_t)h * group) * d;
@@ -47,15 +51,7 @@ int8_kv_decode_attention_kernel(
   kv_attn::attend<false>(q + qrow, addr, max(valid_from[b], 0),
                          min(q_slot[b], S - 1), group, d, scale, sm, acc);
 
-  if (tid < d) {
-#pragma unroll
-    for (int r = 0; r < GMAX; ++r) {
-      if (r < group) {
-        const float l = sm.l[r];
-        out[qrow + (size_t)r * d + tid] = __float2bfloat16(acc[r] / (l > 0.f ? l : 1.f));
-      }
-    }
-  }
+  kv_attn::store_rows(out + qrow, acc, sm, group, d);
 }
 
 }  // namespace

@@ -71,9 +71,15 @@ def test_int8_matmul_kernel_matches_plain(dev, m, k, n, route):
         assert torch.equal(t_mm.int8_matmul(x, wq, s, layer=1), got)
 
 
-def test_int8_kv_attention_kernel_matches_plain(dev):
-    g = _gen(dev, 1)
-    L, B, S, hq, hkv, d = 2, 5, 300, 8, 2, 128
+# (valid_from, q_slot) rows: live ranges of 1, 15, 16, 17, 33, 146 and 300
+# keys, most starting off the 16-key grid, and 2 keys across it: the warp
+# split and the 16-key step's ragged ends
+K2_RANGES = [(20, 20), (3, 17), (21, 36), (7, 23), (33, 65), (5, 150),
+             (0, 299), (127, 128)]
+
+
+def _k2_inputs(dev, seed, B, S, hq, hkv, d, L=2):
+    g = _gen(dev, seed)
     q = torch.randn((B, hq, d), generator=g, device=dev).bfloat16()
     kq = torch.randint(-127, 128, (L, B, S, hkv * d), dtype=torch.int8,
                        generator=g, device=dev)
@@ -81,13 +87,33 @@ def test_int8_kv_attention_kernel_matches_plain(dev):
                        generator=g, device=dev)
     ks = torch.rand((L, B, hkv, S), generator=g, device=dev) * 0.02
     vs = torch.rand((L, B, hkv, S), generator=g, device=dev) * 0.02
-    qslot = torch.tensor([299, 150, 7, 20, 128], dtype=torch.int32, device=dev)
-    vfrom = torch.tensor([0, 5, 2, 20, 127], dtype=torch.int32, device=dev)
-    got = t_attn.int8_kv_decode_attention(q, kq, ks, vq, vs, qslot, vfrom,
-                                          layer=1)
-    want = t_attn.int8_kv_decode_attention_plain(q, kq, ks, vq, vs, qslot,
-                                                 vfrom, layer=1)
+    return q, kq, ks, vq, vs
+
+
+# groups 4, 1 and 8; head_dim 128 and 64
+@pytest.mark.parametrize("hq,hkv,d", [(8, 2, 128), (8, 8, 128), (16, 2, 128),
+                                      (16, 2, 64)])
+def test_int8_kv_attention_kernel_matches_plain(dev, hq, hkv, d):
+    B, S = len(K2_RANGES), 300
+    args = _k2_inputs(dev, 1, B, S, hq, hkv, d)
+    vfrom, qslot = (torch.tensor(c, dtype=torch.int32, device=dev)
+                    for c in zip(*K2_RANGES))
+    got = t_attn.int8_kv_decode_attention(*args, qslot, vfrom, layer=1)
+    want = t_attn.int8_kv_decode_attention_plain(*args, qslot, vfrom, layer=1)
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=2e-2)
+
+
+def test_int8_kv_attention_kernel_two_launches_bit_equal(dev):
+    """At the 7B heads (B 64, S 256, ragged ranges): the warps' states merge
+    in a fixed order, so a second launch gives the same bits."""
+    B, S = 64, 256
+    args = _k2_inputs(dev, 8, B, S, 32, 8, 128)
+    g = _gen(dev, 9)
+    qslot = torch.randint(128, S, (B,), generator=g, device=dev).int()
+    vfrom = torch.randint(0, 128, (B,), generator=g, device=dev).int()
+    got = t_attn.int8_kv_decode_attention(*args, qslot, vfrom, layer=1)
+    assert torch.equal(
+        t_attn.int8_kv_decode_attention(*args, qslot, vfrom, layer=1), got)
 
 
 @pytest.mark.parametrize("B,D,V", [(9, 512, 1000), (64, 4096, 32000)])
@@ -402,14 +428,18 @@ def _paged_tables(g, dev, B, MB, NB, lens, bs, trash):
     return tables
 
 
+# groups 4 and 8, head_dim 128 and 64; K7 alone at head_dim 120 (% 8, not
+# % 16: its tail k-step zero-filled)
+@pytest.mark.parametrize("hq,hkv,d", [(8, 2, 128), (16, 2, 128), (8, 2, 64),
+                                      (8, 2, 120)])
 @pytest.mark.parametrize("bs,mb", [(16, 8), (128, 2)])
-def test_paged_attention_kernels_match_plain(dev, bs, mb):
+def test_paged_attention_kernels_match_plain(dev, bs, mb, hq, hkv, d):
     from physics_llm_inference_tpu_torch.kernels import paged_attention as t_pa
 
     g = _gen(dev, 7)
-    lens = [0, 1, bs, bs + 1, mb * bs, mb * bs + 9, 37]
+    lens = [0, 1, bs, bs + 1, mb * bs, mb * bs + 9, 37, 15, 17, 33]
     B = len(lens)
-    L, NB, hq, hkv, d = 2, B * mb + 2, 8, 2, 128
+    L, NB = 2, B * mb + 2
     tables = _paged_tables(g, dev, B, mb, NB, lens, bs, NB - 1)
     ctx = torch.tensor(lens, dtype=torch.int32, device=dev)
     q = torch.randn((B, hq, d), generator=g, device=dev).bfloat16()
@@ -418,19 +448,23 @@ def test_paged_attention_kernels_match_plain(dev, bs, mb):
     kvs = torch.rand((L, NB, 2, hkv, bs), generator=g, device=dev) * 0.02
     kp = torch.randn((L, NB, bs, hkv, d), generator=g, device=dev).bfloat16()
     vp = torch.randn((L, NB, bs, hkv, d), generator=g, device=dev).bfloat16()
-    b6, b7 = t_pa.int8_paged_launches, t_pa.paged_launches
-    got6 = t_pa.int8_paged_decode_attention(q, kv, kvs, tables, ctx, layer=1)
-    got7 = t_pa.paged_decode_attention(q, kp, vp, tables, ctx, layer=1)
-    torch.cuda.synchronize()
-    assert (t_pa.int8_paged_launches, t_pa.paged_launches) == (b6 + 1, b7 + 1)
-    want6 = t_pa.int8_paged_decode_attention_plain(q, kv, kvs, tables, ctx,
-                                                   layer=1)
-    want7 = t_pa.paged_decode_attention_plain(q, kp, vp, tables, ctx, layer=1)
-    # other f32 summation orders and tile-wise online softmax; K6 rounds
-    # p * v_scale to bf16 against its running max; outputs in bf16
-    torch.testing.assert_close(got6.float(), want6.float(), rtol=0, atol=2e-2)
-    torch.testing.assert_close(got7.float(), want7.float(), rtol=0, atol=2e-2)
-    assert not got6[0].any() and not got7[0].any()       # no key: zeros
+    cases = [(t_pa.paged_decode_attention, kp, vp, "paged_launches")]
+    if d % 16 == 0:
+        cases.append((t_pa.int8_paged_decode_attention, kv, kvs,
+                      "int8_paged_launches"))
+    for fn, a, b, counter in cases:
+        before = getattr(t_pa, counter)
+        got = fn(q, a, b, tables, ctx, layer=1)
+        torch.cuda.synchronize()
+        assert getattr(t_pa, counter) == before + 1
+        want = getattr(t_pa, f"{fn.__name__}_plain")(q, a, b, tables, ctx,
+                                                     layer=1)
+        # other f32 summation orders and a warp-wise online softmax; K6
+        # rounds p * v_scale to bf16 against its running max; bf16 out
+        torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                   atol=2e-2)
+        assert not got[0].any()                       # no key: zeros
+        assert torch.equal(fn(q, a, b, tables, ctx, layer=1), got)
 
 
 @pytest.mark.parametrize("inplace", [False, True])

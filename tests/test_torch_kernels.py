@@ -50,21 +50,41 @@ def test_int8_matmul_stacked_matches_pallas(layer):
                                rtol=1e-5)
 
 
-def _attn_inputs(seed=2, L=2, B=4, S=64, hq=8, hkv=2, d=64):
+# (valid_from, q_slot) rows: live ranges of 1, 15, 16, 17 and 33 keys, most
+# starting off the 16-key grid (the CUDA loop's warp split and 16-key steps)
+RAGGED = [(20, 20), (3, 17), (21, 36), (7, 23), (30, 62)]
+
+
+def _attn_inputs(seed=2, L=2, B=4, S=64, hq=8, hkv=2, d=64, ranges=None):
     rng = np.random.default_rng(seed)
     q = rng.normal(0, 1, (B, hq, d)).astype(np.float32)
     kq = rng.integers(-127, 128, (L, B, S, hkv * d)).astype(np.int8)
     vq = rng.integers(-127, 128, (L, B, S, hkv * d)).astype(np.int8)
     ks = rng.uniform(0.005, 0.02, (L, B, hkv, S)).astype(np.float32)
     vs = rng.uniform(0.005, 0.02, (L, B, hkv, S)).astype(np.float32)
-    qslot = np.array([63, 40, 7, 20], np.int32)[:B]
-    vfrom = np.array([0, 5, 2, 20], np.int32)[:B]
+    if ranges is None:
+        qslot = np.array([63, 40, 7, 20], np.int32)[:B]
+        vfrom = np.array([0, 5, 2, 20], np.int32)[:B]
+    else:
+        vfrom, qslot = np.array(ranges, np.int32).T.copy()
     return q, kq, ks, vq, vs, qslot, vfrom
 
 
-@pytest.mark.parametrize("layer", [0, 1])
-def test_int8_kv_attention_matches_pallas(layer):
-    q, kq, ks, vq, vs, qslot, vfrom = _attn_inputs()
+# shape: (Hq, Hkv, head_dim) over the RAGGED rows; None: the first inputs
+@pytest.mark.parametrize("layer,shape", [
+    pytest.param(0, None, id="0"), pytest.param(1, None, id="1"),
+    pytest.param(1, (8, 1, 64), id="ragged-group8-d64"),
+    pytest.param(0, (16, 2, 128), id="ragged-group8-d128"),
+    pytest.param(1, (4, 4, 128), id="ragged-group1-d128"),
+    pytest.param(0, (4, 4, 64), id="ragged-group1-d64"),
+    pytest.param(1, (8, 2, 64), id="ragged-group4-d64")])
+def test_int8_kv_attention_matches_pallas(layer, shape):
+    if shape is None:
+        q, kq, ks, vq, vs, qslot, vfrom = _attn_inputs()
+    else:
+        hq, hkv, d = shape
+        q, kq, ks, vq, vs, qslot, vfrom = _attn_inputs(
+            4, B=len(RAGGED), hq=hq, hkv=hkv, d=d, ranges=RAGGED)
     want = j_attn(jnp.asarray(q), jnp.asarray(kq), jnp.asarray(ks),
                   jnp.asarray(vq), jnp.asarray(vs), q_slot=jnp.asarray(qslot),
                   valid_from=jnp.asarray(vfrom), layer=jnp.int32(layer),

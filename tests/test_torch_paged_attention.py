@@ -43,10 +43,14 @@ def _plain_pools(rng, L, nb, hkv, d, decoy):
 
 
 @pytest.mark.parametrize("stacked", [False, True])
-@pytest.mark.parametrize("hq,hkv", [(4, 2), (4, 4), (8, 1)])
-def test_paged_attention_twin_matches_pallas(stacked, hq, hkv):
+@pytest.mark.parametrize("hq,hkv,d", [
+    pytest.param(4, 2, 64, id="4-2"), pytest.param(4, 4, 64, id="4-4"),
+    pytest.param(8, 1, 64, id="8-1"), pytest.param(16, 2, 64, id="16-2"),
+    pytest.param(16, 2, 128, id="16-2-d128"),
+    pytest.param(8, 1, 120, id="8-1-d120")])   # K7 takes d % 8
+def test_paged_attention_twin_matches_pallas(stacked, hq, hkv, d):
     rng = np.random.default_rng(hq * 10 + hkv)
-    L, nb, d, mb, decoy = 2, 24, 64, 4, 5
+    L, nb, mb, decoy = 2, 24, 4, 5
     k, v = _plain_pools(rng, L, nb, hkv, d, decoy)
     q = rng.normal(0, 1, (len(LENS), hq, d)).astype(np.float32)
     tables = _tables(rng, LENS, mb, nb, decoy)
@@ -88,11 +92,15 @@ def _int8_pools(rng, L, nb, hkv, d, decoy):
     return kv, kvs
 
 
-@pytest.mark.parametrize("hq,hkv", [(4, 2), (8, 1)])
+@pytest.mark.parametrize("hq,hkv,d", [
+    pytest.param(4, 2, 64, id="4-2"), pytest.param(8, 1, 64, id="8-1"),
+    pytest.param(16, 2, 64, id="16-2"),
+    pytest.param(16, 2, 128, id="16-2-d128"),
+    pytest.param(4, 4, 128, id="4-4-d128")])
 @pytest.mark.parametrize("unstacked", [False, True])
-def test_int8_paged_attention_twin_matches_pallas(hq, hkv, unstacked):
+def test_int8_paged_attention_twin_matches_pallas(hq, hkv, d, unstacked):
     rng = np.random.default_rng(hq + 3 * hkv)
-    L, nb, d, mb, decoy = 2, 24, 64, 4, 7
+    L, nb, mb, decoy = 2, 24, 4, 7
     kv, kvs = _int8_pools(rng, L, nb, hkv, d, decoy)
     q = rng.normal(0, 1, (len(LENS), hq, d)).astype(np.float32)
     tables = _tables(rng, LENS, mb, nb, decoy)
