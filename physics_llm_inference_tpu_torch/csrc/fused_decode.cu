@@ -138,7 +138,8 @@ struct Params {
                                            // the attention items claimed
   int L, B, S, D, F, HQ, HKV, HD;
   int NB, MB, BS;                          // K8: pool blocks, table width, block size
-  int slot, write_cache;
+  const int* slot;                         // K4, write_cache: (B,) write slots
+  int write_cache;
   w8s::Plan plan[4];                       // each GEMM phase's plan
   int g_qkv, g_wo, g_gu, g_dn;             // W4A16: K rows of a scale group
   float eps, scale;
@@ -461,7 +462,9 @@ static __device__ void qkv_phase(const Params& p, const Crew& c, CrewSmem& cs, i
 }
 
 // Where request b's new K/V of kv head g in layer l land, if anywhere: the
-// slot `slot` of its cache row (K4, write_cache), or its own write position
+// slot slot[b] of its cache row (K4, write_cache; read from device memory,
+// so a captured launch writes where each replay's slots say), or its own
+// write position
 // in the pools (K8, in place; a stale length past the table (a retired row
 // inside a horizon) stays inside the request's own table row, as JAX
 // clamps).
@@ -481,12 +484,13 @@ static __device__ __forceinline__ bool new_kv_position(const Params& p, int l, i
     ksw = p.ks + ((size_t)l * p.NB + blk) * 2 * spage + (size_t)g * p.BS + off;
     vsw = ksw + spage;
   } else {
-    if (p.slot < 0 || p.slot >= p.S) return false;
+    const int slot = p.slot[b];
+    if (slot < 0 || slot >= p.S) return false;
     const size_t lb = (size_t)l * p.B + b;
-    kw = p.kq + (lb * p.S + p.slot) * KH + (size_t)g * HD;
-    vw = p.vq + (lb * p.S + p.slot) * KH + (size_t)g * HD;
-    ksw = p.ks + (lb * p.HKV + g) * p.S + p.slot;
-    vsw = p.vs + (lb * p.HKV + g) * p.S + p.slot;
+    kw = p.kq + (lb * p.S + slot) * KH + (size_t)g * HD;
+    vw = p.vq + (lb * p.S + slot) * KH + (size_t)g * HD;
+    ksw = p.ks + (lb * p.HKV + g) * p.S + slot;
+    vsw = p.vs + (lb * p.HKV + g) * p.S + slot;
   }
   return true;
 }
@@ -993,18 +997,20 @@ extern "C" int pli_fused_decode_grid(int instance, int* grid) {
 // (kernels/w8a16_stream.plan; W4A16 over the packed bytes); ws holds the
 // largest phase's partials; sync two unsigned. W8A8: a8 holds B rows of
 // row_pitch(max(D, HQ*HD, F)) bytes, asc 5 * B floats, ffs B * F floats.
-// clock: null, or 1 + L * phases stamps. `grid` comes from
+// slot: with write_cache, (B,) int32 write slots on the device (a slot
+// outside [0, S) writes nothing). clock: null, or 1 + L * phases stamps.
+// `grid` comes from
 // pli_fused_decode_grid(mode). Returns the launch's error.
 extern "C" int pli_fused_decode_step(
     const void* x0, const void* ln1, const void* ln2, const void* wqkv,
     const void* sqkv, const void* wo, const void* swo, const void* wgu,
     const void* sgu, const void* wdn, const void* sdn, void* kq, void* ks,
     void* vq, void* vs, const void* cos, const void* sin, const void* q_slot,
-    const void* valid_from, void* k_new, void* ks_new, void* v_new,
-    void* vs_new, void* x_out, void* xf, void* h, void* qbuf, void* attn,
-    void* ff, void* ws, void* a8, void* asc, void* ffs, void* sync, void* clock,
-    const int* plan, int L, int B, int S, int D, int F, int HQ, int HKV, int HD,
-    int slot, int write_cache, int mode, int g_qkv, int g_wo, int g_gu,
+    const void* valid_from, const void* slot, void* k_new, void* ks_new,
+    void* v_new, void* vs_new, void* x_out, void* xf, void* h, void* qbuf,
+    void* attn, void* ff, void* ws, void* a8, void* asc, void* ffs, void* sync,
+    void* clock, const int* plan, int L, int B, int S, int D, int F, int HQ,
+    int HKV, int HD, int write_cache, int mode, int g_qkv, int g_wo, int g_gu,
     int g_dn, float eps, float scale, int grid, void* stream) {
   if (mode != W8A16 && mode != W4A16 && mode != W8A8)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1026,7 +1032,7 @@ extern "C" int pli_fused_decode_step(
   p.L = L; p.B = B; p.S = S; p.D = D; p.F = F;
   p.HQ = HQ; p.HKV = HKV; p.HD = HD;
   p.NB = 0; p.MB = 0; p.BS = 0;
-  p.slot = slot; p.write_cache = write_cache;
+  p.slot = static_cast<const int*>(slot); p.write_cache = write_cache;
   p.eps = eps; p.scale = scale;
   return launch(p, mode, mode, grid, stream);
 }
@@ -1063,7 +1069,7 @@ extern "C" int pli_fused_paged_decode_step(
   p.L = L; p.B = B; p.S = 0; p.D = D; p.F = F;
   p.HQ = HQ; p.HKV = HKV; p.HD = HD;
   p.NB = NB; p.MB = MB; p.BS = BS;
-  p.slot = -1; p.write_cache = inplace;
+  p.slot = nullptr; p.write_cache = inplace;
   p.eps = eps; p.scale = scale;
   return launch(p, K8, W8A16, grid, stream);
 }

@@ -52,12 +52,13 @@ SIGNATURES = {
     # blocks of one cooperative launch
     "pli_fused_decode_grid": [_I, _P],
     # x0, ln1, ln2, wqkv, sqkv, wo, swo, wgu, sgu, wdn, sdn, k_q, k_s, v_q,
-    # v_s, cos, sin, q_slot, valid_from, k_new, ks_new, v_new, vs_new, x_out,
-    # then the workspaces xf, h, qbuf, attn, ff, ws, a8, asc, ffs, the grid
-    # barrier's counter, the phase clock (null: off), the plan (host: four
-    # GEMM phases x 5 ints); L, B, S, D, F, Hq, Hkv, hd, slot, write_cache,
-    # mode, the four INT4 group sizes; eps, scale; grid, stream
-    "pli_fused_decode_step": [_P] * 36 + [_I] * 15 + [_F, _F, _I, _P],
+    # v_s, cos, sin, q_slot, valid_from, the write slots (device, (B,)),
+    # k_new, ks_new, v_new, vs_new, x_out, then the workspaces xf, h, qbuf,
+    # attn, ff, ws, a8, asc, ffs, the grid barrier's counter, the phase clock
+    # (null: off), the plan (host: four GEMM phases x 5 ints); L, B, S, D, F,
+    # Hq, Hkv, hd, write_cache, mode, the four INT4 group sizes; eps, scale;
+    # grid, stream
+    "pli_fused_decode_step": [_P] * 37 + [_I] * 14 + [_F, _F, _I, _P],
     # x0, ln1, ln2, wqkv, sqkv, wo, swo, wgu, sgu, wdn, sdn, kv, kvs, cos,
     # sin, lengths, tables, k_new, ks_new, v_new, vs_new, x_out, then the
     # workspaces xf, h, qbuf, attn, ff, ws, the counter, the phase clock, the

@@ -143,6 +143,12 @@ def _quant(x: torch.Tensor):
     return q.to(torch.int8), s
 
 
+def _round_pv(pv: torch.Tensor) -> torch.Tensor:
+    """p * v_scale rounded to bf16 before P@V, as the TPU kernel rounds it
+    (a function of its own, so a check can leave the rounding out)."""
+    return pv.to(torch.bfloat16).float()
+
+
 def _mm(a: torch.Tensor, w, layer: int) -> torch.Tensor:
     """f32 (a @ w.q[layer]) * w.s[layer]."""
     return int8_matmul_plain(a, w.q, w.s, layer=layer, out_dtype=torch.float32)
@@ -187,6 +193,16 @@ def _proj(acc, a, w, layer: int, mode: int, tk: int | None = None):
     return acc
 
 
+def write_slots(slot, b: int, device) -> torch.Tensor:
+    """A write_cache launch's write slots as a (B,) int32 tensor on
+    `device`: a tensor (0-d or (B,)) is used where it lies, so a captured
+    step reads each replay's slots; an int is filled on the device."""
+    if isinstance(slot, torch.Tensor):
+        return (slot.to(device=device, dtype=torch.int32).reshape(-1)
+                .expand(b).contiguous())
+    return torch.full((b,), int(slot), dtype=torch.int32, device=device)
+
+
 def fused_decode_step_plain(blocks, x, k_q, k_s, v_q, v_s, q_slot, valid_from,
                             rope_cos_g, rope_sin_g, cfg, slot=None,
                             write_cache: bool = False):
@@ -200,6 +216,12 @@ def fused_decode_step_plain(blocks, x, k_q, k_s, v_q, v_s, q_slot, valid_from,
     mode = fused_decode_mode(blocks, cfg)
     bf = torch.bfloat16
     L, B, S, _ = k_q.shape
+    if write_cache:
+        # a slot outside [0, S) writes nothing, as in the kernel
+        wslot = write_slots(slot, B, x.device).long()
+        bidx = torch.arange(B, device=x.device)
+        ws = wslot.clamp(0, S - 1)
+        ok = ((wslot >= 0) & (wslot < S))[:, None]
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     g, f = hq // hkv, cfg.intermediate_dim
     sm_scale = 1.0 / math.sqrt(hd)
@@ -247,7 +269,7 @@ def fused_decode_step_plain(blocks, x, k_q, k_s, v_q, v_s, q_slot, valid_from,
         p_cur = torch.exp(s_cur - m)
         denom = p.sum(dim=-1, keepdim=True) + p_cur
         pv = torch.einsum("bhgs,bshd->bhgd",
-                          (p * v_s[l][:, :, None, :]).to(bf).float(), vc)
+                          _round_pv(p * v_s[l][:, :, None, :]), vc)
         pv = pv + p_cur * vcur[:, :, None, :]
         attn = (pv / denom).reshape(B, hq * hd).to(bf)
 
@@ -264,10 +286,12 @@ def fused_decode_step_plain(blocks, x, k_q, k_s, v_q, v_s, q_slot, valid_from,
         codes = (k8.reshape(B, hkv * hd), ks[..., 0], v8.reshape(B, hkv * hd),
                  vs[..., 0])
         if write_cache:
-            k_q[l][:, slot] = codes[0]
-            k_s[l][:, :, slot] = codes[1]
-            v_q[l][:, slot] = codes[2]
-            v_s[l][:, :, slot] = codes[3]
+            # advanced indices around a slice put their axis first: (B, Hkv)
+            for vals, scales, (cq, cs) in ((k_q, k_s, codes[:2]),
+                                           (v_q, v_s, codes[2:])):
+                vals[l][bidx, ws] = torch.where(ok, cq, vals[l][bidx, ws])
+                scales[l][bidx, :, ws] = torch.where(
+                    ok, cs, scales[l][bidx, :, ws])
         else:
             new.append(codes)
     x_out = xf.to(x.dtype)
@@ -436,8 +460,10 @@ def fused_decode_step(blocks, x, k_q, k_s, v_q, v_s, q_slot, valid_from,
     (L, B, Hkv, S) f32. q_slot/valid_from: (B,) current slot / first valid
     slot. rope_cos_g/rope_sin_g: (B, hd/2) f32 at each request's position.
 
-    slot + write_cache=True: the new K/V are written IN PLACE at `slot` for
-    every request and layer, and (x_out, k_q, k_s, v_q, v_s) returned.
+    slot + write_cache=True: the new K/V are written IN PLACE, request b's
+    at slot[b] of every layer (`slot` a (B,) or 0-d int tensor on the
+    device, read by the kernel, or an int; a slot outside [0, S) writes
+    nothing), and (x_out, k_q, k_s, v_q, v_s) returned.
     Otherwise (x_out, k_new (L, B, Hkv·hd) int8, ks (L, B, Hkv) f32, v_new,
     vs) for the caller to scatter. `clock` (CUDA only): a `phase_clock`
     buffer the launch fills with its barrier times."""
@@ -478,21 +504,21 @@ def fused_decode_step(blocks, x, k_q, k_s, v_q, v_s, q_slot, valid_from,
     grid, plan, w = _scratch(x, L, cfg, mode)
     if write_cache:
         new = (w["k_new"], w["ks_new"], w["v_new"], w["vs_new"])
-        slot = int(slot)
+        wslot = write_slots(slot, B, x.device)
     else:
         new = _new_kv(L, B, KH, hkv, x.device)
-        slot = -1
+        wslot = qslot   # not read: nothing is written
     groups = [int4_group_size(k, n) if mode == W4A16 else 0
               for k, n in _shapes(x, cfg).values()]
     x_out = torch.empty_like(x)
     ptr = [t.data_ptr() for t in (
         x, blocks["ln1"], blocks["ln2"], wqkv.q, wqkv.s, wo.q, wo.s, wgu.q,
-        wgu.s, wdn.q, wdn.s, k_q, k_s, v_q, v_s, cos, sin, qslot, vfrom, *new,
-        x_out, w["xf"], w["h"], w["qbuf"], w["attn"], w["ff"], w["ws"],
-        w["a8"], w["asc"], w["ffs"], w["sync"])]
+        wgu.s, wdn.q, wdn.s, k_q, k_s, v_q, v_s, cos, sin, qslot, vfrom,
+        wslot, *new, x_out, w["xf"], w["h"], w["qbuf"], w["attn"], w["ff"],
+        w["ws"], w["a8"], w["asc"], w["ffs"], w["sync"])]
     err = _build.lib().pli_fused_decode_step(
         *ptr, _clock_ptr(clock, L, mode, x), ctypes.cast(plan, ctypes.c_void_p),
-        L, B, S, D, F_, hq, hkv, hd, slot, int(write_cache), mode, *groups,
+        L, B, S, D, F_, hq, hkv, hd, int(write_cache), mode, *groups,
         cfg.norm_eps, 1.0 / math.sqrt(hd), grid, _stream(x))
     _build.check(err, "fused_decode_step")
     if mode == W4A16:

@@ -2,8 +2,9 @@
 
 Replaces the TPU kernel `physics_llm_inference_tpu/kernels/hello_pallas.py`
 `vector_add` (`_add_kernel`). The CUDA kernel is `csrc/vector_add.cu`: bound
-by bytes (one add per 12 bytes in f32), a grid-stride loop over 16-byte
-vectors streams a and b in and the sum out; bf16 is summed in f32 and
+by bytes (one add per 12 bytes in f32), one 16-byte vector of each operand
+a thread, as PyTorch's vectorized elementwise kernel launches (the fastest
+of the forms timed on the H100: PERF.md, K12). bf16 is summed in f32 and
 rounded once, bit-equal to `torch.add`.
 
 `vector_add` is the entry point: it checks what the TPU kernel asserts

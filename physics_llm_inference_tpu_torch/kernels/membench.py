@@ -5,8 +5,9 @@ Replaces the TPU kernels `physics_llm_inference_tpu/kernels/membench.py`
 `_stream_copy` (K10) and `_strided_copy` (K11), both `_copy_kernel`. The
 CUDA kernel is `csrc/membench.cu`: one row-block copy, bound by bytes, that
 copies `block_rows` rows from input row block `i * stride` to output block
-`i` in 16-byte vectors with several loads in flight a thread; stride 1 is
-K10, stride 32 with 8-row blocks is K11. Each entry point has its own
+`i`, one 16-byte vector a thread, as PyTorch's elementwise copy launches
+(the fastest of the forms timed on the H100: PERF.md, K10 and K11); stride
+1 is K10, stride 32 with 8-row blocks is K11. Each entry point has its own
 launch counter (`stream_launches`, `strided_launches`).
 
 On a CPU tensor each entry point takes its plain twin (an indexed clone);

@@ -14,8 +14,10 @@ What differs from the JAX package, on purpose:
   raises on the CPU and faults on CUDA. So a table column past the table is
   clamped to MB - 1 (`write_position`), a RoPE position past the table to
   max_seq_len - 1 (stale lengths of retired rows inside a decode horizon
-  reach both), and prefill padding is never selected for a scatter instead
-  of being routed past the pool.
+  reach both), and the K/V writes of prefill padding are routed to the
+  trash block (the pool's last block) where JAX routes them past the pool
+  and drops them: no host sync picks the real tokens out, so a prefill
+  chunk can be captured in a CUDA graph.
 - On a CUDA tensor a decode step that passes the reference's fused gate
   runs K8 `fused_paged_decode_step` (one launch for every layer, pools
   written in place); the others take the per-op path with K1 linears and
@@ -203,9 +205,11 @@ def paged_prefill_chunk_impl(params: dict, ids: torch.Tensor, k_pools,
 
     ids: (R, C) chunk tokens right-padded; table: (R, MB) block tables;
     start: (R,) each chunk's first position; nvalid: (R,) real tokens per
-    chunk (0 = padding row: no writes, logits the caller ignores). Attends
-    each request's whole MB·BS prefix gathered from the pools, the chunk
-    just written included, with flash attention at per-request q_offset.
+    chunk (0 = padding row: logits the caller ignores). The K/V of padding
+    tokens are written to the trash block, the pools' last block (index
+    NB - 1), and nowhere else. Attends each request's whole MB·BS prefix
+    gathered from the pools, the chunk just written included, with flash
+    attention at per-request q_offset.
     A 1-D table with scalar start/nvalid is one request. Returns
     (last-valid-position logits (R, V) f32, k_pools, v_pools)."""
     _check_supported(cfg)
@@ -224,13 +228,14 @@ def paged_prefill_chunk_impl(params: dict, ids: torch.Tensor, k_pools,
     cos, sin = _rope_tables(cfg, dev)
     positions = start[:, None] + torch.arange(c, device=dev)[None, :]  # (R, C)
     rope_pos = _rope_positions(positions, cfg)
-    # scatter targets of the real tokens only (JAX routes the padding past
-    # the pool and drops it)
-    keep = (torch.arange(c, device=dev)[None, :]
-            < nvalid[:, None]).reshape(r * c).nonzero()[:, 0]
+    # scatter targets: the real tokens' blocks, the trash block for the
+    # padding (JAX routes the padding past the pool and drops it)
+    trash = (k_pools.q if quantized else k_pools).shape[1] - 1
+    real = torch.arange(c, device=dev)[None, :] < nvalid[:, None]
     col = (positions // bs).clamp(max=table.shape[1] - 1)
-    blk = table.long().gather(1, col).reshape(r * c)[keep]
-    off = (positions % bs).reshape(r * c)[keep]
+    blk = torch.where(real, table.long().gather(1, col),
+                      trash).reshape(r * c)
+    off = (positions % bs).reshape(r * c)
 
     for l in range(cfg.num_layers):
         bp = layer_view(params["blocks"], l)
@@ -243,8 +248,8 @@ def paged_prefill_chunk_impl(params: dict, ids: torch.Tensor, k_pools,
         if cos is not None:
             q = apply_rope(q, cos, sin, rope_pos)
             k = apply_rope(k, cos, sin, rope_pos)
-        kf = k.reshape(r * c, hkv, hd)[keep]
-        vf = v.reshape(r * c, hkv, hd)[keep]
+        kf = k.reshape(r * c, hkv, hd)
+        vf = v.reshape(r * c, hkv, hd)
         if quantized:
             kq8, ksc = quantize_int8(kf, axis=-1)
             vq8, vsc = quantize_int8(vf, axis=-1)

@@ -33,7 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.flash_attention import flash_attention
-from ..kernels.fused_decode import fused_decode_step
+from ..kernels.fused_decode import fused_decode_step, write_slots
 from ..kernels.int8_kv_attention import int8_kv_decode_attention
 from ..kernels.int8_matmul import int8_matmul, int8_matmul_plain
 from ..kernels.lmhead import lmhead_greedy, lmhead_greedy_ok
@@ -370,48 +370,25 @@ def _fused_decode_ok(params: dict, cfg: ModelConfig, b: int,
             and 8 * s_max * cfg.num_kv_heads * hd <= (8 << 20))
 
 
-def _scatter_new_kv(cache: QuantKV, new_q: torch.Tensor, new_s: torch.Tensor,
-                    start) -> QuantKV:
-    """Write the fused kernel's per-layer new K or V (L, B, Hkv·hd) int8 and
-    scales (L, B, Hkv) into the stacked cache at slot(s) `start` (an int, or
-    a (B,) tensor of per-request slots), IN PLACE (JAX transformer.py:
-    616-633 rebuilds the arrays). Returns the same cache."""
-    if not isinstance(start, torch.Tensor) or start.dim() == 0:
-        cache.q[:, :, start] = new_q
-        cache.s[:, :, :, start] = new_s
-        return cache
-    b = new_q.shape[1]
-    bidx = torch.arange(b, device=cache.q.device)
-    idx = start.to(device=cache.q.device, dtype=torch.long)
-    cache.q[:, bidx, idx] = new_q
-    # advanced indices around a slice put their axis first: (B, L, Hkv)
-    cache.s[:, bidx, :, idx] = new_s.transpose(0, 1)
-    return cache
-
-
 def _fused_decode_forward(params: dict, x: torch.Tensor, cfg: ModelConfig,
                           kv: KVSlice, positions, slots, valid_from,
                           rope_cos, rope_sin):
     """The fused branch of the JAX package's forward (transformer.py:
     688-717): one fused_decode_step runs every layer. x: (B, 1, D) embedded
-    tokens. A uniform start writes the cache in place; per-request starts
-    get the new K/V back and scatter them. Returns (x (B, 1, D), kv)."""
+    tokens. The kernel writes the new K/V in place at each request's start
+    slot, which it reads from the device (an int start, or a 0-d or (B,)
+    tensor), where the JAX package scatters per-request starts after the
+    call: nothing of the step is a host value that changes between steps.
+    Returns (x (B, 1, D), kv)."""
     b = x.shape[0]
     start = kv.start
-    per_request = isinstance(start, torch.Tensor) and start.dim() > 0
-    q_slot = (slots[:, 0] if slots is not None
-              else torch.as_tensor(start, device=x.device).reshape(-1)
-              .expand(b))
+    wslot = write_slots(start, b, x.device)
+    q_slot = slots[:, 0] if slots is not None else wslot
     pos = positions[:, 0]
-    args = (params["blocks"], x[:, 0], kv.k.q, kv.k.s, kv.v.q, kv.v.s,
-            q_slot, valid_from, rope_cos[pos], rope_sin[pos], cfg)
-    if per_request:
-        x_out, k_new, ksc, v_new, vsc = fused_decode_step(*args)
-        _scatter_new_kv(kv.k, k_new, ksc, start)
-        _scatter_new_kv(kv.v, v_new, vsc, start)
-    else:
-        x_out, *_ = fused_decode_step(*args, slot=int(start),
-                                      write_cache=True)
+    x_out, *_ = fused_decode_step(
+        params["blocks"], x[:, 0], kv.k.q, kv.k.s, kv.v.q, kv.v.s, q_slot,
+        valid_from, rope_cos[pos], rope_sin[pos], cfg, slot=wslot,
+        write_cache=True)
     return x_out[:, None, :], KVSlice(kv.k, kv.v, kv.start + 1)
 
 

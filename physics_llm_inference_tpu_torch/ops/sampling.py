@@ -68,7 +68,12 @@ def sample_token(logits: torch.Tensor, generator: torch.Generator | None,
 
     temperature <= 0 selects greedy per element, so a batch may mix greedy and
     sampled rows. An int top_k filters every row alike (0: off); a tensor
-    gives each row its own k. top_p=None skips the nucleus sort."""
+    gives each row its own k. top_p=None skips the nucleus sort. With
+    temperature, a tensor top_k and top_p given as tensors on the logits'
+    device nothing here reads a value on the host, so the call can be
+    captured in a CUDA graph (a Python float would be copied from pageable
+    memory, which capture refuses); the generator must then be registered
+    with the graph (`CapturedStep`'s `generators`)."""
     temperature = torch.as_tensor(temperature, dtype=torch.float32,
                                   device=logits.device)
     greedy = greedy_sample(logits)

@@ -3,11 +3,15 @@ physics_llm_inference_tpu/runtime/generate.py:36-269).
 
 Prompts are LEFT-padded to a bucket so every request's next slot is the same
 integer; RoPE positions and `valid_from` are per request. Prefill is one
-forward over the padded prompt (the fresh-KV branch); decode is a plain
-Python loop of one-token forwards. The loop makes no host sync per token:
-tokens and the stop flags stay on the device until the end. (A captured
-CUDA graph is the Hopper form of the JAX package's in-jit `lax.scan`; it is
-a later step.) Phase times come from `time.perf_counter` around work that
+forward over the padded prompt (the fresh-KV branch). Decode is one step
+over state that lives on the device (`DecodeLoop`: the step index, the
+current token, the stop flags, the emitted tokens and the KV cache), run
+`num_steps` times: on the card as one CUDA graph replayed (the Hopper form
+of the JAX package's `lax.scan` under `_decode_jit`), on the CPU eagerly.
+The graph advances its own step index, so nothing of a step is a host
+value. A `StepCache` keyed by what fixes the step's shapes keeps captured
+loops for later calls, as the JAX package's compile cache keeps
+`_decode_jit`. Phase times come from `time.perf_counter` around work that
 ends in `torch.cuda.synchronize()` on the card.
 """
 from __future__ import annotations
@@ -22,7 +26,8 @@ from ..models.config import ModelConfig
 from ..models.transformer import KVSlice, forward
 from ..ops.sampling import sample_token
 from .kv_cache import KVCache
-from .step_cache import DEFAULT_SEQ_BUCKETS, bucket_for
+from .step_cache import DEFAULT_SEQ_BUCKETS, CapturedStep, StepCache, \
+    bucket_for
 
 
 def pad_and_stack(prompts, pad_id: int = 0, bucket: int | None = None,
@@ -76,41 +81,133 @@ def _prefill(params, cfg: ModelConfig, ids, lens, kv: KVSlice):
     return logits[:, 0], kv, valid_from
 
 
-def _decode_loop(params, cfg: ModelConfig, kv: KVSlice, first_token, lens,
-                 valid_from, generator, num_steps: int, temperature,
-                 top_k: int, top_p, stop_tokens, pad_id: int, greedy: bool,
-                 prompt_bucket: int):
-    """num_steps one-token forwards; returns (B, num_steps) tokens including
-    the first, with pad_id after a request's stop token."""
-    b = first_token.shape[0]
-    dev = first_token.device
-    stops = (torch.as_tensor(stop_tokens, dtype=torch.int32, device=dev)
-             if stop_tokens else None)
-    tok = first_token.to(torch.int32)
-    done = torch.zeros((b,), dtype=torch.bool, device=dev)
-    emitted = []
-    for i in range(num_steps):
-        emitted.append(torch.where(done, torch.full_like(tok, pad_id), tok))
-        slot = prompt_bucket + i
-        slots = torch.full((b, 1), slot, dtype=torch.int32, device=dev)
-        positions = (lens + i)[:, None]
-        step_kv = KVSlice(kv.k, kv.v, slot)
-        if greedy:
-            nxt, kv = forward(params, tok[:, None], cfg, kv=step_kv,
-                              positions=positions, slots=slots,
-                              valid_from=valid_from, last_only=True,
-                              greedy_head=True)
+class DecodeLoop:
+    """The decode loop's state on the device and its one step.
+
+    Static buffers: the KV cache (B, capacity), the current token, each
+    request's prompt length and first valid slot, the first decode slot
+    (the prompt bucket), the step index, the stop flags and the emitted
+    tokens (B, capacity), plus the sampling scalars. `begin` loads a call's
+    inputs; each call of `step` emits the current token (pad_id after a
+    request's stop), runs one forward at slot base + step and advances the
+    step index, all on the device. The step's shapes are fixed by the
+    batch, the capacity and the arguments of `__init__`. A sampled loop
+    draws from a generator of its own on `gen_device` (None: the default
+    generator), which `begin` sets to the caller's generator's state and
+    `end` hands back, so a captured step draws as the caller's generator
+    would, whichever generator the caller passes."""
+
+    def __init__(self, params, cfg: ModelConfig, b: int, capacity: int,
+                 kv_dtype, greedy: bool, top_k: int, has_top_p: bool,
+                 stop_tokens: tuple, pad_id: int, gen_device=None):
+        dev = params["embed"].device
+        self.params, self.cfg = params, cfg
+        self.generator = (None if gen_device is None
+                          else torch.Generator(device=gen_device))
+        self.greedy, self.top_k, self.pad_id = greedy, top_k, pad_id
+        self.cache = KVCache.create(cfg, b, capacity, dtype=kv_dtype,
+                                    device=dev)
+
+        def zeros(*shape, dtype=torch.int64):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        self.tok = zeros(b, dtype=torch.int32)
+        self.lens = zeros(b)
+        self.valid_from = zeros(b, dtype=torch.int32)
+        self.base = zeros()
+        self.i = zeros()
+        self.done = zeros(b, dtype=torch.bool)
+        self.emitted = zeros(b, capacity, dtype=torch.int32)
+        self.temperature = zeros(dtype=torch.float32)
+        self.top_p = zeros(dtype=torch.float32) if has_top_p else None
+        self.stops = (torch.as_tensor(stop_tokens, dtype=torch.int32,
+                                      device=dev) if stop_tokens else None)
+
+    def begin(self, first_token, lens, valid_from, prompt_bucket: int,
+              temperature: float, top_p: float, generator=None) -> None:
+        """Load one call's inputs (and `generator`'s state into the loop's
+        own) and restart at step 0."""
+        if self.generator is not None:
+            self.generator.set_state(generator.get_state())
+        self.tok.copy_(first_token)
+        self.lens.copy_(lens)
+        self.valid_from.copy_(valid_from)
+        self.base.fill_(prompt_bucket)
+        self.i.zero_()
+        self.done.zero_()
+        self.temperature.fill_(temperature)
+        if self.top_p is not None:
+            self.top_p.fill_(top_p)
+
+    def step(self) -> None:
+        b = self.tok.shape[0]
+        tok = self.tok
+        emit = torch.where(self.done, torch.full_like(tok, self.pad_id), tok)
+        self.emitted.index_copy_(1, self.i.reshape(1), emit[:, None])
+        slot = (self.base + self.i).expand(b)
+        kv = KVSlice(self.cache.k, self.cache.v, slot)
+        kw = dict(kv=kv, positions=(self.lens + self.i)[:, None],
+                  slots=slot[:, None], valid_from=self.valid_from,
+                  last_only=True)
+        if self.greedy:
+            nxt, _ = forward(self.params, tok[:, None], self.cfg,
+                             greedy_head=True, **kw)
         else:
-            logits, kv = forward(params, tok[:, None], cfg, kv=step_kv,
-                                 positions=positions, slots=slots,
-                                 valid_from=valid_from, last_only=True)
-            nxt = sample_token(logits[:, 0], generator,
-                               temperature=temperature, top_k=top_k,
-                               top_p=top_p)
-        if stops is not None:
-            done = done | (tok[:, None] == stops[None, :]).any(dim=-1)
-        tok = nxt.to(torch.int32)
-    return torch.stack(emitted, dim=1), kv
+            logits, _ = forward(self.params, tok[:, None], self.cfg, **kw)
+            nxt = sample_token(logits[:, 0], self.generator,
+                               temperature=self.temperature,
+                               top_k=self.top_k, top_p=self.top_p)
+        if self.stops is not None:
+            self.done |= (tok[:, None] == self.stops[None, :]).any(dim=-1)
+        self.tok.copy_(nxt)
+        self.i += 1
+
+    def end(self, generator=None) -> None:
+        """Hand the loop's generator state back to the caller's `generator`,
+        which is then where the steps left it."""
+        if self.generator is not None:
+            generator.set_state(self.generator.get_state())
+
+
+def decode_step_cache() -> StepCache:
+    """A cache of decode loops for `cached_generate`'s `step_cache`: keyed
+    by the parameters, the config, the batch, the cache capacity and type,
+    greedy or not, the filters, the stop tokens, the pad id and, for a
+    sampled loop, the device of the caller's generator (the loop draws from
+    its own, loaded with the caller's state each call). On CUDA each entry
+    holds its step captured as a CUDA graph; the loops of one cache share
+    one graph memory pool. The cache keeps every entry's parameters and KV
+    cache alive."""
+    pool = []
+
+    def make(params, cfg, b, capacity, kv_dtype, greedy, top_k, has_top_p,
+             stop_tokens, pad_id, gen_device):
+        params = params.obj   # _Same
+        loop = DecodeLoop(params, cfg, b, capacity, kv_dtype, greedy, top_k,
+                          has_top_p, stop_tokens, pad_id, gen_device)
+        dev = params["embed"].device
+        if dev.type != "cuda":
+            return loop, loop.step
+        if not pool:
+            pool.append(torch.cuda.graph_pool_handle())
+        return loop, CapturedStep(loop.step, dev, pool[0], (loop.generator,))
+
+    return StepCache(make)
+
+
+class _Same:
+    """A cache key element equal only to itself: the object it holds."""
+
+    __slots__ = ("obj",)
+
+    def __init__(self, obj):
+        self.obj = obj
+
+    def __hash__(self):
+        return id(self.obj)
+
+    def __eq__(self, other):
+        return isinstance(other, _Same) and other.obj is self.obj
 
 
 def _sync(device: torch.device) -> None:
@@ -123,12 +220,15 @@ def cached_generate(params, cfg: ModelConfig, prompts, max_new_tokens: int,
                     temperature: float = 1.0, top_k: int = 0,
                     top_p: float = 1.0, stop_tokens: tuple[int, ...] = (),
                     pad_id: int = 0, prompt_bucket: int | None = None,
-                    kv_dtype=None) -> GenerationOutput:
+                    kv_dtype=None,
+                    step_cache: StepCache | None = None) -> GenerationOutput:
     """Two-phase KV-cached generation on the device of `params["embed"]`.
 
     prompts: list of token-id lists (ragged ok). kv_dtype=torch.int8 selects
     the INT8 cache. Greedy (temperature 0, no filters) decodes through the
-    fused greedy head."""
+    fused greedy head. `step_cache` (from `decode_step_cache`) keeps the
+    decode loop, captured on CUDA, for later calls of the same shapes;
+    without one each call makes (and on CUDA captures) its own."""
     device = params["embed"].device
     ids, lens = pad_and_stack(prompts, pad_id=pad_id, bucket=prompt_bucket,
                               device=device)
@@ -138,25 +238,31 @@ def cached_generate(params, cfg: ModelConfig, prompts, max_new_tokens: int,
     s_total = p + max_new_tokens
     if device.type == "cuda":
         s_total = -(-s_total // 128) * 128
-    cache = KVCache.create(cfg, b, s_total, dtype=kv_dtype, device=device)
+    has_top_p = top_p < 1.0
+    greedy = float(temperature) == 0.0 and top_k == 0 and not has_top_p
+    # the loop is made (and captured, whose warm-up step writes slot 0)
+    # before the prefill writes its cache
+    cache = step_cache if step_cache is not None else decode_step_cache()
+    gen_device = None if greedy or generator is None else generator.device
+    loop, step = cache.get(_Same(params), cfg, b, s_total, kv_dtype, greedy,
+                           top_k, has_top_p, tuple(stop_tokens), pad_id,
+                           gen_device)
 
     _sync(device)
     t0 = time.perf_counter()
-    logits0, kv, valid_from = _prefill(params, cfg, ids, lens,
-                                       cache.as_slice())
-    has_top_p = top_p < 1.0
+    logits0, _, valid_from = _prefill(params, cfg, ids, lens,
+                                      loop.cache.as_slice())
     first = sample_token(logits0, generator, temperature=temperature,
                          top_k=top_k, top_p=top_p if has_top_p else None)
     _sync(device)
     prefill_s = time.perf_counter() - t0
 
-    greedy = float(temperature) == 0.0 and top_k == 0 and not has_top_p
     t0 = time.perf_counter()
-    tokens, _ = _decode_loop(params, cfg, kv, first, lens, valid_from,
-                             generator, max_new_tokens, temperature, top_k,
-                             top_p if has_top_p else None, stop_tokens,
-                             pad_id, greedy, p)
-    tokens = tokens.cpu().numpy().astype(np.int32)
+    loop.begin(first, lens, valid_from, p, temperature, top_p, generator)
+    for _ in range(max_new_tokens):
+        step()
+    loop.end(generator)
+    tokens = loop.emitted[:, :max_new_tokens].cpu().numpy().astype(np.int32)
     _sync(device)
     decode_s = time.perf_counter() - t0
 

@@ -17,13 +17,19 @@ The host logic of `step()` is the JAX engine's, line for line, so the same
 request stream gives the same `dispatch_trace`. What differs: the pools are
 torch tensors on the device of the parameters, updated in place by the
 model functions; a `torch.Generator` stands where the JAX engine splits a
-PRNG key; nothing is compiled, so there is no compile cache and `stats()`
-has no "prefill_compile" entry, and `warmup()` runs each decode horizon and
-prefill bucket once (kernel build, allocator). On CUDA the default INT8
-geometry decodes through K8 (the fused paged kernel); the per-op routes run
-K6 (INT8 pools) or K7 (bf16 pools). Not ported yet: TP serving (`mesh`
-raises) and the streaming, abort and blocking-wait calls the HTTP server
-uses (`generate_stream`, `abort_request`, `wait_result`; ROADMAP A9).
+PRNG key. Dispatch steps are cached as the JAX engine caches its jitted
+steps: prefill chunks in a `StepCache` keyed by the prompt bucket
+(`stats()["prefill_compile"]`), each entry holding one step per padded row
+count, and decode horizons in `_decode_fns` keyed by (horizon, filtered).
+On CUDA each step is a captured CUDA graph over static input buffers, which
+the host fills through pinned staging buffers, and all of an engine's
+graphs share one memory pool; `warmup()` captures every decode horizon and
+each prefill bucket at one row. On the CPU the steps run eagerly. On CUDA
+the default INT8 geometry decodes through K8 (the fused paged kernel); the
+per-op routes run K6 (INT8 pools) or K7 (bf16 pools). Not ported yet: TP
+serving (`mesh` raises) and the streaming, abort and blocking-wait calls
+the HTTP server uses (`generate_stream`, `abort_request`, `wait_result`;
+ROADMAP Queue A, slot serving and the HTTP front end).
 """
 from __future__ import annotations
 
@@ -43,7 +49,8 @@ from ..models.transformer import QuantKV
 from ..native import make_radix_cache
 from ..ops.sampling import SamplingParams, sample_token
 from ..runtime.paged_kv import PagedKVCache
-from ..runtime.step_cache import bucket_for
+from ..runtime.step_cache import (CapturedStep, StagedInputs, StepCache,
+                                  bucket_for)
 from ..sched.request import Request, RequestState
 from ..sched.scheduler import Scheduler, SchedulerConfig, SchedulingPolicy
 from .engine import GenerationRequest, GenerationResult
@@ -172,8 +179,13 @@ class PagedInferenceEngine:
         self._total_requests = 0
         self._total_tokens = 0
         self._radix_hit_tokens = 0
+        # the graphs of this engine share one memory pool
+        self._graph_pool = (torch.cuda.graph_pool_handle()
+                            if dev.type == "cuda" else None)
+        self._prefill_cache = StepCache(self._make_prefill)
         # (kind, bucket or horizon, ...) of every dispatch when a list
         self.dispatch_trace: list | None = None
+        self._decode_fns: dict[tuple, tuple] = {}
 
     def _dev(self, a) -> torch.Tensor:
         """A host array as a fresh tensor on the engine's device."""
@@ -236,20 +248,82 @@ class PagedInferenceEngine:
 
     # ------------------------------------------------------------ dispatch
 
+    def _step(self, fn, generators=(), **buffers):
+        """A dispatch step over static input buffers: (inputs, step), the
+        step captured on CUDA, `fn` itself on the CPU. The buffers' initial
+        values must make `fn`'s writes harmless (tables on the trash
+        block), since the capture's warm-up runs it on them."""
+        inputs = StagedInputs(self.device, **buffers)
+
+        def run():
+            return fn(**inputs.buffers)
+
+        if self.device.type != "cuda":
+            return inputs, run
+        return inputs, CapturedStep(run, self.device, self._graph_pool,
+                                    generators)
+
+    def _buf(self, *shape, fill=0, dtype=torch.int32) -> torch.Tensor:
+        return torch.full(shape, fill, dtype=dtype, device=self.device)
+
+    def _make_prefill(self, cb: int):
+        """The prefill chunk steps of bucket `cb`: one per padded row count,
+        made at its first use, as jit traces one per shape."""
+        steps: dict[int, tuple] = {}
+        mb, buf = self.config.max_blocks_per_request, self._buf
+
+        def fn(ids, tables, starts, nval):
+            logits, self._k, self._v = paged_prefill_chunk_impl(
+                self.params, ids, self._k, self._v, tables, starts, nval,
+                self.cfg)
+            return logits
+
+        def prefill(ids, tables, starts, nval):
+            rb = ids.shape[0]
+            if rb not in steps:
+                steps[rb] = self._step(
+                    fn, ids=buf(rb, cb), tables=buf(rb, mb, fill=self._trash),
+                    starts=buf(rb), nval=buf(rb))
+            inputs, step = steps[rb]
+            inputs.load(ids=ids, tables=tables, starts=starts, nval=nval)
+            return step()
+
+        return prefill
+
     def _prefill(self, ids, tables, starts, nval):
-        logits, self._k, self._v = paged_prefill_chunk_impl(
-            self.params, self._dev(ids), self._k, self._v, self._dev(tables),
-            self._dev(starts), self._dev(nval), self.cfg)
-        return logits
+        return self._prefill_cache.get(ids.shape[1])(ids, tables, starts,
+                                                     nval)
+
+    def _decode_for(self, horizon: int, filtered: bool):
+        """The multi-step decode of this horizon; filtered=False is the
+        variant without top-k/top-p (no per-step vocab sort)."""
+        key = (horizon, filtered)
+        if key not in self._decode_fns:
+            c, buf = self.config, self._buf
+
+            def fn(tokens, tables, lengths, temps, top_ks, top_ps):
+                toks, self._k, self._v = paged_decode_scan_impl(
+                    self.params, tokens, self._k, self._v, tables, lengths,
+                    self._rng, temps, top_ps, self.cfg, horizon=horizon,
+                    top_ks=top_ks, filtered=filtered)
+                return toks
+
+            self._decode_fns[key] = self._step(
+                fn, (self._rng,), tokens=buf(c.max_batch),
+                tables=buf(c.max_batch, c.max_blocks_per_request,
+                           fill=self._trash),
+                lengths=buf(c.max_batch),
+                temps=buf(c.max_batch, fill=1, dtype=torch.float32),
+                top_ks=buf(c.max_batch),
+                top_ps=buf(c.max_batch, fill=1, dtype=torch.float32))
+        return self._decode_fns[key]
 
     def _decode(self, horizon: int, filtered: bool, tokens, tables, temps,
                 top_ks, top_ps) -> np.ndarray:
-        toks, self._k, self._v = paged_decode_scan_impl(
-            self.params, self._dev(tokens), self._k, self._v,
-            self._dev(tables), self._dev(self._lengths), self._rng,
-            self._dev(temps), self._dev(top_ps), self.cfg, horizon=horizon,
-            top_ks=self._dev(top_ks), filtered=filtered)
-        return toks.cpu().numpy()
+        inputs, step = self._decode_for(horizon, filtered)
+        inputs.load(tokens=tokens, tables=tables, lengths=self._lengths,
+                    temps=temps, top_ks=top_ks, top_ps=top_ps)
+        return step().cpu().numpy()
 
     # ------------------------------------------------------------ requests
 
@@ -275,9 +349,9 @@ class PagedInferenceEngine:
         return rid
 
     def warmup(self, buckets=None) -> float:
-        """Run every power-of-two decode horizon up to decode_horizon and
-        every prefill bucket once against the trash block (the kernels are
-        built on the first call). Returns the seconds it took."""
+        """Make every power-of-two decode horizon up to decode_horizon and
+        every prefill bucket at one row (on CUDA: capture them) and run each
+        once against the trash block. Returns the seconds it took."""
         t0 = time.monotonic()
         c = self.config
         horizons = {1}
@@ -591,6 +665,7 @@ class PagedInferenceEngine:
             "radix_hit_tokens": self._radix_hit_tokens,
             "scheduler": self.scheduler.stats(),
             "pool": self.pool.stats(),
+            "prefill_compile": self._prefill_cache.stats(),
         }
         if self.radix is not None:
             s["radix"] = self.radix.stats()

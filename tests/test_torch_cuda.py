@@ -21,7 +21,8 @@ from physics_llm_inference_tpu_torch.models.quant import (QuantizedTensor,
                                                           init_params_int8)
 from physics_llm_inference_tpu_torch.ops.norms import rms_norm
 from physics_llm_inference_tpu_torch.ops.rope import rope_frequencies
-from physics_llm_inference_tpu_torch.runtime.generate import cached_generate
+from physics_llm_inference_tpu_torch.runtime.generate import (
+    DecodeLoop, cached_generate, decode_step_cache)
 from physics_llm_inference_tpu_torch.runtime.kv_cache import KVCache
 
 pytestmark = pytest.mark.cuda
@@ -172,7 +173,7 @@ def test_fused_decode_kernel_matches_plain(dev, write_cache, mode):
     pos = slot - vfrom
     cos, sin = rope_frequencies(hd, cfg.max_seq_len, device=dev)
     caches = [t.clone() for t in (kq, ks, vq, vs)]
-    kw = dict(slot=slot, write_cache=True) if write_cache else {}
+    kw = dict(slot=qslot, write_cache=True) if write_cache else {}
     before = {c: getattr(t_fd, c) for _, _, c in MODES.values()}
     got = t_fd.fused_decode_step(blocks, x, *caches, qslot, vfrom, cos[pos],
                                  sin[pos], cfg, **kw)
@@ -328,14 +329,22 @@ def test_default_config_generates_through_fused_kernel(dev):
                       num_heads=4, num_kv_heads=2, intermediate_dim=768,
                       max_seq_len=256)
     params = init_params_int8(_gen(dev, 4), cfg)
+    steps = decode_step_cache()
     before = t_fd.launches
     out = cached_generate(params, cfg, [[5, 9, 2], [7] * 20], 6,
-                          temperature=0.0, kv_dtype=torch.int8)
+                          temperature=0.0, kv_dtype=torch.int8,
+                          step_cache=steps)
     assert out.tokens.shape == (2, 6)
-    # B = 2 fails the gate (b % 8): per-op; B = 8 passes it: fused
+    # B = 2 fails the gate (b % 8): per-op; B = 8 passes it: fused, one
+    # launch a step once the loop is captured (the capture's warm-up step
+    # launches once more)
     assert t_fd.launches == before
-    out = cached_generate(params, cfg, [[3, 1 + i] for i in range(8)], 6,
-                          temperature=0.0, kv_dtype=torch.int8)
+    prompts = [[3, 1 + i] for i in range(8)]
+    cached_generate(params, cfg, prompts, 6, temperature=0.0,
+                    kv_dtype=torch.int8, step_cache=steps)
+    before = t_fd.launches
+    out = cached_generate(params, cfg, prompts, 6, temperature=0.0,
+                          kv_dtype=torch.int8, step_cache=steps)
     assert out.tokens.shape == (8, 6) and t_fd.launches == before + 6
     assert int(out.tokens.min()) >= 0 and int(out.tokens.max()) < 512
 
@@ -348,9 +357,13 @@ def test_w4a16_and_w8a8_generate_through_their_kernel_modes(dev, mode):
     init, act, counter = MODES[mode]
     cfg = dataclasses.replace(FUSED, act_quant=act, max_seq_len=256)
     params = init(_gen(dev, 4), cfg)
+    steps = decode_step_cache()
+    prompts = [[3, 1 + i] for i in range(8)]
+    cached_generate(params, cfg, prompts, 6, temperature=0.0,
+                    kv_dtype=torch.int8, step_cache=steps)
     before = {c: getattr(t_fd, c) for _, _, c in MODES.values()}
-    out = cached_generate(params, cfg, [[3, 1 + i] for i in range(8)], 6,
-                          temperature=0.0, kv_dtype=torch.int8)
+    out = cached_generate(params, cfg, prompts, 6, temperature=0.0,
+                          kv_dtype=torch.int8, step_cache=steps)
     assert out.tokens.shape == (8, 6)
     assert int(out.tokens.min()) >= 0 and int(out.tokens.max()) < 512
     assert {c: getattr(t_fd, c) - n for c, n in before.items()} == {
@@ -614,6 +627,26 @@ def test_membench_copies_match_plain(dev, rows, block_rows, stride):
     assert torch.equal(got, want)
 
 
+# (byte offset, lanes, block rows, stride): row blocks of 4, 12, 20 and
+# 24 KB, one not a 16-byte multiple, an unaligned base
+RAGGED_COPIES = [(0, 4096, 3, 1), (0, 20480, 1, 2), (16, 4096, 2, 3),
+                 (0, 12288, 2, 1), (1, 4096, 1, 1), (0, 4088, 2, 2)]
+
+
+@pytest.mark.parametrize("off,lanes,rows,stride", RAGGED_COPIES)
+def test_row_block_copy_byte_equal_at_ragged_shapes(dev, off, lanes, rows,
+                                                    stride):
+    from physics_llm_inference_tpu_torch.kernels import membench as t_mem
+
+    base = torch.randint(0, 256, (7 * 24576 + 48,), dtype=torch.uint8,
+                         generator=_gen(dev, 13), device=dev)
+    x = base[off:off + lanes * ((base.numel() - off) // lanes)].view(-1,
+                                                                      lanes)
+    blocks = x.shape[0] // (rows * stride)
+    got = t_mem._row_block_copy(x, rows, stride, blocks)
+    assert torch.equal(got, t_mem._row_blocks_plain(x, rows, stride, blocks))
+
+
 def test_measure_access_patterns_launches_both_copies(dev):
     from physics_llm_inference_tpu_torch.kernels import membench as t_mem
 
@@ -636,6 +669,28 @@ def test_vector_add_kernel_is_bit_equal_to_torch_add(dev, dtype, shape):
     got = t_va.vector_add(a, b, block_rows=100 if shape[0] == 300 else 256)
     assert t_va.launches == before + 1
     assert torch.equal(got, t_va.vector_add_plain(a, b))
+    assert torch.equal(got, torch.add(a, b))
+
+
+# (element offset of a, rows, cols): whole 16-byte vectors and a tail,
+# unaligned a and b
+RAGGED_ADDS = [(0, 999_983, 3), (1, 1, 65_541), (0, 4096, 257), (8, 2048, 8),
+               (0, 3, 5)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("off,rows,cols", RAGGED_ADDS)
+def test_vector_add_bit_equal_to_torch_add_at_ragged_sizes(dev, dtype, off,
+                                                           rows, cols):
+    from physics_llm_inference_tpu_torch.kernels import hello_pallas as t_va
+
+    flat = torch.randn(3 * 999_983 + 8, generator=_gen(dev, 14),
+                       device=dev).to(dtype)
+    a = flat[off:off + rows * cols].view(rows, cols)
+    b = flat[-rows * cols:].view(rows, cols)
+    before = t_va.launches
+    got = t_va.vector_add(a, b, block_rows=rows)
+    assert t_va.launches == before + 1
     assert torch.equal(got, torch.add(a, b))
 
 
@@ -666,3 +721,109 @@ def test_weight_carriers_default_to_the_card(dev):
     k, v = convert.paged_kv_from_jax(tree["embed"], tree["embed"])
     assert k.is_cuda and v.is_cuda
     assert not convert.params_from_jax(tree, device="cpu")["embed"].is_cuda
+
+
+def test_captured_fused_step_replays_at_two_slots_bit_equal(dev):
+    """K4 captured once in a CUDA graph, replayed with two write slots set
+    in its static slot buffer: each replay bit-equal to an eager launch at
+    that slot (x_out and the whole cache), one launch counted a replay."""
+    from physics_llm_inference_tpu_torch.runtime.step_cache import \
+        CapturedStep
+
+    cfg = dataclasses.replace(FUSED, max_seq_len=64)
+    g = _gen(dev, 21)
+    blocks = init_params_int8(g, cfg)["blocks"]
+    L, B, S = cfg.num_layers, 8, 48
+    hkv, hd = cfg.num_kv_heads, cfg.head_dim
+    cache = [torch.randint(-127, 128, (L, B, S, hkv * hd), dtype=torch.int8,
+                           generator=g, device=dev),
+             torch.rand((L, B, hkv, S), generator=g, device=dev) * 0.05]
+    cache += [c.clone() for c in cache]
+    x = torch.randn((B, cfg.hidden_dim), generator=g, device=dev).bfloat16()
+    cos, sin = rope_frequencies(hd, cfg.max_seq_len, device=dev)
+    slot = torch.zeros(B, dtype=torch.int32, device=dev)
+    vfrom = torch.zeros(B, dtype=torch.int32, device=dev)
+    graph_c = [c.clone() for c in cache]
+
+    def step():
+        return t_fd.fused_decode_step(blocks, x, *graph_c, slot, vfrom,
+                                      cos[slot.long()], sin[slot.long()],
+                                      cfg, slot=slot, write_cache=True)[0]
+
+    captured = CapturedStep(step, dev)
+    for at in (30, 31):
+        for t, c in zip(graph_c, cache):
+            t.copy_(c)
+        slot.fill_(at)
+        before = t_fd.launches
+        got = captured().clone()
+        assert t_fd.launches == before + 1
+        eager_c = [c.clone() for c in cache]
+        want = t_fd.fused_decode_step(blocks, x, *eager_c, slot, vfrom,
+                                      cos[slot.long()], sin[slot.long()],
+                                      cfg, slot=slot, write_cache=True)[0]
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        for a, b in zip(graph_c, eager_c):
+            assert torch.equal(a, b)
+        assert not torch.equal(graph_c[0][:, :, at], cache[0][:, :, at])
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_captured_decode_matches_the_eager_loop(dev, fused):
+    """cached_generate's decode, replayed from its captured graph, against
+    DecodeLoop stepped eagerly from the same prefill: identical greedy
+    tokens, on the fused and the per-op path."""
+    from physics_llm_inference_tpu_torch.ops.sampling import sample_token
+    from physics_llm_inference_tpu_torch.runtime import generate as gen
+
+    cfg = ModelConfig(vocab_size=512, hidden_dim=512, num_layers=2,
+                      num_heads=4, num_kv_heads=2, intermediate_dim=768,
+                      max_seq_len=256, fused_decode=fused)
+    params = init_params_int8(_gen(dev, 5), cfg)
+    prompts = [[3 + i] * (2 + 3 * i) for i in range(8)]
+    steps = decode_step_cache()
+    for _ in range(2):   # the second call replays the first one's graph
+        out = cached_generate(params, cfg, prompts, 12, temperature=0.0,
+                              kv_dtype=torch.int8, step_cache=steps)
+    assert steps.stats() == {"compiled_shapes": 1, "hits": 1, "misses": 1}
+    ids, lens = gen.pad_and_stack(prompts, device=dev)
+    b, p = ids.shape
+    loop = DecodeLoop(params, cfg, b, -(-(p + 12) // 128) * 128, torch.int8,
+                      True, 0, False, (), 0, None)
+    logits0, _, vfrom = gen._prefill(params, cfg, ids, lens,
+                                     loop.cache.as_slice())
+    loop.begin(sample_token(logits0, None, temperature=0.0), lens, vfrom, p,
+               0.0, 1.0)
+    for _ in range(12):
+        loop.step()
+    assert (loop.emitted[:, :12].cpu().numpy() == out.tokens).all()
+
+
+def test_sampled_decode_is_captured_with_its_generator(dev):
+    """Sampled cached_generate captures the loop's own generator into the
+    graph and loads the caller's state into it: two callers' generators
+    from the same seed, through one step cache, give the same tokens from
+    one entry, end in the same state, and each replay draws anew (the
+    steps' tokens are not all one draw)."""
+    cfg = ModelConfig(vocab_size=512, hidden_dim=512, num_layers=2,
+                      num_heads=4, num_kv_heads=2, intermediate_dim=768,
+                      max_seq_len=256)
+    params = init_params_int8(_gen(dev, 6), cfg)
+    prompts = [[5 + i, 2] for i in range(8)]
+    steps = decode_step_cache()
+    outs, states = [], []
+    for _ in range(2):
+        gen = torch.Generator(device=dev).manual_seed(3)
+        outs.append(cached_generate(params, cfg, prompts, 8, generator=gen,
+                                    temperature=0.9, top_k=40, top_p=0.95,
+                                    kv_dtype=torch.int8,
+                                    step_cache=steps).tokens)
+        states.append(gen.get_state())
+    assert steps.stats() == {"compiled_shapes": 1, "hits": 1, "misses": 1}
+    assert (outs[0] == outs[1]).all()
+    assert torch.equal(*states)
+    assert 0 <= int(outs[0].min()) and int(outs[0].max()) < 512
+    assert len({tuple(col) for col in outs[0].T.tolist()}) > 1
+
+

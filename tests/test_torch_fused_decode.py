@@ -131,28 +131,23 @@ def test_fused_step_matches_pallas(mode, hq, hkv, B, S):
     _assert_codes(want[1], got[1], want[2], got[2], "k")
     _assert_codes(want[3], got[3], want[4], got[4], "v")
 
-    # the in-place write equals the returned new K/V scattered at the slot
-    kq, ks, vq, vs = _port_kv(kv)
-    x_w, *cache = t_fd.fused_decode_step(st["tparams"]["blocks"], tx, kq, ks,
-                                         vq, vs, *targs, slot=P,
-                                         write_cache=True)
-    torch.testing.assert_close(x_w, got[0], rtol=0, atol=0)
-    ref_k = ttf._scatter_new_kv(ttf.QuantKV(*_port_kv(kv)[:2]), got[1],
-                                got[2], P)
-    ref_v = ttf._scatter_new_kv(ttf.QuantKV(*_port_kv(kv)[2:]), got[3],
-                                got[4], P)
-    for a, b in zip(cache, (ref_k.q, ref_k.s, ref_v.q, ref_v.s)):
-        assert torch.equal(a, b)
-
-    # per-request scatter: bit-equal to the JAX package's
+    # the in-place write equals the returned new K/V scattered by the JAX
+    # package, at one slot (an int) and at per-request slots read from a
+    # tensor: bit-equal
     start = np.arange(B, dtype=np.int32) % 5 + P - 4
-    jk = j_scatter(kv.k, want[1], want[2], jnp.asarray(start))
-    tk = ttf._scatter_new_kv(
-        ttf.QuantKV(*_port_kv(kv)[:2]),
-        torch.from_numpy(np.asarray(want[1])),
-        torch.from_numpy(np.asarray(want[2])), torch.from_numpy(start))
-    np.testing.assert_array_equal(t2n(tk.q), np.asarray(jk.q))
-    np.testing.assert_array_equal(t2n(tk.s), np.asarray(jk.s))
+    for slot, jslot in ((P, jnp.int32(P)),
+                        (torch.from_numpy(start), jnp.asarray(start))):
+        kq, ks, vq, vs = _port_kv(kv)
+        x_w, *cache = t_fd.fused_decode_step(st["tparams"]["blocks"], tx, kq,
+                                             ks, vq, vs, *targs, slot=slot,
+                                             write_cache=True)
+        torch.testing.assert_close(x_w, got[0], rtol=0, atol=0)
+        ref_k = j_scatter(kv.k, jnp.asarray(t2n(got[1])),
+                          jnp.asarray(t2n(got[2])), jslot)
+        ref_v = j_scatter(kv.v, jnp.asarray(t2n(got[3])),
+                          jnp.asarray(t2n(got[4])), jslot)
+        for a, b in zip(cache, (ref_k.q, ref_k.s, ref_v.q, ref_v.s)):
+            np.testing.assert_array_equal(t2n(a), np.asarray(b))
     # the CPU path launches no kernel
     assert t_fd.launches == t_fd.w4a16_launches == t_fd.w8a8_launches == 0
 

@@ -156,3 +156,88 @@ def test_sampled_generation_runs_with_filters():
     assert out.tokens.shape == (3, 4) and out.tokens.dtype == np.int32
     assert out.tokens.min() >= 0 and out.tokens.max() < SLICE["vocab_size"]
     assert out.prefill_s > 0 and out.decode_s > 0
+
+
+def test_step_cache_replays_decode_loop_with_identical_tokens():
+    """The step-index form of the decode loop (start a (B,) tensor, the step
+    index advanced on the device) kept in a step cache: a second call of
+    the same shapes hits the cache and reuses its loop and KV cache, and
+    both calls give the JAX package's fp32 greedy tokens."""
+    jcfg, tcfg, jparams, tparams = _models("float32")
+    jout = jgen.cached_generate(jparams, jcfg, _prompts(), NEW_TOKENS,
+                                temperature=0.0, kv_dtype=jnp.int8)
+    cache = tgen.decode_step_cache()
+    for _ in range(2):
+        tout = tgen.cached_generate(tparams, tcfg, _prompts(), NEW_TOKENS,
+                                    temperature=0.0, kv_dtype=torch.int8,
+                                    step_cache=cache)
+        np.testing.assert_array_equal(tout.tokens, jout.tokens)
+    assert cache.stats() == {"compiled_shapes": 1, "hits": 1, "misses": 1}
+    # another stop set fixes another step: a new entry
+    tgen.cached_generate(tparams, tcfg, _prompts(), NEW_TOKENS,
+                         temperature=0.0, kv_dtype=torch.int8,
+                         stop_tokens=(3,), step_cache=cache)
+    assert cache.stats() == {"compiled_shapes": 2, "hits": 1, "misses": 2}
+
+
+def test_step_cache_keys_sampled_loop_by_generator_device():
+    """A sampled decode loop is keyed by its generator's device, not by the
+    generator: new callers' generators from one seed share one entry, and
+    each call draws as a call without the cache does from the same seed,
+    leaving the caller's generator in the same state."""
+    _, tcfg, _, tparams = _models("float32")
+    kw = dict(temperature=0.8, top_k=20, top_p=0.9, kv_dtype=torch.int8)
+    g = torch.Generator().manual_seed(7)
+    want = tgen.cached_generate(tparams, tcfg, _prompts(), NEW_TOKENS,
+                                generator=g, **kw).tokens
+    want_state = g.get_state()
+    cache = tgen.decode_step_cache()
+    for _ in range(3):
+        g = torch.Generator().manual_seed(7)
+        got = tgen.cached_generate(tparams, tcfg, _prompts(), NEW_TOKENS,
+                                   generator=g, step_cache=cache, **kw)
+        np.testing.assert_array_equal(got.tokens, want)
+        assert torch.equal(g.get_state(), want_state)
+    assert cache.stats() == {"compiled_shapes": 1, "hits": 2, "misses": 1}
+    # the caller's generator is left where the loop's draws left it
+    (loop, _), = cache._cache.values()
+    assert torch.equal(loop.generator.get_state(), want_state)
+    assert not torch.equal(torch.Generator().manual_seed(7).get_state(),
+                           want_state)
+
+
+def test_decode_loop_cache_matches_jax_scan():
+    """DecodeLoop stepped eagerly, each step's cache write at a start slot
+    read from a (B,) tensor (the per-op path's indexed write), against the
+    JAX package's _decode_jit scan from the same prefill: the same tokens,
+    and the INT8 cache it leaves within one level (f32 sums that round
+    across a .5 boundary, as the prefill test allows)."""
+    jcfg, tcfg, jparams, tparams = _models("float32")
+    jids, jlens = jgen.pad_and_stack(_prompts())
+    b, p = jids.shape
+    jcache = JKVCache.create(jcfg, b, p + NEW_TOKENS, dtype=jnp.int8)
+    jl, jkv, jvf = jgen._prefill(jparams, jcfg, jids, jlens,
+                                 jcache.as_slice())
+    jfirst = jnp.argmax(jl, axis=-1).astype(jnp.int32)
+    jtoks, jkv = jgen._decode_jit(
+        jparams, jcfg, jkv, jfirst, jlens, jvf, jax.random.PRNGKey(0),
+        NEW_TOKENS, jnp.float32(0.0), 0, jnp.float32(1.0),
+        jnp.zeros((1,), jnp.int32), 0, False, False, greedy=True,
+        prompt_bucket=p)
+
+    loop = tgen.DecodeLoop(tparams, tcfg, b, p + NEW_TOKENS, torch.int8,
+                           True, 0, False, (), 0, None)
+    tids, tlens = tgen.pad_and_stack(_prompts())
+    tl, _, tvf = tgen._prefill(tparams, tcfg, tids, tlens,
+                               loop.cache.as_slice())
+    loop.begin(torch.argmax(tl, dim=-1), tlens, tvf, p, 0.0, 1.0)
+    for _ in range(NEW_TOKENS):
+        loop.step()
+    assert int(loop.i) == NEW_TOKENS
+    np.testing.assert_array_equal(t2n(loop.emitted)[:, :NEW_TOKENS],
+                                  np.asarray(jtoks))
+    for t, j in ((loop.cache.k, jkv.k), (loop.cache.v, jkv.v)):
+        jq, tq = np.asarray(j.q, np.int32), t2n(t.q).astype(np.int32)
+        assert np.abs(jq - tq).max() <= 1 and (jq != tq).mean() < 1e-3
+        np.testing.assert_allclose(t2n(t.s), np.asarray(j.s), rtol=1e-5,
+                                   atol=1e-7)

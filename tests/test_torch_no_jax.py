@@ -29,7 +29,7 @@ def test_walk_finds_every_module():
                      "kernels.membench", "kernels.hello_pallas",
                      "specs.roofline", "utils.timing", "ops.ffn",
                      "sched.static_batcher", "bench.micro", "bench.suite",
-                     "models.quant"):
+                     "models.quant", "bench.headline", "runtime.step_cache"):
         assert f"{port.__name__}.{expected}" in names
 
 

@@ -269,3 +269,31 @@ def test_int8_pool_contents_match_after_serving(toy):
     diff = np.abs(tq.astype(np.int32) - jq.astype(np.int32))
     assert diff.max() <= 1 and (diff == 0).mean() > 0.99
     np.testing.assert_allclose(ts, js, **TOL["bfloat16"])
+
+
+def test_prefill_compile_stats_match_jax_engine(toy):
+    """stats()["prefill_compile"], the prefill step cache keyed by the
+    prompt bucket, against the JAX engine's compile cache on one request
+    stream: after warmup() (every bucket once) and after each wave."""
+    jcfg, tcfg, jparams, tparams = toy
+    kw = dict(num_blocks=32, block_size=8, max_batch=4,
+              max_blocks_per_request=8, prompt_buckets=(8, 16, 32),
+              decode_horizon=4)
+    je = j_engine.PagedInferenceEngine(jparams, jcfg,
+                                       j_engine.PagedEngineConfig(**kw))
+    te = t_engine.PagedInferenceEngine(tparams, tcfg,
+                                       t_engine.PagedEngineConfig(**kw))
+    je.warmup(buckets=(8, 16))
+    te.warmup(buckets=(8, 16))
+    seen = [(te.stats()["prefill_compile"], je.stats()["prefill_compile"])]
+    stream = _stream(7, 8)
+    for wave in (stream[:5], stream[5:]):
+        got = _serve(te, TRequest, [wave])
+        want = _serve(je, JRequest, [wave])
+        assert got["results"] == want["results"]
+        assert got["trace"] == want["trace"]
+        seen.append((te.stats()["prefill_compile"],
+                     je.stats()["prefill_compile"]))
+    for got, want in seen:
+        assert got == want
+    assert seen[-1][1]["hits"] > 0 and seen[0][1]["misses"] == 2

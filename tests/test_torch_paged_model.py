@@ -164,3 +164,41 @@ def test_moe_and_tp_raise(model):
                                                      device="cpu"),
                                   torch.zeros((1, MB), dtype=torch.int32),
                                   torch.zeros(1, dtype=torch.int32), cfg)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_padded_prefill_chunk_routes_padding_to_trash(model, quantized,
+                                                      monkeypatch):
+    """One chunk whose rows are mostly padding (a padded row on the trash
+    block, tokens past nvalid in blocks the requests own), run with every
+    tensor-to-host read disabled: the valid rows' logits and the pools
+    outside the trash block match the JAX package's (which drops the
+    padding's writes), and the padding's K/V land in the trash block."""
+    jcfg, tcfg, jparams, tparams = model
+    rng = np.random.default_rng(11)
+    ids = rng.integers(1, 100, (4, 16)).astype(np.int32)
+    nval = np.array([3, 16, 9, 0], np.int32)
+    starts = np.array([0, 8, 5, 0], np.int32)
+    tables = np.full((4, MB), TRASH, np.int32)
+    tables[:3, :3] = (rng.permutation(NB)[:9]).reshape(3, 3)
+    jk, jv = _pools(quantized)
+    tk, tv = paged_kv_from_jax(*_np(jk, jv), device="cpu")
+    trash_before = (t2n(tk.q if quantized else tk)[:, TRASH]).copy()
+    jl, jk, jv = jpt.paged_prefill_chunk(
+        jparams, jnp.asarray(ids), *_jx(*_np(jk, jv)), jnp.asarray(tables),
+        jnp.asarray(starts), jnp.asarray(nval), cfg=jcfg)
+
+    def no_host_read(*a, **k):
+        raise AssertionError("a host read inside the prefill chunk")
+
+    for name in ("nonzero", "item", "tolist", "__bool__"):
+        monkeypatch.setattr(torch.Tensor, name, no_host_read)
+    tl, tk, tv = tpt.paged_prefill_chunk_impl(
+        tparams, torch.from_numpy(ids), tk, tv, torch.from_numpy(tables),
+        torch.from_numpy(starts), torch.from_numpy(nval), tcfg)
+    monkeypatch.undo()
+    live = nval > 0
+    assert_close(t2n(tl)[live], np.asarray(jl)[live], "float32", "logits")
+    _assert_pools(tk, tv, *_np(jk, jv), "padded chunk")
+    assert not np.array_equal(t2n(tk.q if quantized else tk)[:, TRASH],
+                              trash_before)
