@@ -10,7 +10,7 @@ The phase clock (phase 3b) alone, from the repository's root:
 Parts alone, after phases 1-2 (each tree's package beside the script: a
 copy of this script in another tree's root measures that tree):
 
-    python3 chip_smoke.py [--k1] [--attention] [--fused] [--decode] [--serving] [--copy]
+    python3 chip_smoke.py [--k1] [--attention] [--fused] [--decode] [--serving] [--frontend] [--copy]
 
 --k1: phase 3's K1 sweep and K3; --attention: phase 3's K2 (S = 256,
 1,024, 4,096), K6 and K7; --fused: K4 in each mode at its seeds, K4's
@@ -18,7 +18,7 @@ capture and replay, and K8, with output digests, and the phase clock;
 --decode: phase 5's cached_generate at prompt 128 in each K4 mode and on
 the per-op path, each against the eager loop; --serving: the
 bench_serving7b waves, captured and eager, then one wave under
-torch.profiler; --copy: phase 3's K9-K12.
+torch.profiler; --frontend: phase 5c; --copy: phase 3's K9-K12.
 
 Phases, each of which raises on failure (exit code != 0, no final line):
 1. device: the card's name and power limit (nvidia-smi); no CUDA -> fail;
@@ -83,6 +83,25 @@ Phases, each of which raises on failure (exit code != 0, no final line):
    wall); then its per-op routes, INT8 pools at block size 16 (K6) and bf16
    pools (K7). Every kernel of each path must have launched during that
    path's timed run;
+   5c. the serving front end on the same weights: the slot InferenceEngine
+   (64 slots of 1,024 positions, INT8 pool, horizon 8), captured by
+   warmup() on this thread, behind InferenceServer(port=0) with a
+   tokenizer that maps each character to its code point: 128 chat requests
+   (prompts of 32-576 tokens from a seed, chunked above 512; 64 greedy
+   tokens; every fourth over SSE) from 32 client threads, which must launch
+   K1 (both routes), K5 and K4 once a decode step and nothing of K2, K3 or
+   K8; the same requests from 32 threads straight to the engine, and all
+   at once; a full 64-slot horizon's ms a step; then the engine with eager
+   dispatch functions (eager_slot_engine_class) on the same requests:
+   tokens, finish reasons and dispatch_trace identical to the captured
+   engine's, and every HTTP response's tokens equal to its request's
+   there; then speculative_k=4 on repetitive prompts, captured and eager
+   identical, beside the plain engine (drafts accepted, tokens equal to
+   the plain engine's); then the paged engine in the bench_serving7b
+   geometry behind the server with no warmup() (its steps captured on the
+   serving loop's thread): 64 requests through K8, and abort_request on a
+   running request, which must finish "aborted"; then
+   `cli serve --config llama7b --int8 --check`;
 6. the kernel microbenchmark path at the JAX package's default sizes, through
    its public functions: bench_gemm with K9 and with torch.matmul (4096^3
    bf16), bench_gemv (8 x 4096 x 4096, bf16 and K1 int8), bench_attention
@@ -92,7 +111,7 @@ Phases, each of which raises on failure (exit code != 0, no final line):
    suite must give the JAX suite's keys, and no roofline_fraction may
    exceed 1.05.
 Then one JSON line with each kernel's numbers (launches summed over the
-timed runs of phases 5 and 6), and the last line
+timed runs of phases 5, 5c and 6), and the last line
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -2149,10 +2168,11 @@ def eager_decode(params, cfg, prompts, fused: bool, steps):
 
 
 def full_run(dev, params, prompt: int, fused: bool, layers: int,
-             expect, mode: str = "w8a16") -> dict:
+             expect, mode: str = "w8a16", readings: dict | None = None
+             ) -> dict:
     """Phase 5: one path of the main path at full width, `layers` deep, the
     fused decode in `mode` (FUSED_MODES). Returns the launch counts of its
-    timed run."""
+    timed run; `readings`, if given, gets its replay's ms a step."""
     import torch
 
     from physics_llm_inference_tpu_torch.bench.headline import \
@@ -2202,6 +2222,8 @@ def full_run(dev, params, prompt: int, fused: bool, layers: int,
                              "from the eager loop's at "
                              f"{int((eager_toks != out.tokens).sum())} places")
     n_tok = BATCH * NEW_TOKENS
+    if readings is not None:
+        readings["ms_a_step"] = out.decode_s / NEW_TOKENS * 1e3
     log(f"{what}: graph replay {out.decode_s / NEW_TOKENS * 1e3:.3f} ms a "
         f"step, {out.decode_tokens_per_s:.1f} tok/s; eager loop "
         f"{eager_s / NEW_TOKENS * 1e3:.3f} ms a step, "
@@ -2299,10 +2321,11 @@ def sampled_run(dev, params, cfg):
                              f"{torch.equal(*states)})")
 
 
-def full_runs(dev) -> dict:
+def full_runs(dev):
     """Phase 5: the default config at prompt 128 and 512, then the per-op
     decode path, then W8A8 and W4A16 at prompt 128. Returns each kernel's
-    launches summed over the timed runs."""
+    launches summed over the timed runs, the INT8 parameters and the
+    default decode's ms a step at prompt 128."""
     import torch
 
     from physics_llm_inference_tpu_torch.models.config import ModelConfig
@@ -2317,7 +2340,9 @@ def full_runs(dev) -> dict:
     log(f"7B init on the card: {cfg.param_count() / 1e9:.2f}B params, "
         f"{time.perf_counter() - t0:.1f} s")
     fused = ("int8_matmul", "fused_decode_step", "lmhead_greedy")
-    runs = [full_run(dev, params, PROMPT, True, 32, fused),
+    readings = {}
+    runs = [full_run(dev, params, PROMPT, True, 32, fused,
+                     readings=readings),
             full_run(dev, params, LONG_PROMPT, True, 32,
                      fused + ("flash_attention",)),
             full_run(dev, params, PROMPT, False, 32,
@@ -2348,7 +2373,8 @@ def full_runs(dev) -> dict:
     torch.cuda.empty_cache()
     log(f"bench/headline.main(): {json.dumps(res)} ({nvidia_smi()}; "
         f"{time.perf_counter() - t0:.1f} s with its 7B init)")
-    return {n: sum(r[n] for r in runs) for n in KERNELS}, params
+    return ({n: sum(r[n] for r in runs) for n in KERNELS}, params,
+            readings["ms_a_step"])
 
 
 class CallTime:
@@ -2756,6 +2782,565 @@ def serving_runs(dev, params) -> dict:
     return {k: sum(r[k] for r in runs) for k in KERNELS}
 
 
+# phase 5c, the serving front end: the slot engine behind the HTTP server
+FRONT_REQUESTS, FRONT_CLIENTS, FRONT_TOKENS = 128, 32, 64
+FRONT_PROMPTS = (32, 576)          # prompt tokens, drawn from a seed
+FRONT_TIMEOUT = 300                # seconds a client waits for a response
+
+
+class CodepointTokenizer:
+    """Each character is its code point: injective over the 7B vocab, so a
+    response's text gives back its tokens, and a prompt's text is its
+    tokens."""
+
+    def encode(self, text: str) -> list[int]:
+        return [ord(c) for c in text]
+
+    def decode(self, ids) -> str:
+        return "".join(chr(int(i)) for i in ids)
+
+
+def eager_slot_engine_class():
+    """InferenceEngine with its three dispatch functions called eagerly,
+    here, not through a switch in the package: the prefill chunk straight
+    into the pool's (L, 1, S, ·) view of the slot (no slot buffer), the
+    decode horizon and the verify window as plain calls of the step
+    functions on fresh device tensors, with no graph."""
+    import numpy as np
+    import torch
+
+    from physics_llm_inference_tpu_torch.runtime.speculative import \
+        _verify_window
+    from physics_llm_inference_tpu_torch.serve.engine import (
+        InferenceEngine, _slot_of_cache, decode_horizon, prefill_chunk)
+
+    class EagerSlotEngine(InferenceEngine):
+        def _t(self, a):
+            return torch.tensor(np.asarray(a), device=self.device)
+
+        def _prefill(self, slot, ids, pos, n, sampling):
+            return prefill_chunk(
+                self.params, self.cfg, self._t(ids),
+                _slot_of_cache(self._k, slot), _slot_of_cache(self._v, slot),
+                self._t(pos), self._t(n), self._rng,
+                self._t(np.float32(sampling.temperature)),
+                self._t(np.full(1, sampling.top_k, np.int32)),
+                self._t(np.float32(sampling.top_p)))
+
+        def _decode(self, horizon, filtered, tokens, lens, temps, top_ks,
+                    top_ps):
+            return decode_horizon(
+                self.params, self.cfg, self._k, self._v, self._t(tokens),
+                self._t(lens), self._rng, self._t(temps), self._t(top_ks),
+                self._t(top_ps), horizon, filtered).cpu().numpy()
+
+        def _verify(self, window, starts):
+            starts = self._t(starts)
+            return _verify_window(self.params, self.cfg, self._t(window),
+                                  self._k, self._v, starts, starts,
+                                  None).cpu().numpy()
+
+    return EagerSlotEngine
+
+
+def front_contents(seed: int, n: int, lo: int, hi: int, vocab: int):
+    """n chat contents whose prompts ("user: " + content, one token a
+    character) have lengths drawn in [lo, hi]."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(lo, hi + 1, n)
+    return ["".join(chr(int(c)) for c in rng.integers(1, vocab, int(m) - 6))
+            for m in lens]
+
+
+def prompt_tokens(content: str) -> list[int]:
+    """The prompt the server makes of a one-message chat."""
+    return CodepointTokenizer().encode(f"user: {content}")
+
+
+def chat(port: int, content: str, max_tokens: int, stream: bool):
+    """One greedy chat request; returns (tokens, finish_reason) read back
+    from the response's text (SSE deltas joined when streaming)."""
+    import urllib.request
+
+    body = json.dumps({"messages": [{"role": "user", "content": content}],
+                       "max_tokens": max_tokens, "temperature": 0.0,
+                       "stream": stream}).encode()
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/v1/chat/completions", data=body,
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=FRONT_TIMEOUT) as r:
+        if not stream:
+            d = json.load(r)
+            text = d["choices"][0]["message"]["content"]
+            reason = d["choices"][0]["finish_reason"]
+            if d["usage"]["completion_tokens"] != len(text):
+                raise AssertionError(f"usage {d['usage']} against "
+                                     f"{len(text)} characters")
+        else:
+            events = [e[6:] for e in r.read().decode().split("\n\n")
+                      if e.startswith("data: ")]
+            if events[-1] != "[DONE]":
+                raise AssertionError(f"SSE ended with {events[-1][:80]}")
+            chunks = [json.loads(e) for e in events[:-1]]
+            text = "".join(c["choices"][0]["delta"].get("content", "")
+                           for c in chunks)
+            reason = chunks[-1]["choices"][0]["finish_reason"]
+    return CodepointTokenizer().encode(text), reason
+
+
+def client_wave(eng, contents, clients: int, max_tokens: int, what: str,
+                http: bool = True, during=None):
+    """`clients` client threads send every request of `contents`, each its
+    share in turn, waiting for one response before the next: with `http`,
+    as chat requests to the engine behind InferenceServer(port=0) on
+    127.0.0.1 with the code point tokenizer, every fourth streamed over SSE;
+    else straight to the engine (submit_request, then wait_result) under a
+    ServingLoop. Then `during(eng, server)`, the server still up. Returns
+    the (tokens, finish_reason) of each request in `contents`' order, the
+    wall from the first request to the last response, and the engine's
+    TTFTs of the wave."""
+    import threading
+
+    from physics_llm_inference_tpu_torch.serve.engine import GenerationRequest
+    from physics_llm_inference_tpu_torch.serve.http_server import (
+        InferenceServer, ServingLoop)
+    from physics_llm_inference_tpu_torch.serve.tokenizer_pool import \
+        TokenizerPool
+
+    n = len(contents)
+    before = set(eng._results)
+    got, errors = [None] * n, []
+    if http:
+        srv = InferenceServer(eng, port=0, tokenizer=TokenizerPool(
+            num_workers=4, tokenizer_factory=CodepointTokenizer))
+        srv.start_background()
+        loop = srv.loop
+
+        def send(i):
+            return chat(srv.port, contents[i], max_tokens, stream=i % 4 == 0)
+    else:
+        srv, loop = None, ServingLoop(eng)
+
+        def send(i):
+            rid = eng.submit_request(GenerationRequest(
+                prompt_tokens=prompt_tokens(contents[i]),
+                max_tokens=max_tokens, temperature=0.0))
+            loop.notify()
+            res = eng.wait_result(rid, timeout=FRONT_TIMEOUT)
+            return res.tokens, res.finish_reason
+    try:
+        def client(c):
+            for i in range(c, n, clients):
+                try:
+                    got[i] = send(i)
+                except Exception as e:  # reported below, with the others
+                    errors.append(f"request {i}: {type(e).__name__}: {e}")
+
+        threads = [threading.Thread(target=client, args=(c,), daemon=True)
+                   for c in range(clients)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(FRONT_TIMEOUT)
+        wall = time.perf_counter() - t0
+        if errors or any(t.is_alive() for t in threads) or None in got:
+            raise AssertionError(f"{what}: {len(errors)} requests failed "
+                                 f"(loop thread alive: "
+                                 f"{loop._thread.is_alive()}): "
+                                 f"{errors[:3]}")
+        if during is not None:
+            during(eng, srv)
+    finally:
+        if srv is not None:
+            srv.shutdown()
+        else:
+            loop.shutdown()
+    if loop._thread.is_alive():
+        raise AssertionError(f"{what}: the serving loop did not stop")
+    ttft = sorted(r.ttft_s for k, r in eng._results.items()
+                  if k not in before and r.ttft_s is not None)
+    return got, wall, ttft
+
+
+def direct_run(eng, prompts, max_tokens: int):
+    """Every prompt submitted to the engine at once, run to the end on this
+    thread. Returns (results, dispatch_trace, wall)."""
+    import torch
+
+    from physics_llm_inference_tpu_torch.serve.engine import GenerationRequest
+
+    eng.dispatch_trace = []
+    t0 = time.perf_counter()
+    rids = [eng.submit_request(GenerationRequest(
+        prompt_tokens=p, max_tokens=max_tokens, temperature=0.0))
+        for p in prompts]
+    eng.run_until_done(rids)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return ([eng.get_result(r) for r in rids], list(eng.dispatch_trace),
+            wall)
+
+
+def same_run(a, b, what: str) -> None:
+    """Two direct runs' tokens, finish reasons and dispatch traces equal."""
+    (ra, ta, _), (rb, tb, _) = a, b
+    if [(r.tokens, r.finish_reason) for r in ra] != \
+            [(r.tokens, r.finish_reason) for r in rb]:
+        bad = [i for i, (x, y) in enumerate(zip(ra, rb))
+               if (x.tokens, x.finish_reason) != (y.tokens, y.finish_reason)]
+        raise AssertionError(f"{what}: tokens or finish reasons differ at "
+                             f"requests {bad[:8]} of {len(ra)}")
+    if ta != tb:
+        j = next((k for k, (u, v) in enumerate(zip(ta, tb)) if u != v),
+                 min(len(ta), len(tb)))
+        raise AssertionError(f"{what}: dispatch_trace differs at entry {j} "
+                             f"of {len(ta)}/{len(tb)}")
+
+
+def pct(vals, q: float) -> float:
+    return vals[min(len(vals) - 1, int(len(vals) * q))]
+
+
+def full_horizon_ms(eng, cfg) -> list:
+    """ms a step of each decode dispatch with every slot decoding at the
+    full horizon: num_slots requests of prompt 128 for 64 tokens, each
+    dispatch ended by its tokens' read-back."""
+    import numpy as np
+    import torch
+
+    from physics_llm_inference_tpu_torch.serve.engine import GenerationRequest
+
+    c = eng.config
+    rng = np.random.default_rng(SEED + 11)
+    decode, seen = eng._decode, []
+
+    def timed(h, *a):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = decode(h, *a)
+        seen.append((h, len(eng.dispatch_trace[-1][3]),
+                     (time.perf_counter() - t) * 1e3 / h))
+        return out
+
+    eng._decode = timed
+    eng.dispatch_trace = []
+    try:
+        rids = [eng.submit_request(GenerationRequest(
+            prompt_tokens=rng.integers(1, cfg.vocab_size, 128).tolist(),
+            max_tokens=64, temperature=0.0)) for _ in range(c.num_slots)]
+        eng.run_until_done(rids)
+    finally:
+        del eng._decode
+    return [ms for h, rows, ms in seen
+            if h == c.decode_horizon and rows == c.num_slots]
+
+
+def slot_frontend(dev, params, cfg, step_ms) -> dict:
+    """Phase 5c, slot engine: warmup() on this thread, then the HTTP wave
+    (K1, K4 and K5 launched, K4 once a decode step), the same requests
+    submitted directly (the HTTP wall against the direct one), a full
+    64-slot horizon's ms a step, then the engine with eager dispatch
+    functions on the same requests: tokens, finish reasons and
+    dispatch_trace identical to the captured engine's direct run, and every
+    HTTP response's tokens equal to the eager engine's for its request.
+    Returns the HTTP wave's launch counts."""
+    import gc
+
+    import torch
+
+    from physics_llm_inference_tpu_torch.serve.engine import (EngineConfig,
+                                                              InferenceEngine)
+
+    what = "front end, slot engine"
+    kw = dict(num_slots=64, max_seq_len=1024, kv_dtype="int8",
+              decode_horizon=8)
+    contents = front_contents(SEED + 9, FRONT_REQUESTS, *FRONT_PROMPTS,
+                              cfg.vocab_size)
+    prompts = [prompt_tokens(c) for c in contents]
+    eng = InferenceEngine(params, cfg, EngineConfig(**kw))
+    setup_s = eng.warmup()
+    direct = direct_run(eng, prompts, FRONT_TOKENS)
+    eng.dispatch_trace = []
+    reset_launches()
+    got, wall, ttft = client_wave(eng, contents, FRONT_CLIENTS, FRONT_TOKENS,
+                                  what)
+    counts = read_launches()
+    steps = sum(t[1] for t in eng.dispatch_trace if t[0] == "decode")
+    chunks = [t for t in eng.dispatch_trace if t[0] == "prefill"]
+    eng.dispatch_trace = []
+    closed, closed_wall, closed_ttft = client_wave(
+        eng, contents, FRONT_CLIENTS, FRONT_TOKENS, what, http=False)
+    closed_steps = sum(t[1] for t in eng.dispatch_trace if t[0] == "decode")
+    direct_steps = sum(t[1] for t in direct[1] if t[0] == "decode")
+    missing = [k for k in ("int8_matmul", "int8_matmul_prefill",
+                           "fused_decode_step", "flash_attention")
+               if counts[k] == 0]
+    wrong = [k for k in ("int8_kv_decode_attention", "lmhead_greedy",
+                         "fused_paged_decode_step") if counts[k]]
+    if missing or wrong or counts["fused_decode_step"] != steps:
+        raise AssertionError(f"{what}: kernels not launched as expected "
+                             f"({steps} decode steps): {counts}")
+    full = full_horizon_ms(eng, cfg)
+    if not full:
+        raise AssertionError(f"{what}: no full-horizon dispatch")
+    stats = eng.stats()
+    json.dumps(stats)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    eager = eager_slot_engine_class()(params, cfg, EngineConfig(**kw))
+    plain = direct_run(eager, prompts, FRONT_TOKENS)
+    del eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    same_run(direct, plain, f"{what}: captured against eager dispatch")
+    want = [(r.tokens, r.finish_reason) for r in plain[0]]
+    if closed != want:
+        raise AssertionError(f"{what}: the closed-loop direct wave's tokens "
+                             "differ from the eager engine's")
+    bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+    if bad:
+        i = bad[0]
+        pos = next((j for j, (a, b) in enumerate(zip(got[i][0], want[i][0]))
+                    if a != b), None)
+        raise AssertionError(f"{what}: {len(bad)} HTTP responses differ from "
+                             f"the eager engine's tokens (request {i}, "
+                             f"first at position {pos}, finish "
+                             f"{got[i][1]}/{want[i][1]})")
+    if any(len(t) != FRONT_TOKENS for t, _ in got):
+        raise AssertionError(f"{what}: a response without {FRONT_TOKENS} "
+                             "tokens")
+    n_tok = FRONT_REQUESTS * FRONT_TOKENS
+    full.sort()
+    log(f"{what} ({nvidia_smi()}): 64 slots x 1,024 positions, INT8 pool, "
+        f"horizon 8; warmup() {setup_s:.1f} s (prefill_compile "
+        f"{stats['prefill_compile']}); HTTP wave of {FRONT_REQUESTS} chat "
+        f"requests from {FRONT_CLIENTS} client threads (every 4th SSE), "
+        f"prompts {FRONT_PROMPTS[0]}-{FRONT_PROMPTS[1]}, {FRONT_TOKENS} "
+        f"greedy tokens: wall {wall:.3f} s, {FRONT_REQUESTS / wall:.2f} "
+        f"requests/s, {n_tok / wall:.1f} output tok/s, TTFT p50 "
+        f"{pct(ttft, 0.5) * 1e3:.1f} ms p90 {pct(ttft, 0.9) * 1e3:.1f} ms; "
+        f"{len(chunks)} prefill chunks, {steps} decode steps; the same "
+        f"requests from {FRONT_CLIENTS} threads straight to the engine (no "
+        f"HTTP): wall {closed_wall:.3f} s, {n_tok / closed_wall:.1f} tok/s, "
+        f"TTFT p50 {pct(closed_ttft, 0.5) * 1e3:.1f} ms p90 "
+        f"{pct(closed_ttft, 0.9) * 1e3:.1f} ms, {closed_steps} decode steps; "
+        f"all submitted at once: wall {direct[2]:.3f} s "
+        f"({n_tok / direct[2]:.1f} tok/s, {direct_steps} decode steps), "
+        f"eager dispatch {plain[2]:.3f} s; "
+        f"full 64-slot horizon: {pct(full, 0.5):.3f} ms a step (median of "
+        f"{len(full)}, {full[0]:.3f}-{full[-1]:.3f}), cached_generate's "
+        f"phase-5 step {'%.3f ms' % step_ms if step_ms else 'not measured'}"
+        f"; launches {({k: v for k, v in counts.items() if v})}; captured "
+        "and eager engines identical (tokens, finish reasons, "
+        "dispatch_trace), every HTTP response's tokens equal to the eager "
+        "engine's")
+    return counts
+
+
+def spec_frontend(dev, params, cfg) -> dict:
+    """Phase 5c, speculative: 16 greedy requests of repetitive prompts (a
+    phrase of 8-24 tokens repeated to 96-256) through the slot engine with
+    speculative_k=4, captured and eager (identical tokens, finish reasons
+    and dispatch_trace), then through the plain engine: the drafts
+    accepted a dispatch, and the share of requests whose tokens equal the
+    plain engine's (the verify window's per-op route and K4 round apart).
+    Returns the captured run's launch counts."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from physics_llm_inference_tpu_torch.serve.engine import (EngineConfig,
+                                                              InferenceEngine)
+
+    what = "front end, speculative_k=4"
+    kw = dict(num_slots=16, max_seq_len=1024, kv_dtype="int8",
+              decode_horizon=8)
+    rng = np.random.default_rng(SEED + 12)
+    prompts = []
+    for _ in range(16):
+        phrase = rng.integers(1, cfg.vocab_size, int(rng.integers(8, 25)))
+        prompts.append(np.resize(phrase, int(rng.integers(96, 257))).tolist())
+    runs = {}
+    for label, cls, k in (("captured", InferenceEngine, 4),
+                          ("eager", eager_slot_engine_class(), 4),
+                          ("plain", InferenceEngine, 0)):
+        eng = cls(params, cfg, EngineConfig(speculative_k=k, **kw))
+        if label != "eager":
+            eng.warmup()
+        reset_launches()
+        runs[label] = direct_run(eng, prompts, FRONT_TOKENS)
+        if label == "captured":
+            counts = read_launches()
+            spec = eng.stats()["speculative"]
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    same_run(runs["captured"], runs["eager"], f"{what}: captured against "
+             "eager dispatch")
+    kinds = [t[0] for t in runs["captured"][1]]
+    if "spec" not in kinds or counts["int8_matmul_prefill"] == 0:
+        raise AssertionError(f"{what}: no verify window ran through K1 "
+                             f"({kinds.count('spec')} windows; {counts})")
+    first = []
+    for a, b in zip(runs["captured"][0], runs["plain"][0]):
+        first.append(next((j for j, (x, y) in enumerate(zip(a.tokens,
+                                                             b.tokens))
+                           if x != y), None))
+    equal = sum(f is None for f in first)
+    log(f"{what} ({nvidia_smi()}): 16 slots, 16 requests of repetitive "
+        f"prompts, {FRONT_TOKENS} greedy tokens: {kinds.count('spec')} "
+        f"verify windows, {spec['tokens_per_dispatch']:.3f} tokens a request "
+        f"a dispatch ({spec['tokens_per_dispatch'] - 1:.3f} drafts accepted "
+        f"beside the bonus token); wall {runs['captured'][2]:.3f} s against "
+        f"the plain engine's {runs['plain'][2]:.3f} s; captured and eager "
+        f"identical; requests with the plain engine's tokens: {equal} of "
+        f"{len(first)}, first differing position of the others: "
+        f"{[f for f in first if f is not None]}; launches "
+        f"{({k: v for k, v in counts.items() if v})}")
+    return counts
+
+
+def paged_frontend(dev, params, cfg) -> dict:
+    """Phase 5c, paged: the paged engine in phase 5's bench_serving7b
+    geometry behind the same server, with no warmup(), as the CLI serves:
+    every step is captured on the serving loop's thread at its first use.
+    64 chat requests (K8, K5, K1), then abort_request on a running request,
+    which must finish "aborted" (the reference's reason). Returns the
+    wave's launch counts."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from physics_llm_inference_tpu_torch.serve.engine import GenerationRequest
+    from physics_llm_inference_tpu_torch.serve.paged_engine import (
+        PagedEngineConfig, PagedInferenceEngine)
+
+    what = "front end, paged engine"
+    eng = PagedInferenceEngine(params, cfg, PagedEngineConfig(
+        max_batch=64, kv_dtype="int8", decode_horizon=8, enable_radix=True,
+        prefill_tokens_per_iter=2048))
+    contents = front_contents(SEED + 10, 64, *FRONT_PROMPTS, cfg.vocab_size)
+    aborted = {}
+
+    def abort_one(eng, srv):
+        rid = eng.submit_request(GenerationRequest(
+            prompt_tokens=np.arange(1, 129).tolist(), max_tokens=512,
+            temperature=0.0))
+        srv.loop.notify()
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < FRONT_TIMEOUT:
+            r = eng.scheduler.running.get(rid)
+            if r is not None and len(r.output_tokens) >= 8:
+                break
+            time.sleep(0.005)
+        aborted["ok"] = eng.abort_request(rid)
+        aborted["res"] = eng.wait_result(rid, timeout=FRONT_TIMEOUT)
+
+    reset_launches()
+    eng.dispatch_trace = []
+    got, wall, ttft = client_wave(eng, contents, 16, FRONT_TOKENS, what,
+                                  during=abort_one)
+    counts = read_launches()
+    res = aborted.get("res")
+    if not (aborted.get("ok") and res is not None
+            and res.finish_reason == "aborted"
+            and 8 <= len(res.tokens) < 512):
+        raise AssertionError(f"{what}: abort_request on a running request "
+                             f"gave {aborted}")
+    if counts["fused_paged_decode_step"] == 0 or counts["flash_attention"] \
+            == 0 or counts["int8_matmul"] == 0 or any(
+            counts[k] for k in ("int8_paged_decode_attention",
+                                "paged_decode_attention",
+                                "fused_decode_step")):
+        raise AssertionError(f"{what}: kernels not launched as expected: "
+                             f"{counts}")
+    if any(len(t) != FRONT_TOKENS or f != "length" for t, f in got):
+        raise AssertionError(f"{what}: a response without {FRONT_TOKENS} "
+                             "tokens")
+    n_tok = 64 * FRONT_TOKENS
+    log(f"{what} ({nvidia_smi()}): bench_serving7b geometry, no warmup() "
+        f"(the loop thread captured {eng.stats()['prefill_compile']} "
+        f"prefill buckets and {len(eng._decode_fns)} decode steps); 64 chat "
+        f"requests from 16 clients: wall {wall:.3f} s, "
+        f"{n_tok / wall:.1f} output tok/s, TTFT p50 "
+        f"{pct(ttft, 0.5) * 1e3:.1f} ms p90 {pct(ttft, 0.9) * 1e3:.1f} ms; "
+        f"abort_request on a running request: finish_reason "
+        f"{res.finish_reason!r} after {len(res.tokens)} tokens; launches "
+        f"{({k: v for k, v in counts.items() if v})}")
+    # the first wave's wall holds its captures: a second wave of fresh
+    # prompts replays what the first captured, and says what it added
+    made = (eng.stats()["prefill_compile"]["misses"], len(eng._decode_fns))
+    again = front_contents(SEED + 11, 64, *FRONT_PROMPTS, cfg.vocab_size)
+    got, wall2, ttft2 = client_wave(eng, again, 16, FRONT_TOKENS,
+                                    what + ", second wave")
+    if any(len(t) != FRONT_TOKENS or f != "length" for t, f in got):
+        raise AssertionError(f"{what}, second wave: a response without "
+                             f"{FRONT_TOKENS} tokens")
+    new = (eng.stats()["prefill_compile"]["misses"] - made[0],
+           len(eng._decode_fns) - made[1])
+    log(f"{what}, second wave of 64 fresh prompts ({nvidia_smi()}): wall "
+        f"{wall2:.3f} s, {n_tok / wall2:.1f} output tok/s, TTFT p50 "
+        f"{pct(ttft2, 0.5) * 1e3:.1f} ms p90 {pct(ttft2, 0.9) * 1e3:.1f} "
+        f"ms; captures made in it: {new[0]} prefill buckets, {new[1]} "
+        f"decode steps (first wave: {made[0]} prefill buckets, {made[1]} "
+        f"decode steps)")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def cli_check():
+    """`cli serve --config llama7b --int8 --check` on the card."""
+    import gc
+
+    import torch
+
+    from physics_llm_inference_tpu_torch import cli
+
+    t0 = time.perf_counter()
+    cli.main(["serve", "--config", "llama7b", "--int8", "--check",
+              "--port", "0"])
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"front end, cli serve --config llama7b --int8 --check --port 0: "
+        f"ok in {time.perf_counter() - t0:.1f} s")
+
+
+def frontend_runs(dev, params, step_ms=None) -> dict:
+    """Phase 5c: the slot engine behind the HTTP server, the speculative
+    engine, the paged engine behind the server, the CLI's serve check.
+    Returns the launches of the slot and paged HTTP waves and of the
+    captured speculative run."""
+    cfg = serving_cfg()
+    t0 = time.perf_counter()
+    runs = [slot_frontend(dev, params, cfg, step_ms),
+            spec_frontend(dev, params, cfg),
+            paged_frontend(dev, params, cfg)]
+    cli_check()
+    log(f"phase 5c (front end): {time.perf_counter() - t0:.1f} s")
+    return {k: sum(r[k] for r in runs) for k in KERNELS}
+
+
+def frontend_alone(dev):
+    """--frontend: phase 5c alone, on the INT8 7B-class weights."""
+    import torch
+
+    from physics_llm_inference_tpu_torch.models.quant import init_params_int8
+
+    cfg = serving_cfg()
+    frontend_runs(dev, init_params_int8(
+        torch.Generator(device=dev).manual_seed(SEED), cfg))
+
+
 SUITE_KEYS = ("mha_vs_gqa", "swiglu_fusion", "naive_vs_cached", "gemm",
               "gemv_bf16", "gemv_int8", "attn_flash", "attn_naive",
               "static_batching")
@@ -2867,7 +3452,7 @@ def main(argv=()) -> int:
 
     flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
     if set(argv) & {"--k1", "--attention", "--fused", "--decode",
-                    "--serving", "--copy"}:
+                    "--serving", "--frontend", "--copy"}:
         # parts alone, for comparing trees: K1 in phase 3; K2, K6 and K7
         # in phase 3; K4 in each mode, K8 and the phase clock; decode at
         # prompt 128 in each K4 mode; the bench_serving7b wave
@@ -2893,6 +3478,8 @@ def main(argv=()) -> int:
             decode_alone(dev)
         if "--serving" in argv:
             serving_alone(dev)
+        if "--frontend" in argv:
+            frontend_alone(dev)
         log(nvidia_smi())
         return 0
     kernels = check_kernels(dev, flush)
@@ -2904,12 +3491,13 @@ def main(argv=()) -> int:
         slice_parity(dev, fused=True, mode=mode)
     paged_slice_parity(dev)
     torch.cuda.empty_cache()
-    dense, params = full_runs(dev)
+    dense, params, step_ms = full_runs(dev)
     paged = serving_runs(dev, params)
+    front = frontend_runs(dev, params, step_ms)
     del params
     torch.cuda.empty_cache()
     micro = micro_path(dev)
-    counts = {k: dense[k] + paged[k] + micro[k] for k in KERNELS}
+    counts = {k: dense[k] + paged[k] + front[k] + micro[k] for k in KERNELS}
 
     rows = []
     for name, row in kernels.items():

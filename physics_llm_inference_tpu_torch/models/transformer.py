@@ -118,7 +118,13 @@ def _linear(x: torch.Tensor, w) -> torch.Tensor:
 
 def _write_seq(buf: torch.Tensor, val: torch.Tensor, start, axis: int):
     """In place: buf[b, ..., start_b + i (on `axis`), ...] = val[b, ..., i].
-    buf/val have the batch on axis 0 and the sequence on `axis` (1 or 2)."""
+    buf/val have the batch on axis 0 and the sequence on `axis` (1 or 2).
+
+    With a tensor `start`, a write of several positions that runs past the
+    cache (a prefill chunk's padding) lands its excess on the last slot,
+    which no query attends; the tokens before it stay in place, where JAX's
+    dynamic_update_slice would shift the whole write back. A one-position
+    write arrives with its start clamped already (`forward`)."""
     s = val.shape[axis]
     if isinstance(start, int):
         buf.narrow(axis, start, s).copy_(val)
@@ -126,6 +132,8 @@ def _write_seq(buf: torch.Tensor, val: torch.Tensor, start, axis: int):
     b = buf.shape[0]
     start = torch.as_tensor(start, device=buf.device).reshape(-1).expand(b)
     idx = start.long()[:, None] + torch.arange(s, device=buf.device)
+    if s > 1:
+        idx = idx.clamp(max=buf.shape[axis] - 1)
     bidx = torch.arange(b, device=buf.device)[:, None]
     if axis == 1:
         buf[bidx, idx] = val
@@ -384,7 +392,7 @@ def _fused_decode_forward(params: dict, x: torch.Tensor, cfg: ModelConfig,
     start = kv.start
     wslot = write_slots(start, b, x.device)
     q_slot = slots[:, 0] if slots is not None else wslot
-    pos = positions[:, 0]
+    pos = positions[:, 0].clamp(0, rope_cos.shape[0] - 1)  # as JAX clamps
     x_out, *_ = fused_decode_step(
         params["blocks"], x[:, 0], kv.k.q, kv.k.s, kv.v.q, kv.v.s, q_slot,
         valid_from, rope_cos[pos], rope_sin[pos], cfg, slot=wslot,
@@ -438,10 +446,16 @@ def forward(params: dict, input_ids: torch.Tensor, cfg: ModelConfig,
                                               slots, valid_from, rope_cos,
                                               rope_sin)
         else:
+            start = kv.start
+            if s == 1 and isinstance(start, torch.Tensor):
+                # a parked row's decode steps walk past the cache: its
+                # write lands on the last slot, as JAX clamps the start;
+                # no active row attends that slot
+                start = start.clamp(max=_cache_capacity((kv.k, kv.v)) - 1)
             for layer in range(cfg.num_layers):
                 x, _ = block_forward(layer_view(blocks, layer), x, cfg,
                                      rope_cos, rope_sin, positions,
-                                     kv=(kv.k, kv.v), start=kv.start,
+                                     kv=(kv.k, kv.v), start=start,
                                      slots=slots, valid_from=valid_from,
                                      layer=layer, k_limit=k_limit,
                                      fresh_kv=fresh_kv)

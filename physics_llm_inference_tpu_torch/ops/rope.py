@@ -21,7 +21,9 @@ def rope_frequencies(head_dim: int, max_seq_len: int, theta: float = 10000.0,
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                positions: torch.Tensor) -> torch.Tensor:
-    """Rotate x (B, S, H, D) by per-token positions (B, S)."""
+    """Rotate x (B, S, H, D) by per-token positions (B, S). A position past
+    the table reads its last row, as JAX clamps a gather."""
+    positions = positions.clamp(0, cos.shape[0] - 1)
     c = cos[positions][:, :, None, :]
     s = sin[positions][:, :, None, :]
     xf = x.float()

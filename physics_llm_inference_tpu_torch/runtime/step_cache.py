@@ -144,3 +144,21 @@ class StagedInputs:
             self._pinned[k].numpy()[...] = a
             self.buffers[k].copy_(self._pinned[k], non_blocking=True)
         self._copied.record()
+
+
+def staged_step(fn: Callable, device, pool=None, generators=(),
+                **buffers: torch.Tensor):
+    """A serving engine's dispatch step over static input buffers: returns
+    (inputs, step), where `inputs` is the StagedInputs over `buffers` and
+    `step()` runs `fn(**buffers)`: captured into `pool` on CUDA (the capture
+    warms `fn` up on the buffers' initial values, so those must make its
+    writes harmless), `fn` itself, eagerly, on the CPU."""
+    device = torch.device(device)
+    inputs = StagedInputs(device, **buffers)
+
+    def run():
+        return fn(**inputs.buffers)
+
+    if device.type != "cuda":
+        return inputs, run
+    return inputs, CapturedStep(run, device, pool, generators)

@@ -26,15 +26,15 @@ the host fills through pinned staging buffers, and all of an engine's
 graphs share one memory pool; `warmup()` captures every decode horizon and
 each prefill bucket at one row. On the CPU the steps run eagerly. On CUDA
 the default INT8 geometry decodes through K8 (the fused paged kernel); the
-per-op routes run K6 (INT8 pools) or K7 (bf16 pools). Not ported yet: TP
-serving (`mesh` raises) and the streaming, abort and blocking-wait calls
-the HTTP server uses (`generate_stream`, `abort_request`, `wait_result`;
-ROADMAP Queue A, slot serving and the HTTP front end).
+per-op routes run K6 (INT8 pools) or K7 (bf16 pools). The request
+lifecycle (intake with stream listeners, abort, `generate_stream`,
+`wait_result`) is serve/lifecycle.py's, shared with the slot engine; the
+HTTP server (serve/http_server.py) streams through it. Not ported yet: TP serving (`mesh` raises; ROADMAP
+Queue A item 7).
 """
 from __future__ import annotations
 
 import sys
-import threading
 import time
 from dataclasses import dataclass
 
@@ -49,11 +49,10 @@ from ..models.transformer import QuantKV
 from ..native import make_radix_cache
 from ..ops.sampling import SamplingParams, sample_token
 from ..runtime.paged_kv import PagedKVCache
-from ..runtime.step_cache import (CapturedStep, StagedInputs, StepCache,
-                                  bucket_for)
+from ..runtime.step_cache import StepCache, bucket_for, staged_step
 from ..sched.request import Request, RequestState
 from ..sched.scheduler import Scheduler, SchedulerConfig, SchedulingPolicy
-from .engine import GenerationRequest, GenerationResult
+from .lifecycle import GenerationRequest, RequestLifecycle
 
 
 @dataclass
@@ -91,7 +90,7 @@ class PagedEngineConfig:
                    num_blocks=max_batch * mb + spare_blocks, **kw)
 
 
-class PagedInferenceEngine:
+class PagedInferenceEngine(RequestLifecycle):
     def __init__(self, params, model_cfg: ModelConfig,
                  config: PagedEngineConfig | None = None, mesh=None):
         """params: the port's parameter dict; the pools are made on the
@@ -171,13 +170,9 @@ class PagedInferenceEngine:
         self._lengths = np.zeros(c.max_batch, dtype=np.int32)
         self._active = np.zeros(c.max_batch, dtype=bool)
 
-        self._lock = threading.RLock()
-        self._next_id = 0
+        self._init_lifecycle()
         gen_dev = dev if dev.type == "cuda" else "cpu"
         self._rng = torch.Generator(device=gen_dev).manual_seed(0)
-        self._results: dict[str, GenerationResult] = {}
-        self._total_requests = 0
-        self._total_tokens = 0
         self._radix_hit_tokens = 0
         # the graphs of this engine share one memory pool
         self._graph_pool = (torch.cuda.graph_pool_handle()
@@ -249,19 +244,11 @@ class PagedInferenceEngine:
     # ------------------------------------------------------------ dispatch
 
     def _step(self, fn, generators=(), **buffers):
-        """A dispatch step over static input buffers: (inputs, step), the
-        step captured on CUDA, `fn` itself on the CPU. The buffers' initial
-        values must make `fn`'s writes harmless (tables on the trash
-        block), since the capture's warm-up runs it on them."""
-        inputs = StagedInputs(self.device, **buffers)
-
-        def run():
-            return fn(**inputs.buffers)
-
-        if self.device.type != "cuda":
-            return inputs, run
-        return inputs, CapturedStep(run, self.device, self._graph_pool,
-                                    generators)
+        """A dispatch step over static input buffers (`staged_step`). The
+        buffers' initial values must make `fn`'s writes harmless (tables on
+        the trash block), since the capture's warm-up runs it on them."""
+        return staged_step(fn, self.device, self._graph_pool, generators,
+                           **buffers)
 
     def _buf(self, *shape, fill=0, dtype=torch.int32) -> torch.Tensor:
         return torch.full(shape, fill, dtype=dtype, device=self.device)
@@ -327,11 +314,11 @@ class PagedInferenceEngine:
 
     # ------------------------------------------------------------ requests
 
-    def submit_request(self, req: GenerationRequest) -> str:
-        with self._lock:
-            rid = req.request_id or f"req-{self._next_id}"
-            self._next_id += 1
-            self._total_requests += 1
+    def submit_request(self, req: GenerationRequest,
+                       listener: list | None = None) -> str:
+        """Thread-safe intake; `listener`, a list, receives each emitted
+        token from the first."""
+        rid = self._new_id(req)
         cap = self.config.max_blocks_per_request * self.config.block_size
         if len(req.prompt_tokens) + req.max_tokens > cap:
             raise ValueError(
@@ -344,8 +331,7 @@ class PagedInferenceEngine:
                                     top_k=req.top_k, top_p=req.top_p,
                                     stop_tokens=tuple(req.stop_tokens)),
         )
-        with self._lock:
-            self.scheduler.add_request(r)
+        self._enqueue(r, listener)
         return rid
 
     def warmup(self, buckets=None) -> float:
@@ -494,6 +480,7 @@ class PagedInferenceEngine:
                 r.first_token_time = time.monotonic()
                 r.output_tokens.append(tok_i)
                 emitted.setdefault(r.request_id, []).append(tok_i)
+                self._notify(r, tok_i)
         self._prefilling = still_prefilling
 
         # ---- grow KV for decoding requests; relieve pressure if needed
@@ -598,6 +585,7 @@ class PagedInferenceEngine:
                     self._lengths[row] += 1
                     r.output_tokens.append(tok_i)
                     emitted.setdefault(r.request_id, []).append(tok_i)
+                    self._notify(r, tok_i)
                     if (r.sampling.stop_tokens
                             and tok_i in r.sampling.stop_tokens):
                         break
@@ -630,33 +618,6 @@ class PagedInferenceEngine:
         if finished:
             self.scheduler.update(finished)
         return emitted
-
-    def _finish(self, r: Request) -> None:
-        total = (r.finish_time or time.monotonic()) - r.arrival_time
-        self._results[r.request_id] = GenerationResult(
-            request_id=r.request_id, tokens=list(r.output_tokens),
-            finish_reason=r.finish_reason or "length",
-            ttft_s=r.ttft(), total_s=total)
-        with self._lock:
-            self._total_tokens += len(r.output_tokens)
-
-    def run_until_done(self, request_ids=None, max_steps: int = 100_000):
-        for _ in range(max_steps):
-            if request_ids is not None and all(
-                    rid in self._results for rid in request_ids):
-                return
-            if request_ids is None and not (self.scheduler.waiting
-                                            or self.scheduler.running):
-                return
-            self.step()
-
-    def generate(self, req: GenerationRequest) -> GenerationResult:
-        rid = self.submit_request(req)
-        self.run_until_done([rid])
-        return self._results[rid]
-
-    def get_result(self, request_id: str):
-        return self._results.get(request_id)
 
     def stats(self) -> dict:
         s = {

@@ -29,7 +29,10 @@ def test_walk_finds_every_module():
                      "kernels.membench", "kernels.hello_pallas",
                      "specs.roofline", "utils.timing", "ops.ffn",
                      "sched.static_batcher", "bench.micro", "bench.suite",
-                     "models.quant", "bench.headline", "runtime.step_cache"):
+                     "models.quant", "bench.headline", "runtime.step_cache",
+                     "serve.api_types", "serve.tokenizer_pool",
+                     "serve.http_server", "bench.harness",
+                     "runtime.speculative", "cli", "serve.lifecycle"):
         assert f"{port.__name__}.{expected}" in names
 
 
