@@ -10,7 +10,7 @@ The phase clock (phase 3b) alone, from the repository's root:
 Parts alone, after phases 1-2 (each tree's package beside the script: a
 copy of this script in another tree's root measures that tree):
 
-    python3 chip_smoke.py [--k1] [--attention] [--fused] [--decode] [--serving] [--frontend] [--copy]
+    python3 chip_smoke.py [--k1] [--attention] [--fused] [--decode] [--serving] [--frontend] [--moe] [--copy]
 
 --k1: phase 3's K1 sweep and K3; --attention: phase 3's K2 (S = 256,
 1,024, 4,096), K6 and K7; --fused: K4 in each mode at its seeds, K4's
@@ -18,7 +18,8 @@ capture and replay, and K8, with output digests, and the phase clock;
 --decode: phase 5's cached_generate at prompt 128 in each K4 mode and on
 the per-op path, each against the eager loop; --serving: the
 bench_serving7b waves, captured and eager, then one wave under
-torch.profiler; --frontend: phase 5c; --copy: phase 3's K9-K12.
+torch.profiler; --frontend: phase 5c; --moe: phase 5d; --copy: phase
+3's K9-K12.
 
 Phases, each of which raises on failure (exit code != 0, no final line):
 1. device: the card's name and power limit (nvidia-smi); no CUDA -> fail;
@@ -102,6 +103,31 @@ Phases, each of which raises on failure (exit code != 0, no final line):
    serving loop's thread): 64 requests through K8, and abort_request on a
    running request, which must finish "aborted"; then
    `cli serve --config llama7b --int8 --check`;
+   5d. the MoE model family at BASELINE config 5's widths
+   (scripts/bench_moe.py: hidden 2048, 16 q / 4 kv heads, 8 experts top-2
+   of FFN 2816, capacity factor 1.25, INT8 weights and KV), initialized
+   on the card from a seed by init_params then quantize_params_int8: a
+   2-layer slice parity (prefill plus 8 teacher-forced decode steps with
+   the kernels, K1 "stream", K2 and K3, and with their plain versions;
+   rows whose routing moved are reported, the others held to 2e-2 of
+   their own norm, and two controls, one slot less of capacity and
+   weights not renormalised, must break that rule); the engines' step
+   functions at 2 layers, with the kernels and with the dense and paged
+   models' plain entry points, under the same rule: four slot-engine
+   prefill chunks of 128 (K1 "wgmma" at K = 2,048), two paged prefill
+   chunks of 16 x 128 (K5; each token's final hidden state held) and a
+   paged decode step of 32 (K1 "stream", K6), both runs from the kernel
+   run's INT8 pools of 16-token blocks; each kernel of both parts held
+   against its plain version on the inputs the path gave it; then 16
+   layers:
+   cached_generate at batch 32, prompt 128, 64 greedy tokens over an INT8
+   cache, replayed from a graph and held against the eager loop, beside
+   the all-expert and active-expert floors (K1, K2, K3 launched; K4 and
+   K8 not); bench/moe.main([]) and bench/moe.main(["--engine"]), each
+   JSON on its own line; the slot engine (32 slots, horizon 8) captured
+   and eager on 32 requests, and the paged engine (INT8 pools of 16-token
+   blocks: K6, K5) captured and eager: tokens, finish reasons and
+   dispatch_trace identical;
 6. the kernel microbenchmark path at the JAX package's default sizes, through
    its public functions: bench_gemm with K9 and with torch.matmul (4096^3
    bf16), bench_gemv (8 x 4096 x 4096, bf16 and K1 int8), bench_attention
@@ -111,7 +137,8 @@ Phases, each of which raises on failure (exit code != 0, no final line):
    suite must give the JAX suite's keys, and no roofline_fraction may
    exceed 1.05.
 Then one JSON line with each kernel's numbers (launches summed over the
-timed runs of phases 5, 5c and 6), and the last line
+timed runs of phases 5, 5c, 5d and 6; of 5d's bench/moe.main calls, each
+whole call, its warm runs and captures included), and the last line
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -1746,20 +1773,23 @@ def run_slice(params, cfg, prompts, steps_tokens, dev):
 
 
 class plain_entry_points:
-    """Within the block, the transformer's references to every kernel entry
-    point are its plain version (here, not in the package)."""
+    """Within the block, the dense and the paged model's references to
+    every kernel entry point are its plain version (here, not in the
+    package)."""
 
     def __enter__(self):
+        from physics_llm_inference_tpu_torch.models import \
+            paged_transformer as pt
         from physics_llm_inference_tpu_torch.models import transformer as tf
 
-        self.tf = tf
-        self.saved = {n: getattr(tf, n) for n in KERNELS if hasattr(tf, n)}
-        for n in self.saved:
-            setattr(tf, n, getattr(kernel_module(n), f"{n}_plain"))
+        self.saved = [(m, n, getattr(m, n)) for m in (tf, pt)
+                      for n in KERNELS if hasattr(m, n)]
+        for m, n, _ in self.saved:
+            setattr(m, n, getattr(kernel_module(n), f"{n}_plain"))
 
     def __exit__(self, *exc):
-        for n, fn in self.saved.items():
-            setattr(self.tf, n, fn)
+        for m, n, fn in self.saved:
+            setattr(m, n, fn)
 
 
 def lockstep_slice(params, cfg, prompts, steps_tokens, dev):
@@ -2113,12 +2143,13 @@ def kernel_ms(fn) -> float:
     return total
 
 
-def eager_decode(params, cfg, prompts, fused: bool, steps):
-    """cached_generate's greedy prefill and decode loop with every step of
-    the loop called eagerly, here (no graph): its tokens, its decode
-    seconds and, on the per-op path, the host's share of a step (wall less
-    the device time of its kernels) for the eager step and for a replay of
-    `steps`' captured step."""
+def eager_decode(params, cfg, prompts, fused: bool, steps,
+                 new_tokens: int = NEW_TOKENS):
+    """cached_generate's greedy prefill and decode loop (`new_tokens`
+    steps) with every step of the loop called eagerly, here (no graph): its
+    tokens, its decode seconds and, on the per-op path, the host's share of
+    a step (wall less the device time of its kernels) for the eager step
+    and for a replay of `steps`' captured step."""
     import numpy as np
     import torch
 
@@ -2128,7 +2159,7 @@ def eager_decode(params, cfg, prompts, fused: bool, steps):
     dev = params["embed"].device
     ids, lens = gen.pad_and_stack(prompts, device=dev)
     b, p = ids.shape
-    cap = -(-(p + NEW_TOKENS) // 128) * 128
+    cap = -(-(p + new_tokens) // 128) * 128
     loop = gen.DecodeLoop(params, cfg, b, cap, torch.int8, True, 0, False,
                           (), 0, None)
     logits0, _, vfrom = gen._prefill(params, cfg, ids, lens,
@@ -2137,9 +2168,9 @@ def eager_decode(params, cfg, prompts, fused: bool, steps):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     loop.begin(first, lens, vfrom, p, 0.0, 1.0)
-    for _ in range(NEW_TOKENS):
+    for _ in range(new_tokens):
         loop.step()
-    toks = loop.emitted[:, :NEW_TOKENS].cpu().numpy().astype(np.int32)
+    toks = loop.emitted[:, :new_tokens].cpu().numpy().astype(np.int32)
     torch.cuda.synchronize()
     eager_s = time.perf_counter() - t0
     host = ""
@@ -3341,6 +3372,697 @@ def frontend_alone(dev):
         torch.Generator(device=dev).manual_seed(SEED), cfg))
 
 
+# phase 5d: the MoE model family at BASELINE config 5's widths
+# (scripts/bench_moe.py: hidden 2048, 16 q / 4 kv heads, 8 experts top-2 of
+# FFN 2816, capacity factor 1.25, INT8 weights and KV)
+MOE_WIDTHS = dict(vocab_size=32000, hidden_dim=2048, num_heads=16,
+                  num_kv_heads=4, intermediate_dim=2816, max_seq_len=1024,
+                  dtype="bfloat16", num_experts=8, num_experts_per_tok=2,
+                  expert_capacity_factor=1.25)
+MOE_BATCH, MOE_PROMPT, MOE_TOKENS, MOE_LAYERS = 32, 128, 64, 16
+MOE_RTOL = 2e-2      # a held row's relative error, phase 4's per-op rule
+# a routing change is excused only at a near-tie: the reference's top k+1
+# router logits of the token within this of each other. A held row's
+# logits move by about its relative error (a unit-norm gate column against
+# a sqrt(D)-norm input), ~1e-3 for K1/K2 rounding: 0.05 is far above that,
+# and a defect upstream of a router moves logits by ~0.1-1
+MOE_MARGIN = 0.05
+# what an MoE path must not launch: K4 and K8 have no MoE mode
+MOE_FORBID = ("fused_decode_step", "fused_decode_step_w4a16",
+              "fused_decode_step_w8a8", "fused_paged_decode_step")
+
+
+def moe_cfg(layers: int):
+    from physics_llm_inference_tpu_torch.models.config import ModelConfig
+
+    return ModelConfig(num_layers=layers, **MOE_WIDTHS)
+
+
+def moe_params(dev, cfg, seed: int):
+    """quantize_params_int8(init_params(...)) on the card, as
+    scripts/bench_moe.py makes its weights (init_params_int8 is dense)."""
+    import torch
+
+    from physics_llm_inference_tpu_torch.models.quant import \
+        quantize_params_int8
+    from physics_llm_inference_tpu_torch.models.transformer import \
+        init_params
+
+    params = quantize_params_int8(init_params(
+        torch.Generator(device=dev).manual_seed(seed), cfg))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return params
+
+
+class moe_routes:
+    """Within the block, each routed layer's call is recorded on the host,
+    in call order: (indices (T, K), kept (T, K), the router's probs
+    (T, E)). Controls, here and not in the package: `short` gives each
+    call one slot less of capacity an expert; `unnormalised` hands the
+    layer the router's top-k probabilities without their
+    renormalisation."""
+
+    def __init__(self, short: bool = False, unnormalised: bool = False):
+        self.short, self.unnormalised = short, unnormalised
+        self.calls, self.probs = [], []
+
+    def __enter__(self):
+        import torch
+
+        from physics_llm_inference_tpu_torch.models import moe
+
+        self.moe = moe
+        self.saved = (moe._dispatch_slots, moe.router)
+        dispatch, router = self.saved
+
+        def spy_dispatch(indices, weights, e, c, valid=None):
+            cc = c - 1 if self.short else c
+            slot, comb = dispatch(indices, weights, e, cc, valid)
+            if self.short:   # the same grid, one slot an expert unused
+                kept = slot < e * cc
+                slot = torch.where(kept, slot - indices * cc + indices * c,
+                                   e * c)
+            self.calls.append((indices.cpu(), (slot < e * c).cpu(),
+                               self.probs.pop()))
+            return slot, comb
+
+        def spy_router(x, gate, k):
+            w, i, p = router(x, gate, k)
+            self.probs.append(p.cpu())
+            if self.unnormalised:
+                w = p.gather(1, i)
+            return w, i, p
+
+        moe._dispatch_slots, moe.router = spy_dispatch, spy_router
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._dispatch_slots, self.moe.router = self.saved
+
+
+def moe_moved(calls_a, calls_b, stages, layers: int):
+    """Per stage (`layers` routing calls each; `stages` holds each stage's
+    (label, rows), its rows as request ids), the tokens whose routing
+    moved between two runs (a: under test, b: the reference), up to and
+    including that stage. A token moved where it changed experts in a call
+    where the reference's top k+1 router logits of that token lie within
+    MOE_MARGIN of each other (a near-tie that rounding can flip), and where
+    it kept or lost a slot the other run did not in a call where some
+    token changed experts (a pair moved by a routing change can take a
+    later pair's slot). The later tokens of its request move with it
+    (attention reads it), and so does every token of that request in a
+    later stage. Returns (a list of (b, s) bool tensors, one a stage, the
+    defects): a call where a token not moved before changes experts at a
+    clear margin, and a call where no token changed experts but a pair
+    kept or lost its slot (on the same experts the slots follow from the
+    routing alone)."""
+    import torch
+
+    req = torch.zeros(max(int(r.max()) for _, r in stages) + 1,
+                      dtype=torch.bool)
+    out, defects = [], []
+    for j, (_, rows) in enumerate(stages):
+        b, state = rows.numel(), None
+        for i in range(j * layers, (j + 1) * layers):
+            (ia, ka, _), (ib, kb, pb) = calls_a[i], calls_b[i]
+            k = ib.shape[-1]
+            top = pb.sort(dim=-1, descending=True).values[:, :k + 1].log()
+            margin = (top[:, :-1] - top[:, 1:]).min(dim=-1).values   # (T,)
+            flip = (ia != ib).any(dim=-1).reshape(b, -1)
+            kept = (ka != kb).any(dim=-1).reshape(b, -1)
+            if state is None:
+                state = req[rows][:, None].expand_as(flip).clone()
+            clear = flip & (margin.reshape(b, -1) > MOE_MARGIN)
+            if bool((clear & ~state).any()):
+                at = torch.nonzero(clear & ~state).tolist()
+                defects.append(f"call {i}: (row, token) {at[:8]} changed "
+                               f"experts at a margin above {MOE_MARGIN:g}")
+            if bool(kept.any()) and not bool(flip.any()):
+                defects.append(f"call {i}: pairs kept other slots on the "
+                               "same experts")
+            hit = flip | (kept & bool(flip.any()))
+            state |= hit.to(torch.int8).cummax(dim=1).values.bool()
+        out.append(state.clone())
+        req[rows] |= state.any(dim=1)
+    return out, defects
+
+
+def moe_rule(run_a, run_b, stages, layers: int, what: str) -> str:
+    """Phase 5d's parity rule between two runs, each (a list of outputs,
+    one a stage: (b, V) a row or (b, s, V) a token; the routing calls of
+    `moe_routes`), a under test and b the reference: no routing defect
+    (`moe_moved`), and every output whose routing did not move (a (b, V)
+    row: none of its tokens) within MOE_RTOL of the reference's, relative
+    to its own norm. Raises on a failure; returns what it saw."""
+    (outs_a, calls_a), (outs_b, calls_b) = run_a, run_b
+    if len(calls_a) != len(stages) * layers or len(outs_a) != len(stages):
+        raise AssertionError(f"{what}: {len(calls_a)} routing calls and "
+                             f"{len(outs_a)} outputs for {len(stages)} "
+                             f"stages of {layers} layers")
+    moved, defects = moe_moved(calls_a, calls_b, stages, layers)
+    if defects:
+        raise AssertionError(f"{what}: {len(defects)} routing defects in "
+                             f"{len(calls_a)} calls, the first "
+                             f"{defects[0]}")
+    held = []
+    for (label, _), a, r, m in zip(stages, outs_a, outs_b, moved):
+        m = m.any(dim=1) if a.dim() == 2 else m
+        rel = rows_rel(a.float(), r.float()).cpu()[~m]
+        worst = float(rel.max()) if rel.numel() else 0.0
+        if worst > MOE_RTOL:
+            raise AssertionError(
+                f"{what}, {label}: an output whose routing did not move is "
+                f"{worst:.4g} from the reference's (rule {MOE_RTOL:g}); "
+                f"{int(m.sum())} of {m.numel()} moved")
+        held.append(f"{label}: {int((~m).sum())}/{m.numel()} held, worst "
+                    f"{worst:.4g}")
+    return f"rule {MOE_RTOL:g}; " + ", ".join(held)
+
+
+def slice_stages(b: int, steps: int):
+    """run_slice's stages for moe_rule: the prefill, then each step, over
+    the same b requests."""
+    import torch
+
+    rows = torch.arange(b)
+    return [("prefill logits", rows)] + [(f"step {i}", rows)
+                                         for i in range(steps)]
+
+
+def moe_slice(params, cfg, prompts, steps, dev, routes):
+    """run_slice under `routes` (a moe_routes): (the outputs a stage (the
+    prefill logits, then each step's final hidden state), the routing
+    calls), and each step's (hidden, token)."""
+    with routes:
+        logits, seen = run_slice(params, cfg, prompts, steps, dev)
+    return ([logits.float()] + [x for x, _ in seen], routes.calls), seen
+
+
+class kernel_probe:
+    """Within the block, the model modules' kernel entry points record the
+    inputs (cloned) of their first call at each shape; `check()` then
+    calls each entry point and its plain version on those inputs and holds
+    them to the kernel's phase-3 rule: K1 rtol 1e-2 plus 1e-3 of the
+    output's max, K2, K5, K6 and K7 2e-2 absolute (K5 on live rows:
+    flash_err). Its launches are comparisons, not the main path's."""
+
+    NAMES = ("int8_matmul", "int8_kv_decode_attention", "flash_attention",
+             "int8_paged_decode_attention", "paged_decode_attention")
+
+    def __init__(self):
+        self.calls = {}
+
+    def __enter__(self):
+        from physics_llm_inference_tpu_torch.models import \
+            paged_transformer as pt
+        from physics_llm_inference_tpu_torch.models import transformer as tf
+
+        self.saved = [(m, n, getattr(m, n)) for m in (tf, pt)
+                      for n in self.NAMES if hasattr(m, n)]
+        for m, n, fn in self.saved:
+            setattr(m, n, self.spy(n, fn))
+        return self
+
+    def spy(self, name, fn):
+        import torch
+
+        def clone(a):
+            return a.clone() if isinstance(a, torch.Tensor) else a
+
+        def call(*a, **kw):
+            key = (name,) + tuple(tuple(x.shape) for x in a
+                                  if isinstance(x, torch.Tensor))
+            if key not in self.calls:
+                self.calls[key] = ([clone(x) for x in a],
+                                   {k: clone(v) for k, v in kw.items()})
+            return fn(*a, **kw)
+
+        return call
+
+    def __exit__(self, *exc):
+        for m, n, fn in self.saved:
+            setattr(m, n, fn)
+
+    def check(self, what: str) -> str:
+        import torch
+
+        parts = []
+        for key, (a, kw) in self.calls.items():
+            name, mod = key[0], kernel_module(key[0])
+            fn, plain = getattr(mod, name), getattr(mod, f"{name}_plain")
+            tag = name
+            if name == "int8_matmul":
+                m, k = a[0].shape
+                n = a[1].shape[-1]
+                tag = f"K1 {mod.pick_route(m, n, k)} ({m},{k},{n})"
+            if name == "flash_attention":
+                err = flash_err(mod, a, kw, f"{what} {tuple(a[0].shape)}")
+                parts.append(f"K5 q {tuple(a[0].shape)} k "
+                             f"{tuple(a[1].shape)} {err:.4g}")
+                continue
+            got = fn(*a, **kw).float()
+            want = plain(*a, **kw).float()
+            torch.cuda.synchronize()
+            diff = (got - want).abs()
+            if name == "int8_matmul":
+                lim = 1e-2 * want.abs() + 1e-3 * float(want.abs().max())
+            else:
+                lim = torch.full_like(want, 2e-2)
+                tag = f"{name} q {tuple(a[0].shape)}"
+            if not bool(torch.isfinite(got).all()) or bool((diff > lim).any()):
+                raise AssertionError(f"{what}: {tag} off its plain version "
+                                     f"on the path's inputs, max abs err "
+                                     f"{float(diff.max()):.4g}")
+            parts.append(f"{tag} {float(diff.max()):.4g}")
+        return "; ".join(parts)
+
+    def kinds(self) -> set:
+        """(name, K1's route or None, K1's K or None) of each recorded
+        call."""
+        out = set()
+        for key, (a, _) in self.calls.items():
+            if key[0] == "int8_matmul":
+                m, k = a[0].shape
+                out.add((key[0], kernel_module(key[0]).pick_route(
+                    m, a[1].shape[-1], k), k))
+            else:
+                out.add((key[0], None, None))
+        return out
+
+
+def moe_slice_parity(dev):
+    """Phase 5d, part 1: config 5's widths at 2 layers, prefill plus 8
+    teacher-forced decode steps with the kernels (K1 "stream", K2, K3;
+    prefill's B x S >= 2,048 rows take the library GEMM on both runs) and
+    with their entry points swapped for their plain versions. Rows whose
+    routing moved are reported (K1/K2 rounding can move a bf16 router
+    logit across a tie); the others are held to MOE_RTOL; each kernel
+    token lies within one bf16 ulp of the plain head's max on the kernel
+    run's hidden state, and K1 and K2 are held against their plain
+    versions on the inputs the slice gave them (kernel_probe). Two
+    controls, each the plain run with one defect (one slot less of
+    capacity; weights not renormalised), must break the rule."""
+    import torch
+
+    cfg = moe_cfg(2)
+    params = moe_params(dev, cfg, SEED + 1)
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    lens = torch.randint(MOE_PROMPT // 2, MOE_PROMPT + 1, (MOE_BATCH,),
+                         generator=g, device=dev)
+    prompts = [torch.randint(1, cfg.vocab_size, (int(n),), generator=g,
+                             device=dev).tolist() for n in lens]
+    steps = [torch.randint(1, cfg.vocab_size, (MOE_BATCH,), generator=g,
+                           device=dev) for _ in range(8)]
+    stages = slice_stages(MOE_BATCH, len(steps))
+    path = ("int8_matmul", "int8_kv_decode_attention", "lmhead_greedy")
+    before = read_launches()
+    with kernel_probe() as probe:
+        got, seen = moe_slice(params, cfg, prompts, steps, dev, moe_routes())
+    after = read_launches()
+    used = {n: after[n] - before[n] for n in path + MOE_FORBID}
+    if min(used[n] for n in path) == 0 or any(used[n] for n in MOE_FORBID):
+        raise AssertionError(f"MoE slice parity: kernels not used as "
+                             f"expected {used}")
+    with plain_entry_points():
+        want, seen_plain = moe_slice(params, cfg, prompts, steps, dev,
+                                     moe_routes())
+    note = moe_rule(got, want, stages, 2, "MoE slice parity")
+    own = torch.cat([ulps_below_max(params, cfg, x, t) for x, t in seen])
+    if bool((own > 1).any()):
+        raise AssertionError(f"MoE slice parity: K3's token off the plain "
+                             f"head's max: {ulp_rows(own, 1)}")
+    kinds = probe.kinds()
+    if not {("int8_matmul", "stream", cfg.hidden_dim),
+            ("int8_kv_decode_attention", None, None)} <= kinds:
+        raise AssertionError(f"MoE slice parity: the probe saw {kinds}")
+    probed = probe.check("MoE slice parity")
+    moved, _ = moe_moved(got[1], want[1], stages, 2)
+    flips = sum(int((a[0] != b[0]).any(dim=-1).sum())
+                for a, b in zip(got[1], want[1]))
+    equal = sum(int((tk == tp).sum()) for (_, tk), (_, tp) in zip(seen,
+                                                                   seen_plain))
+    broken = {}
+    for name, kw in (("capacity one slot short", dict(short=True)),
+                     ("weights not renormalised", dict(unnormalised=True))):
+        with plain_entry_points():
+            ctl, _ = moe_slice(params, cfg, prompts, steps, dev,
+                               moe_routes(**kw))
+        try:
+            moe_rule(ctl, want, stages, 2, name)
+        except AssertionError as e:
+            broken[name] = str(e)
+            continue
+        raise AssertionError(f"MoE slice parity: the control '{name}' "
+                             "passes the rule")
+    log(f"MoE slice parity (config 5 widths, 2 layers, B={MOE_BATCH}, 8 "
+        f"decode steps, {nvidia_smi()}): {note}; rows moved by the last "
+        f"step {int(moved[-1].sum())} ({flips} (token, layer) routing "
+        f"changes over {len(got[1])} calls); K3's tokens within one bf16 "
+        f"ulp of the plain head's max on every row; tokens equal to the "
+        f"plain run's on {equal} of {len(seen) * MOE_BATCH}; kernel "
+        f"launches {used}; the kernels on the slice's inputs against their "
+        f"plain versions (max abs err): {probed}; controls broken: "
+        + " | ".join(broken.values()))
+    del params
+    torch.cuda.empty_cache()
+
+
+MOE_CHUNKS = (128, 128, 100, 61)   # the slot engine's chunks: real tokens
+MOE_PAGED_R = 16                   # requests a paged prefill chunk
+MOE_BLOCK, MOE_MB = 16, 16         # the paged pools' blocks, a request's
+
+
+def moe_engine_steps(params, cfg, dev, routes, decode_pools=None):
+    """The engines' step functions at phase 5d's geometry, under `routes`
+    (a moe_routes): each of MOE_CHUNKS as a slot-engine prefill chunk (b
+    = 1, bucket 128, right padding of token 0) into a fresh INT8 slot
+    buffer of 256 positions, as serve/engine.prefill_chunk calls
+    `forward`; then two paged prefill chunks of MOE_PAGED_R requests x 128
+    (ragged, right-padded) into INT8 pools of MOE_MB blocks of MOE_BLOCK a
+    request (scattered tables), and one paged decode step of all of them,
+    from a copy of `decode_pools` where given (another run's pools: the
+    step alone is compared). Returns ((the outputs a stage: each slot
+    chunk's logits (1, 128, V), each paged chunk's final hidden state (R,
+    128, D), a token each, the decode step's logits (2R, V); the routing
+    calls), the stages, the pools before the decode step)."""
+    import torch
+
+    from physics_llm_inference_tpu_torch.models import \
+        paged_transformer as pt
+    from physics_llm_inference_tpu_torch.models import transformer as tf
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 14)
+    nl, hkv, hd, c = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim, 128
+    outs, stages = [], []
+    with routes:
+        for i, n in enumerate(MOE_CHUNKS):
+            ids = torch.zeros((1, c), dtype=torch.long, device=dev)
+            ids[0, :n] = torch.randint(1, cfg.vocab_size, (n,), generator=g,
+                                       device=dev)
+            slot_k, slot_v = (tf.QuantKV(
+                q=torch.zeros((nl, 1, 256, hkv * hd), dtype=torch.int8,
+                              device=dev),
+                s=torch.zeros((nl, 1, hkv, 256), device=dev))
+                for _ in "kv")
+            start = torch.zeros((), dtype=torch.int32, device=dev)
+            slots = (torch.arange(c, device=dev)[None, :] + start)
+            logits, _ = tf.forward(params, ids, cfg,
+                                   kv=tf.KVSlice(slot_k, slot_v, start),
+                                   positions=slots, slots=slots)
+            outs.append(logits.float())
+            stages.append((f"slot chunk {i} ({n} tokens)",
+                           torch.tensor([i])))
+        r = MOE_PAGED_R
+        nb = 2 * r * MOE_MB
+        pools = tf.QuantKV(
+            q=torch.zeros((nl, nb + 1, 2, MOE_BLOCK, hkv * hd),
+                          dtype=torch.int8, device=dev),
+            s=torch.zeros((nl, nb + 1, 2, hkv, MOE_BLOCK), device=dev))
+        tables = torch.randperm(nb, generator=g, device=dev).reshape(
+            2 * r, MOE_MB).int()
+        nvalid = torch.randint(c // 2, c + 1, (2 * r,), generator=g,
+                               device=dev)
+        base = len(MOE_CHUNKS)
+        # each paged chunk's final hidden state, x + _ffn(rms_norm(x)) of
+        # its last layer: the last norm's input plus the last FFN output
+        ffn, norm, last = pt._ffn, pt.rms_norm, {}
+
+        def spy_ffn(*a, **kw):
+            last["ffn"] = ffn(*a, **kw)
+            return last["ffn"]
+
+        def spy_norm(x, *a, **kw):
+            last["x"] = x
+            return norm(x, *a, **kw)
+
+        pt._ffn, pt.rms_norm = spy_ffn, spy_norm
+        try:
+            for j in range(2):
+                rows = slice(j * r, (j + 1) * r)
+                ids = torch.randint(1, cfg.vocab_size, (r, c), generator=g,
+                                    device=dev)
+                ids = torch.where(torch.arange(c, device=dev)[None, :]
+                                  < nvalid[rows, None], ids, 0)
+                _, pools, _ = pt.paged_prefill_chunk_impl(
+                    params, ids, pools, None, tables[rows],
+                    torch.zeros(r, dtype=torch.int32, device=dev),
+                    nvalid[rows], cfg)
+                outs.append((last["x"] + last["ffn"]).float())
+                stages.append((f"paged chunk {j}", torch.arange(
+                    base + j * r, base + (j + 1) * r)))
+        finally:
+            pt._ffn, pt.rms_norm = ffn, norm
+        before = tf.QuantKV(pools.q.clone(), pools.s.clone())
+        if decode_pools is not None:
+            pools = tf.QuantKV(decode_pools.q.clone(), decode_pools.s.clone())
+        tokens = torch.randint(1, cfg.vocab_size, (2 * r,), generator=g,
+                               device=dev).int()
+        logits, pools, _ = pt.paged_decode_step(params, tokens, pools, None,
+                                                tables, nvalid.int(), cfg)
+        outs.append(logits.float())
+        # requests of their own: the step starts from the same pools
+        stages.append(("paged decode step",
+                       torch.arange(base + 2 * r, base + 4 * r)))
+        torch.cuda.synchronize()
+    return (outs, routes.calls), stages, before
+
+
+def moe_engine_parity(dev):
+    """Phase 5d, part 1b: the slot and the paged engine's step functions
+    at config 5's widths, 2 layers (moe_engine_steps), with the kernels
+    (the slot chunks: K1 "wgmma" at 128 rows, K = 2,048; the paged chunks:
+    K5, their 2,048-row linears the library GEMM on both runs; the paged
+    decode step: K1 "stream" at 32 rows, K6) and with the dense and paged
+    models' entry points swapped for their plain versions (its decode step
+    from the kernel run's pools), under moe_rule, a token at a time where
+    the step gives each token's output; then each kernel held against its
+    plain version on the inputs the steps gave it (kernel_probe)."""
+    import torch
+
+    cfg = moe_cfg(2)
+    params = moe_params(dev, cfg, SEED + 2)
+    path = ("int8_matmul", "int8_matmul_prefill", "flash_attention",
+            "int8_paged_decode_attention")
+    before = read_launches()
+    with kernel_probe() as probe:
+        got, stages, pools = moe_engine_steps(params, cfg, dev, moe_routes())
+    after = read_launches()
+    used = {n: after[n] - before[n] for n in path + MOE_FORBID}
+    if min(used[n] for n in path) == 0 or any(used[n] for n in MOE_FORBID):
+        raise AssertionError(f"MoE engine steps: kernels not used as "
+                             f"expected {used}")
+    with plain_entry_points():
+        want, _, _ = moe_engine_steps(params, cfg, dev, moe_routes(), pools)
+    note = moe_rule(got, want, stages, 2, "MoE engine steps")
+    d = cfg.hidden_dim
+    need = {("int8_matmul", "wgmma", d), ("int8_matmul", "stream", d),
+            ("flash_attention", None, None),
+            ("int8_paged_decode_attention", None, None)}
+    if not need <= probe.kinds():
+        raise AssertionError(f"MoE engine steps: the probe saw "
+                             f"{probe.kinds()}, not all of {need}")
+    probed = probe.check("MoE engine steps")
+    flips = sum(int((a[0] != b[0]).any(dim=-1).sum())
+                for a, b in zip(got[1], want[1]))
+    log(f"MoE engine steps (config 5 widths, 2 layers, {nvidia_smi()}): "
+        f"{len(MOE_CHUNKS)} slot-engine prefill chunks of 128 (real tokens "
+        f"{list(MOE_CHUNKS)}), 2 paged chunks of {MOE_PAGED_R} x 128 and a "
+        f"paged decode step of {2 * MOE_PAGED_R} from the same pools (INT8, "
+        f"blocks of {MOE_BLOCK}): {note}; {flips} (token, layer) routing changes "
+        f"over {len(got[1])} calls; kernel launches {used}; the kernels on "
+        f"the steps' inputs against their plain versions (max abs err): "
+        f"{probed}")
+    del params
+    torch.cuda.empty_cache()
+
+
+def moe_full_run(dev, params, cfg) -> dict:
+    """Phase 5d, part 2: cached_generate at B 32, prompt 128, 64 greedy
+    tokens over an INT8 cache, its decode loop replayed from a graph and
+    held against the eager loop; the floors of scripts/bench_moe.py.
+    Returns the timed run's launches."""
+    import torch
+
+    from physics_llm_inference_tpu_torch.bench.moe import (floors_s,
+                                                           param_counts)
+    from physics_llm_inference_tpu_torch.runtime.generate import (
+        cached_generate, decode_step_cache)
+    from physics_llm_inference_tpu_torch.specs.gpu import get_gpu_spec
+
+    g = torch.Generator().manual_seed(SEED + 12)
+    prompts = torch.randint(1, cfg.vocab_size, (MOE_BATCH, MOE_PROMPT),
+                            generator=g).tolist()
+    steps = decode_step_cache()
+
+    def run():
+        return cached_generate(params, cfg, prompts, MOE_TOKENS,
+                               temperature=0.0, kv_dtype=torch.int8,
+                               step_cache=steps)
+
+    t0 = time.perf_counter()
+    run()
+    warm = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    out = run()
+    counts = read_launches()
+    what = f"MoE {cfg.num_layers} layers, cached_generate"
+    need = ("int8_matmul", "int8_kv_decode_attention", "lmhead_greedy")
+    if any(counts[n] == 0 for n in need) or any(counts[n]
+                                                for n in MOE_FORBID):
+        raise AssertionError(f"{what}: kernels not launched as expected: "
+                             f"{counts}")
+    if steps.stats() != {"compiled_shapes": 1, "hits": 1, "misses": 1}:
+        raise AssertionError(f"{what}: the timed run did not replay the "
+                             f"warm run's graph: {steps.stats()}")
+    toks = out.tokens
+    if toks.shape != (MOE_BATCH, MOE_TOKENS) or toks.min() < 0 \
+            or toks.max() >= cfg.vocab_size:
+        raise AssertionError(f"{what}: bad tokens {toks.shape}")
+    eager, eager_s, host = eager_decode(params, cfg, prompts, False, steps,
+                                        MOE_TOKENS)
+    if not (eager == toks).all():
+        raise AssertionError(f"{what}: graph replay's greedy tokens differ "
+                             "from the eager loop's at "
+                             f"{int((eager != toks).sum())} places")
+    spec = get_gpu_spec()
+    total, active = param_counts(params, cfg, cfg.num_experts_per_tok)
+    f_all, f_act = floors_s(total, active, cfg, MOE_BATCH, MOE_PROMPT,
+                            MOE_TOKENS, spec)
+    step_s = out.decode_s / MOE_TOKENS
+    log(f"{what} (B={MOE_BATCH}, prompt {MOE_PROMPT}, {MOE_TOKENS} greedy "
+        f"tokens, INT8 W+KV, {nvidia_smi()}): {total / 1e9:.2f}B total / "
+        f"{active / 1e9:.2f}B active params; warm-up run {warm:.1f} s; "
+        f"TTFT {out.prefill_s * 1e3:.1f} ms; graph replay "
+        f"{step_s * 1e3:.3f} ms a step, {out.decode_tokens_per_s:.1f} "
+        f"tok/s; eager loop {eager_s / MOE_TOKENS * 1e3:.3f} ms a step; "
+        f"greedy tokens identical; all-expert floor {f_all * 1e3:.3f} ms "
+        f"a step (share {f_all / step_s:.4f}), active-expert floor "
+        f"{f_act * 1e3:.3f} ms (share {f_act / step_s:.4f}) on {spec.name} "
+        f"spec; peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+        f"GB; {host}; launches {({k: v for k, v in counts.items() if v})}")
+    profile_wave(run, what, out.prefill_s + out.decode_s)
+    # the per-call dequantization of an expert stack, the step's largest
+    # cost: its one-pass form (models/quant.QuantizedTensor.dequantize)
+    # beside the two-pass (q.float() * s).to(bf16), one layer's moe_w1
+    from physics_llm_inference_tpu_torch.models.transformer import layer_view
+
+    w = layer_view(params["blocks"], 0)["moe_w1"]
+    flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
+    one = time_ms(lambda: w.dequantize(torch.bfloat16), flush)
+    two = time_ms(lambda: (w.q.float() * w.s).to(torch.bfloat16), flush)
+    moved = nbytes(w.q, w.s) + w.q.numel() * 2
+    log(f"{what}: dequantizing one expert stack {tuple(w.q.shape)} "
+        f"({nvidia_smi()}): one pass {one:.4f} ms, two passes {two:.4f} "
+        f"ms, bound {moved / spec.hbm_bandwidth * 1e3:.4f} ms ({moved} "
+        f"bytes); {3 * cfg.num_layers} stacks a decode step")
+    del flush
+    return counts
+
+
+def moe_bench(dev) -> dict:
+    """Phase 5d, part 2: bench/moe.py's two protocols, each JSON on its
+    own line. Returns their launches: each main() call as a user makes it,
+    its model init, warm run and graph captures included."""
+    import torch
+
+    from physics_llm_inference_tpu_torch.bench import moe as bench_moe
+
+    total = {k: 0 for k in KERNELS}
+    for argv, need in (([], ("int8_matmul", "int8_kv_decode_attention",
+                             "lmhead_greedy")),
+                       (["--engine"], ("int8_matmul", "int8_matmul_prefill",
+                                       "int8_kv_decode_attention"))):
+        t0 = time.perf_counter()
+        reset_launches()
+        res = bench_moe.main(argv)
+        counts = read_launches()
+        torch.cuda.empty_cache()
+        if any(counts[n] == 0 for n in need) or any(counts[n]
+                                                    for n in MOE_FORBID):
+            raise AssertionError(f"bench/moe.main({argv}): kernels not "
+                                 f"launched as expected: {counts}")
+        log(f"bench/moe.main({argv}) ({nvidia_smi()}; "
+            f"{time.perf_counter() - t0:.1f} s with its init): "
+            f"{json.dumps(res)}; launches "
+            f"{({k: v for k, v in counts.items() if v})}")
+        total = {k: total[k] + counts[k] for k in KERNELS}
+    return total
+
+
+def moe_engines(dev, params, cfg) -> dict:
+    """Phase 5d, part 3: the slot engine (32 slots of 256, INT8 pool,
+    horizon 8, bucket 128) captured and with eager dispatch functions on
+    the same 32 requests, then the paged engine (INT8 pools of 16-token
+    blocks: K6; K5 on the chunks) in both forms: tokens, finish reasons
+    and dispatch_trace identical. Returns the captured runs' launches."""
+    import gc
+
+    import torch
+
+    from physics_llm_inference_tpu_torch.serve.engine import (EngineConfig,
+                                                              InferenceEngine)
+
+    g = torch.Generator().manual_seed(SEED + 13)
+    prompts = torch.randint(1, cfg.vocab_size, (MOE_BATCH, MOE_PROMPT),
+                            generator=g).tolist()
+    ec = EngineConfig(num_slots=MOE_BATCH, max_seq_len=256, kv_dtype="int8",
+                      decode_horizon=8, prompt_buckets=(128,))
+    runs, counts = {}, None
+    for label, cls in (("captured", InferenceEngine),
+                       ("eager", eager_slot_engine_class())):
+        eng = cls(params, cfg, ec)
+        setup = eng.warmup() if label == "captured" else 0.0
+        reset_launches()
+        runs[label] = direct_run(eng, prompts, 16)
+        if label == "captured":
+            counts = read_launches()
+        log(f"MoE slot engine, {label} ({nvidia_smi()}): warmup() "
+            f"{setup:.1f} s; {MOE_BATCH} requests x prompt {MOE_PROMPT} -> "
+            f"16 greedy tokens in {runs[label][2]:.3f} s, "
+            f"{len(runs[label][1])} dispatches")
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    same_run(runs["captured"], runs["eager"], "MoE slot engine")
+    need = ("int8_matmul", "int8_matmul_prefill", "int8_kv_decode_attention")
+    if any(counts[n] == 0 for n in need) or any(counts[n]
+                                                for n in MOE_FORBID):
+        raise AssertionError(f"MoE slot engine: kernels not launched as "
+                             f"expected: {counts}")
+    log(f"MoE slot engine: captured and eager identical (tokens, finish "
+        f"reasons, dispatch_trace); launches "
+        f"{({k: v for k, v in counts.items() if v})}")
+    paged = serve(dev, params, cfg, "MoE paged engine, INT8 pools, BS=16",
+                  dict(max_batch=MOE_BATCH, block_size=16,
+                       max_blocks_per_request=16,
+                       num_blocks=MOE_BATCH * 16 + 16, kv_dtype="int8",
+                       decode_horizon=8, prefill_tokens_per_iter=2048),
+                  MOE_BATCH, MOE_PROMPT, 16,
+                  expect=("int8_paged_decode_attention", "flash_attention",
+                          "int8_matmul"), forbid=MOE_FORBID, compare=True)
+    return {k: counts[k] + paged[k] for k in KERNELS}
+
+
+def moe_runs(dev) -> dict:
+    """Phase 5d: the MoE model family at BASELINE config 5's widths. Returns
+    the launches of its main-path runs."""
+    t0 = time.perf_counter()
+    moe_slice_parity(dev)
+    moe_engine_parity(dev)
+    cfg = moe_cfg(MOE_LAYERS)
+    t1 = time.perf_counter()
+    params = moe_params(dev, cfg, SEED)
+    log(f"MoE init on the card (init_params then quantize_params_int8): "
+        f"{time.perf_counter() - t1:.1f} s")
+    runs = [moe_full_run(dev, params, cfg), moe_bench(dev),
+            moe_engines(dev, params, cfg)]
+    del params
+    log(f"phase 5d (MoE): {time.perf_counter() - t0:.1f} s")
+    return {k: sum(r[k] for r in runs) for k in KERNELS}
+
+
 SUITE_KEYS = ("mha_vs_gqa", "swiglu_fusion", "naive_vs_cached", "gemm",
               "gemv_bf16", "gemv_int8", "attn_flash", "attn_naive",
               "static_batching")
@@ -3452,7 +4174,7 @@ def main(argv=()) -> int:
 
     flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
     if set(argv) & {"--k1", "--attention", "--fused", "--decode",
-                    "--serving", "--frontend", "--copy"}:
+                    "--serving", "--frontend", "--copy", "--moe"}:
         # parts alone, for comparing trees: K1 in phase 3; K2, K6 and K7
         # in phase 3; K4 in each mode, K8 and the phase clock; decode at
         # prompt 128 in each K4 mode; the bench_serving7b wave
@@ -3480,6 +4202,8 @@ def main(argv=()) -> int:
             serving_alone(dev)
         if "--frontend" in argv:
             frontend_alone(dev)
+        if "--moe" in argv:
+            moe_runs(dev)
         log(nvidia_smi())
         return 0
     kernels = check_kernels(dev, flush)
@@ -3496,8 +4220,11 @@ def main(argv=()) -> int:
     front = frontend_runs(dev, params, step_ms)
     del params
     torch.cuda.empty_cache()
+    moe = moe_runs(dev)
+    torch.cuda.empty_cache()
     micro = micro_path(dev)
-    counts = {k: dense[k] + paged[k] + front[k] + micro[k] for k in KERNELS}
+    counts = {k: dense[k] + paged[k] + front[k] + moe[k] + micro[k]
+              for k in KERNELS}
 
     rows = []
     for name, row in kernels.items():

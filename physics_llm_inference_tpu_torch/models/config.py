@@ -2,7 +2,8 @@
 
 The JAX package's `models/__init__.py` imports jax, so the dataclass is
 mirrored here field for field (same names, same defaults) rather than
-imported. `torch_dtype` maps the config's dtype string to a torch dtype.
+imported, and so are `MoEConfig` and the named configurations.
+`torch_dtype` maps the config's dtype string to a torch dtype.
 """
 from __future__ import annotations
 
@@ -37,6 +38,8 @@ class ModelConfig:
     # bf16 activations (W8A16, or W4A16 with INT4 weights); "int8" quantizes
     # each activation row (W8A8, INT8 weights only).
     act_quant: str = "none"
+    # MoE: num_experts > 0 replaces every block's dense SwiGLU with a routed
+    # mixture (models/moe.py); intermediate_dim is the per-expert FFN width
     num_experts: int = 0
     num_experts_per_tok: int = 2
     expert_capacity_factor: float = 1.25
@@ -66,6 +69,16 @@ class ModelConfig:
         norms = 2 * d
         per_layer = attn + mlp + norms
         return v * d + self.num_layers * per_layer + d + d * v
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts settings (JAX `config.py:95-103`)."""
+    num_experts: int = 8
+    num_experts_per_tok: int = 2
+    # static dispatch capacity per expert, as a multiple of the average load
+    # (tokens * top_k / num_experts)
+    capacity_factor: float = 1.25
 
 
 def torch_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -100,4 +113,14 @@ QWEN3_CONFIG = ModelConfig(
     num_heads=32,
     num_kv_heads=8,
     intermediate_dim=11008,
+)
+
+# Mixtral-style MoE dims (JAX `config.py:139-146`)
+MIXTRAL_MOE_CONFIG = ModelConfig(
+    vocab_size=32000,
+    hidden_dim=4096,
+    num_layers=32,
+    num_heads=32,
+    num_kv_heads=8,
+    intermediate_dim=14336,
 )

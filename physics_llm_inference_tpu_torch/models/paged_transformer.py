@@ -25,7 +25,11 @@ What differs from the JAX package, on purpose:
   `flash_attention` over the request's gathered MB·BS prefix. On a CPU
   tensor the gate is false, as on the JAX CPU backend, and every kernel
   takes its plain twin.
-- MoE and tensor parallelism raise NotImplementedError, as `forward` does.
+- An MoE config runs the routed FFN (models/moe.py) in both steps, with no
+  `valid` mask, as in the JAX package: a padded row of a prefill chunk and
+  an inactive decode row route like real ones. Its decode never passes
+  the fused gate (K8 has no MoE mode), so it runs K6 or K7.
+- Tensor parallelism raises NotImplementedError, as `forward` does.
 """
 from __future__ import annotations
 
@@ -47,9 +51,9 @@ from .transformer import (QuantKV, _ffn, _linear, embed_lookup, layer_view,
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.num_experts > 0 or cfg.tp_axis is not None:
-        raise NotImplementedError("MoE and tensor parallelism are not ported "
-                                  "yet (ROADMAP Queue A)")
+    if cfg.tp_axis is not None:
+        raise NotImplementedError("tensor parallelism is not ported yet "
+                                  "(ROADMAP Queue A)")
 
 
 def _rope_tables(cfg: ModelConfig, device):
@@ -141,7 +145,7 @@ def _paged_decode_step_impl(params: dict, tokens: torch.Tensor, k_pools,
             attn = paged_decode_attention(q[:, 0], k_pools, v_pools, tables,
                                           ctx, layer=l)
         x = x + _linear(attn.reshape(b, 1, hq * hd), bp["wo"])
-        x = x + _ffn(bp, rms_norm(x, bp["ln2"], cfg.norm_eps))
+        x = x + _ffn(bp, rms_norm(x, bp["ln2"], cfg.norm_eps), cfg)
     logits = lm_logits(x, params, cfg)
     return logits[:, 0], k_pools, v_pools
 
@@ -266,6 +270,6 @@ def paged_prefill_chunk_impl(params: dict, ids: torch.Tensor, k_pools,
                                causal=True)
         attn = attn.transpose(1, 2).reshape(r, c, hq * hd)
         x = x + _linear(attn, bp["wo"])
-        x = x + _ffn(bp, rms_norm(x, bp["ln2"], cfg.norm_eps))
+        x = x + _ffn(bp, rms_norm(x, bp["ln2"], cfg.norm_eps), cfg)
     last = x[torch.arange(r, device=dev), (nvalid - 1).clamp_min(0)]
     return lm_logits(last, params, cfg), k_pools, v_pools

@@ -3,11 +3,12 @@ physics_llm_inference_tpu/models/quant.py).
 
 INT8: every block matmul weight (and the lm_head) becomes a QuantizedTensor:
 int8 values plus per-output-channel f32 scales. Stacked block weights keep
-the JAX layout: q (L, K, N) int8, s (L, 1, N) f32; the lm_head is q (D, V),
-s (1, V). INT4 (W4A16): the block weights become QuantizedTensor4s,
-nibble-packed values with group-wise scales whose group is the fused decode
-kernel's K-tile (`kernels/fused_decode.int4_group_size`); the lm_head stays
-int8. Embeddings and norms stay in the model dtype.
+the JAX layout: q (L, K, N) int8, s (L, 1, N) f32 (MoE expert stacks q
+(L, E, K, N), s (L, E, 1, N)); the lm_head is q (D, V), s (1, V). INT4
+(W4A16): the block weights become QuantizedTensor4s, nibble-packed values
+with group-wise scales whose group is the fused decode kernel's K-tile
+(`kernels/fused_decode.int4_group_size`), the MoE expert stacks stay INT8;
+the lm_head stays int8. Embeddings and norms stay in the model dtype.
 """
 from __future__ import annotations
 
@@ -28,7 +29,11 @@ class QuantizedTensor(NamedTuple):
     s: torch.Tensor
 
     def dequantize(self, dtype=torch.bfloat16) -> torch.Tensor:
-        return (self.q.float() * self.s).to(dtype)
+        """q·s in f32, then the cast to `dtype`, in one pass: the product
+        is computed in f32 and rounded as `(q.float() * s).to(dtype)`
+        rounds it, without the f32 copy."""
+        return torch.mul(self.q, self.s, out=torch.empty(
+            self.q.shape, dtype=dtype, device=self.q.device))
 
 
 def unpack_int4(q: torch.Tensor) -> torch.Tensor:
@@ -69,11 +74,15 @@ class QuantizedTensor4(NamedTuple):
         return QuantizedTensor4(self.q[layer], self.s[layer]).dequantize(dtype)
 
 
-_QUANT_LEAVES = ("wqkv", "wo", "w_gate_up", "w_down")
+_QUANT_LEAVES = ("wqkv", "wo", "w_gate_up", "w_down",
+                 "moe_w1", "moe_w2", "moe_w3")
 
 
 def quantize_params_int8(params: dict) -> dict:
-    """Quantize all block matmul weights and the lm_head."""
+    """Quantize all block matmul weights and the lm_head: a stack (L, K, N)
+    gets per-(layer, channel) scales (L, 1, N), an MoE expert stack
+    (L, E, K, N) per-(layer, expert, channel) scales (L, E, 1, N). The
+    router gate stays in the model dtype, as in the JAX package."""
     blocks = {}
     for name, w in params["blocks"].items():
         if name in _QUANT_LEAVES:
@@ -153,8 +162,8 @@ def _quantize_stacked_int4(w: torch.Tensor, group: int,
 def quantize_params_int4(params: dict, mse: bool = False) -> dict:
     """INT4 (W4A16) block weights, groups of `int4_group_size`; embeddings,
     norms and the lm_head as in the INT8 format (the lm_head int8). An INT8
-    tree is dequantized first. MoE expert stacks (4-D) would stay int8 in
-    the JAX package; the port has no MoE and raises on them."""
+    tree is dequantized first. MoE expert stacks (L, E, K, N) stay INT8, as
+    in the JAX package: the INT4 kernel path is dense-only."""
     from ..kernels.fused_decode import int4_group_size
 
     blocks = {}
@@ -165,7 +174,8 @@ def quantize_params_int4(params: dict, mse: bool = False) -> dict:
         if isinstance(w, QuantizedTensor):
             w = w.dequantize(torch.float32)
         if w.dim() != 3:
-            raise NotImplementedError("int4 MoE expert stacks are not ported")
+            blocks[name] = QuantizedTensor(*quantize_int8(w, axis=-2))
+            continue
         _, k, n = w.shape
         blocks[name] = _quantize_stacked_int4(w, int4_group_size(k, n), mse)
     lm = params["lm_head"]

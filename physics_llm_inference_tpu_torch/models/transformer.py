@@ -2,8 +2,10 @@
 (counterpart: physics_llm_inference_tpu/models/transformer.py).
 
 The parameter dict has the JAX pytree's keys and stacked layouts: `embed`
-(V, D); `blocks` with leading layer axis L (`ln1`, `wqkv`, `wo`, `ln2`,
-`w_gate_up`, `w_down`); `norm` (D,); `lm_head` (D, V). INT8 weights are
+(V, D); `blocks` with leading layer axis L (`ln1`, `wqkv`, `wo`, `ln2`, and
+`w_gate_up`, `w_down`, or with `cfg.num_experts > 0` the routed FFN's
+`moe_gate` (L, D, E), `moe_w1`/`moe_w3` (L, E, D, F) and `moe_w2`
+(L, E, F, D)); `norm` (D,); `lm_head` (D, V). INT8 weights are
 `QuantizedTensor`s, INT4 block weights `QuantizedTensor4`s (models/quant.py).
 
 What differs from the JAX package, on purpose:
@@ -24,6 +26,9 @@ What differs from the JAX package, on purpose:
   the JAX gates are false, as on the JAX CPU backend, and both packages take
   the same per-op/dense path; `_fused_decode_forward` is the fused branch
   itself, callable on the CPU, where the kernels take their plain versions.
+  An MoE config never passes the fused gate (K4 has no MoE mode in the
+  reference): its decode is per-op, its FFN `models/moe.moe_forward`
+  (moe_layer's output, without its aux).
 """
 from __future__ import annotations
 
@@ -41,7 +46,8 @@ from ..kernels.quant import quantize_int8
 from ..ops.gqa import grouped_sdpa
 from ..ops.norms import rms_norm
 from ..ops.rope import apply_rope, rope_frequencies
-from .config import ModelConfig, torch_dtype
+from .config import ModelConfig, MoEConfig, torch_dtype
+from .moe import moe_forward
 from .quant import QuantizedTensor, QuantizedTensor4
 
 # m at and above which a CUDA linear leaves the int8 kernel for torch.matmul,
@@ -183,7 +189,8 @@ def _cache_read_layer(cache, layer: int, dtype) -> torch.Tensor:
 
 def init_params(generator: torch.Generator, cfg: ModelConfig,
                 device=None) -> dict:
-    """Random dense parameters in the JAX layout (weights ~ N(0, 1/fan_in))."""
+    """Random parameters in the JAX layout (weights ~ N(0, 1/fan_in)); with
+    `cfg.num_experts > 0` the MoE leaves take the dense FFN's place."""
     device = torch.device(device) if device is not None else generator.device
     dtype = torch_dtype(cfg)
     d, f, v, L = cfg.hidden_dim, cfg.intermediate_dim, cfg.vocab_size, \
@@ -200,9 +207,16 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
         "wqkv": w((L, d, qkv_out), d),
         "wo": w((L, cfg.num_heads * hd, d), d),
         "ln2": torch.ones((L, d), dtype=dtype, device=device),
-        "w_gate_up": w((L, d, 2 * f), d),
-        "w_down": w((L, f, d), f),
     }
+    if cfg.num_experts > 0:
+        e = cfg.num_experts
+        blocks.update({"moe_gate": w((L, d, e), d),
+                       "moe_w1": w((L, e, d, f), d),
+                       "moe_w3": w((L, e, d, f), d),
+                       "moe_w2": w((L, e, f, d), f)})
+    else:
+        blocks.update({"w_gate_up": w((L, d, 2 * f), d),
+                       "w_down": w((L, f, d), f)})
     return {"embed": w((v, d), d), "blocks": blocks,
             "norm": torch.ones((d,), dtype=dtype, device=device),
             "lm_head": w((d, v), d)}
@@ -230,8 +244,18 @@ def lm_logits(x: torch.Tensor, params: dict, cfg: ModelConfig) -> torch.Tensor:
     return _linear(x, params["lm_head"]).float()
 
 
-def _ffn(bp: dict, h: torch.Tensor) -> torch.Tensor:
-    """Dense fused SwiGLU (MoE is not ported)."""
+def _ffn(bp: dict, h: torch.Tensor, cfg: ModelConfig,
+         valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Block FFN: dense fused SwiGLU, or the routed MoE layer when
+    cfg.num_experts > 0. `valid` takes padding tokens out of MoE routing so
+    pads cannot claim expert capacity (models/moe.py)."""
+    if cfg.num_experts > 0:
+        moe = MoEConfig(num_experts=cfg.num_experts,
+                        num_experts_per_tok=cfg.num_experts_per_tok,
+                        capacity_factor=cfg.expert_capacity_factor)
+        return moe_forward(h, {"gate": bp["moe_gate"], "w1": bp["moe_w1"],
+                                "w3": bp["moe_w3"], "w2": bp["moe_w2"]},
+                           moe, valid=valid)
     gate, up = _linear(h, bp["w_gate_up"]).chunk(2, dim=-1)
     return _linear(F.silu(gate) * up, bp["w_down"])
 
@@ -292,6 +316,11 @@ def block_forward(bp: dict, x: torch.Tensor, cfg: ModelConfig,
         k = apply_rope(k, rope_cos, rope_sin, positions)
     if slots is None:
         slots = positions
+    # token validity for MoE routing: left-pad slots below valid_from must
+    # not claim expert capacity
+    ffn_valid = None
+    if cfg.num_experts > 0 and valid_from is not None:
+        ffn_valid = slots >= valid_from[:, None]
     impl = _resolve_attention(cfg, b, s, kv, on_cuda)
 
     if kv is None:
@@ -312,7 +341,8 @@ def block_forward(bp: dict, x: torch.Tensor, cfg: ModelConfig,
                 v_cache.s, q_slot=slots[:, 0], valid_from=valid_from,
                 layer=layer)
             x = x + _linear(attn.reshape(b, 1, hq * hd), bp["wo"])
-            x = x + _ffn(bp, rms_norm(x, bp["ln2"], cfg.norm_eps))
+            x = x + _ffn(bp, rms_norm(x, bp["ln2"], cfg.norm_eps), cfg,
+                         valid=ffn_valid)
             return x, kv
 
         if fresh_kv:
@@ -345,7 +375,8 @@ def block_forward(bp: dict, x: torch.Tensor, cfg: ModelConfig,
         attn = _attend(q.transpose(1, 2), kq, vq, slots, k_slots, valid_from)
     attn = attn.transpose(1, 2).reshape(b, s, hq * hd)
     x = x + _linear(attn, bp["wo"])
-    x = x + _ffn(bp, rms_norm(x, bp["ln2"], cfg.norm_eps))
+    x = x + _ffn(bp, rms_norm(x, bp["ln2"], cfg.norm_eps), cfg,
+                 valid=ffn_valid)
     return x, kv
 
 
@@ -415,9 +446,9 @@ def forward(params: dict, input_ids: torch.Tensor, cfg: ModelConfig,
     head kernel where the JAX gate takes it. `k_limit` statically bounds the
     attended cache slots; `fresh_kv` selects the one-shot prefill branch.
     Returns (logits or ids, kv)."""
-    if cfg.num_experts > 0 or cfg.tp_axis is not None:
-        raise NotImplementedError("MoE and tensor parallelism are not ported "
-                                  "yet (ROADMAP Queue A)")
+    if cfg.tp_axis is not None:
+        raise NotImplementedError("tensor parallelism is not ported yet "
+                                  "(ROADMAP Queue A)")
     b, s = input_ids.shape
     x = embed_lookup(params, input_ids, cfg)
     dev = x.device
@@ -474,3 +505,22 @@ def forward(params: dict, input_ids: torch.Tensor, cfg: ModelConfig,
         logits = lm_logits(x, params, cfg)
         return torch.argmax(logits[:, -1], dim=-1).to(torch.int32), new_kv
     return lm_logits(x, params, cfg), new_kv
+
+
+def count_parameters(params: dict) -> dict:
+    """Per-section parameter counts: every tensor of a section, the int8
+    values and f32 scales of a quantized leaf each counted (the JAX
+    package's `count_parameters` over its pytree leaves)."""
+    def size(tree) -> int:
+        if isinstance(tree, dict):
+            return sum(size(t) for t in tree.values())
+        if isinstance(tree, tuple):          # QuantizedTensor(4): q and s
+            return sum(t.numel() for t in tree)
+        return tree.numel()
+
+    out = {"embed_tokens": size(params["embed"]),
+           "layers": size(params["blocks"]),
+           "norm": size(params["norm"]),
+           "lm_head": size(params["lm_head"])}
+    out["total"] = sum(out.values())
+    return out

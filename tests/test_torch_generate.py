@@ -120,10 +120,24 @@ def test_unported_paths_are_refused_not_substituted():
                          greedy_head=True)
     assert tok.shape == (8,)
 
-    # MoE is not ported: forward refuses it rather than run a dense FFN
+    # an MoE config runs forward on the per-op path: K4 has no MoE mode in
+    # the reference, so the fused gate stays false on the INT8 tree and
+    # cache that pass it densely; the decode step runs the routed FFN
+    from physics_llm_inference_tpu_torch.models.quant import \
+        quantize_params_int8
     moe = tcfg_mod.ModelConfig(**{**small.__dict__, "num_experts": 4})
+    mparams = quantize_params_int8(ttf.init_params(
+        torch.Generator().manual_seed(0), moe))
+    assert "moe_w1" in mparams["blocks"] and \
+        "w_gate_up" not in mparams["blocks"]
+    assert not ttf._fused_decode_ok(mparams, moe, 8, cache.as_slice())
+    tok, _ = ttf.forward(mparams, ids, moe, kv=cache.as_slice(),
+                         greedy_head=True)
+    assert tok.shape == (8,)
+    # tensor parallelism is not ported: forward refuses it
+    tp = tcfg_mod.ModelConfig(**{**small.__dict__, "tp_axis": "model"})
     with pytest.raises(NotImplementedError, match="Queue A"):
-        ttf.forward(params, torch.ones((2, 4), dtype=torch.int64), moe)
+        ttf.forward(params, torch.ones((2, 4), dtype=torch.int64), tp)
 
 
 def test_uncached_forward_logits_match():

@@ -32,7 +32,8 @@ def test_walk_finds_every_module():
                      "models.quant", "bench.headline", "runtime.step_cache",
                      "serve.api_types", "serve.tokenizer_pool",
                      "serve.http_server", "bench.harness",
-                     "runtime.speculative", "cli", "serve.lifecycle"):
+                     "runtime.speculative", "cli", "serve.lifecycle",
+                     "models.moe", "models.moe_inference", "bench.moe"):
         assert f"{port.__name__}.{expected}" in names
 
 

@@ -153,17 +153,41 @@ def test_per_op_decode_step_and_scan_match_jax(model, quantized):
 
 
 def test_moe_and_tp_raise(model):
+    """Tensor parallelism raises; an MoE config runs a paged decode step
+    (the routed FFN over every row, the inactive one included, with no
+    valid mask) whose logits and pools equal the JAX package's."""
     _, tcfg, _, tparams = model
     import dataclasses
 
-    for kw in (dict(num_experts=2), dict(tp_axis="model")):
-        cfg = dataclasses.replace(tcfg, **kw)
-        with pytest.raises(NotImplementedError):
-            tpt.paged_decode_step(tparams, torch.zeros(1, dtype=torch.int32),
-                                  *paged_kv_from_jax(*_np(*_pools(False)),
-                                                     device="cpu"),
-                                  torch.zeros((1, MB), dtype=torch.int32),
-                                  torch.zeros(1, dtype=torch.int32), cfg)
+    cfg = dataclasses.replace(tcfg, tp_axis="model")
+    with pytest.raises(NotImplementedError):
+        tpt.paged_decode_step(tparams, torch.zeros(1, dtype=torch.int32),
+                              *paged_kv_from_jax(*_np(*_pools(False)),
+                                                 device="cpu"),
+                              torch.zeros((1, MB), dtype=torch.int32),
+                              torch.zeros(1, dtype=torch.int32), cfg)
+
+    # capacity factor 4.0: no pair is dropped, so an f32 ulp cannot move a
+    # token across an expert's capacity (tests/test_moe_serving.py)
+    moe = dict(TOY, num_experts=4, expert_capacity_factor=4.0)
+    jcfg, tcfg = JConfig(**moe), TConfig(**moe)
+    jparams = j_init(jax.random.PRNGKey(2), jcfg)
+    tparams = params_from_jax(to_numpy(jparams), device="cpu")
+    rng = np.random.default_rng(3)
+    tables = np.full((4, MB), TRASH, np.int32)
+    tables[:3, :2] = rng.permutation(NB)[:6].reshape(3, 2)
+    lens = np.asarray([3, 9, 14, MB * BS - 1], np.int32)
+    tok = np.asarray([7, 3, 55, 0], np.int32)
+    jk, jv = _np(*_pools(False))
+    tk, tv = paged_kv_from_jax(jk, jv, device="cpu")
+    jl, jk, jv = jpt.paged_decode_step(
+        jparams, jnp.asarray(tok), *_jx(jk, jv), jnp.asarray(tables),
+        jnp.asarray(lens), cfg=jcfg)
+    tl, tk, tv = tpt.paged_decode_step(tparams, torch.from_numpy(tok), tk, tv,
+                                       torch.from_numpy(tables),
+                                       torch.from_numpy(lens), tcfg)
+    assert_close(t2n(tl)[:3], np.asarray(jl)[:3], "float32")
+    _assert_pools(tk, tv, *_np(jk, jv), "after an MoE decode step")
 
 
 @pytest.mark.parametrize("quantized", [False, True])
