@@ -6,11 +6,12 @@ physics_llm_inference_tpu/cli.py, with the same presets).
   python -m physics_llm_inference_tpu_torch.cli generate --prompt "..." [--max-tokens N]
 
 Configs are named presets (toy/small/1b/llama7b/qwen3) initialized from seed
-0; --int8 quantizes the weights (models/quant.quantize_params_int8). Every
-command runs on the card; `--device cpu` is the only way onto the CPU, and
-without CUDA and that flag the command exits with an error. Not ported:
---ckpt and --hf (the loader, ROADMAP Queue A item 4) and --tp/--dp above 1
-(parallel serving, Queue A item 7) raise.
+0; --ckpt loads a native .npz checkpoint, --hf a safetensors directory
+(models/loader.py); --int8 quantizes random or --hf weights
+(models/quant.quantize_params_int8). Every command runs on the card;
+`--device cpu` is the only way onto the CPU, and without CUDA and that flag
+the command exits with an error. Not ported: --tp/--dp above 1 (parallel
+serving, ROADMAP Queue A item 7) raise.
 """
 from __future__ import annotations
 
@@ -54,27 +55,30 @@ def _device(args) -> torch.device:
 
 
 def _load_model(args):
+    from .models.loader import load_llama, load_params
     from .models.quant import quantize_params_int8
     from .models.transformer import init_params
 
-    if args.hf or args.ckpt:
-        raise NotImplementedError("--ckpt and --hf need the checkpoint "
-                                  "loader, which is not ported yet (ROADMAP "
-                                  "Queue A item 4)")
     cfg = _named_config(args.config)
     dev = _device(args)
-    print(f"[cli] random-init {args.config} "
-          f"({cfg.param_count()/1e6:.0f}M params) on {dev}", file=sys.stderr)
-    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg)
-    if args.int8:
-        params = quantize_params_int8(params)
+    if args.hf:
+        params = load_llama(args.hf, cfg, int8=args.int8, device=dev)
+    elif args.ckpt:
+        params = load_params(args.ckpt, device=dev)
+    else:
+        print(f"[cli] random-init {args.config} "
+              f"({cfg.param_count()/1e6:.0f}M params) on {dev}",
+              file=sys.stderr)
+        params = init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+        if args.int8:
+            params = quantize_params_int8(params)
     return params, cfg
 
 
 def _add_model_args(p):
     p.add_argument("--config", default="small")
-    p.add_argument("--ckpt", help="native .npz checkpoint (not ported)")
-    p.add_argument("--hf", help="HF safetensors directory (not ported)")
+    p.add_argument("--ckpt", help="native .npz checkpoint")
+    p.add_argument("--hf", help="HF safetensors directory")
     p.add_argument("--int8", action="store_true",
                    help="INT8 weight-only quantization")
     p.add_argument("--device", default="cuda",

@@ -350,3 +350,19 @@ extern "C" int pli_flash_attention(
       kv_len, causal, bq, qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
+
+// The launch's block for the occupancy model (specs/occupancy.py): threads,
+// bytes of dynamic shared memory (the same for every head_dim instance),
+// and the CUDA runtime's own count of resident blocks an SM for the
+// head_dim-128 instance, to hold the model against.
+extern "C" int pli_flash_attention_block(int* threads, int* smem_bytes,
+                                         int* blocks_per_sm) {
+  *threads = THREADS;
+  *smem_bytes = static_cast<int>(sizeof(Smem));
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<8>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(sizeof(Smem)));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, flash_attention_kernel<8>, THREADS, sizeof(Smem)));
+}

@@ -122,3 +122,19 @@ extern "C" int pli_paged_decode_attention(
       Hq, Hkv, d, scale);
   return static_cast<int>(cudaGetLastError());
 }
+
+// K7's block for the occupancy model (specs/occupancy.py): threads, bytes
+// of dynamic shared memory (K6 takes its Smem<int8_t> statically), and the
+// CUDA runtime's own count of resident blocks an SM, to hold the model
+// against.
+extern "C" int pli_paged_decode_attention_block(int* threads, int* smem_bytes,
+                                                int* blocks_per_sm) {
+  *threads = THREADS;
+  *smem_bytes = static_cast<int>(sizeof(Smem7));
+  cudaError_t err = cudaFuncSetAttribute(
+      paged_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(sizeof(Smem7)));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, paged_attention_kernel, THREADS, sizeof(Smem7)));
+}

@@ -69,6 +69,10 @@ SIGNATURES = {
     # stream
     "pli_int8_paged_decode_attention": [_P] * 6 + [_I] * 6 + [_F, _P],
     "pli_paged_decode_attention": [_P] * 6 + [_I] * 6 + [_F, _P],
+    # out: threads, bytes of dynamic shared memory and the runtime's
+    # resident blocks an SM of K5's (head_dim 128) and K7's block
+    "pli_flash_attention_block": [_P, _P, _P],
+    "pli_paged_decode_attention_block": [_P, _P, _P],
     # a, b, c, M, N, K, route (0 f32, 1 bf16 WMMA, 2 bf16 wgmma + TMA),
     # out_bf16, vec_a, vec_b, stream
     "pli_tiled_matmul": [_P] * 3 + [_I] * 7 + [_P],
@@ -153,3 +157,13 @@ def check(err: int, name: str) -> None:
     """Raise if a C entry point returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def block_shape(entry: str) -> tuple[int, int, int]:
+    """(threads, bytes of dynamic shared memory, the CUDA runtime's resident
+    blocks an SM) of a kernel's block, from the library's `<entry>_block`
+    query."""
+    out = [ctypes.c_int() for _ in range(3)]
+    check(getattr(lib(), f"{entry}_block")(*map(ctypes.addressof, out)),
+          entry)
+    return tuple(v.value for v in out)

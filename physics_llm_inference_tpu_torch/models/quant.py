@@ -78,6 +78,20 @@ _QUANT_LEAVES = ("wqkv", "wo", "w_gate_up", "w_down",
                  "moe_w1", "moe_w2", "moe_w3")
 
 
+def _quantize_stacked_int8(w: torch.Tensor) -> QuantizedTensor:
+    """A stack (L, ..., K, N) -> int8 values and (L, ..., 1, N) f32 scales,
+    one layer at a time: an f32 temporary of a whole stack takes L·K·N·4
+    bytes (11.54 GB for LLAMA_7B_CONFIG's w_gate_up), and a quantization
+    makes several. Each layer's values are those of one quantize_int8 call over
+    the stack."""
+    q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+    s = torch.empty((*w.shape[:-2], 1, w.shape[-1]), dtype=torch.float32,
+                    device=w.device)
+    for i in range(w.shape[0]):
+        q[i], s[i] = quantize_int8(w[i], axis=-2)
+    return QuantizedTensor(q, s)
+
+
 def quantize_params_int8(params: dict) -> dict:
     """Quantize all block matmul weights and the lm_head: a stack (L, K, N)
     gets per-(layer, channel) scales (L, 1, N), an MoE expert stack
@@ -86,7 +100,7 @@ def quantize_params_int8(params: dict) -> dict:
     blocks = {}
     for name, w in params["blocks"].items():
         if name in _QUANT_LEAVES:
-            blocks[name] = QuantizedTensor(*quantize_int8(w, axis=-2))
+            blocks[name] = _quantize_stacked_int8(w)
         else:
             blocks[name] = w
     return {"embed": params["embed"], "norm": params["norm"],
@@ -138,25 +152,32 @@ def _quantize_stacked_int4(w: torch.Tensor, group: int,
     """(L, K, N) -> nibble-packed int4 with (L, K/G, N) group scales, absmax
     round-to-nearest. mse=True searches 11 scales in [0.75, 1.0]·absmax per
     (group, channel) for the least squared dequantization error of the
-    group, as the JAX package's `_quantize_stacked_int4`."""
+    group, as the JAX package's `_quantize_stacked_int4`. One layer at a
+    time, as `_quantize_stacked_int8`: each f32 temporary of a whole stack
+    takes L·K·N·4 bytes."""
     l, k, n = w.shape
     if k % group or n % 2:
         raise ValueError(f"int4 needs K % group == 0 and even N, got {(k, n)}"
                          f" with group {group}")
-    wf = w.float().reshape(l, k // group, group, n)
-    amax = wf.abs().amax(dim=2, keepdim=True)
-    s = amax.clamp_min(1e-8) / 7.0
-    if mse:
-        cands = torch.tensor(np.linspace(0.75, 1.0, 11), dtype=torch.float32)
-        errs = []
-        for c in cands:
-            sc = s * c
-            q = torch.round(wf / sc).clamp_(-8, 7)
-            errs.append(((wf - q * sc) ** 2).sum(dim=2, keepdim=True))
-        s = s * cands.to(s.device)[torch.stack(errs).argmin(dim=0)]
-    q = torch.round(wf / s).clamp_(-8, 7).to(torch.int8).reshape(l, k, n)
-    packed = (q[..., :n // 2] & 0x0F) | (q[..., n // 2:] << 4)
-    return QuantizedTensor4(packed, s[:, :, 0, :])
+    packed = torch.empty((l, k, n // 2), dtype=torch.int8, device=w.device)
+    scales = torch.empty((l, k // group, n), dtype=torch.float32,
+                         device=w.device)
+    cands = torch.tensor(np.linspace(0.75, 1.0, 11), dtype=torch.float32)
+    for i in range(l):
+        wf = w[i].float().reshape(k // group, group, n)
+        amax = wf.abs().amax(dim=1, keepdim=True)
+        s = amax.clamp_min(1e-8) / 7.0
+        if mse:
+            errs = []
+            for c in cands:
+                sc = s * c
+                q = torch.round(wf / sc).clamp_(-8, 7)
+                errs.append(((wf - q * sc) ** 2).sum(dim=1, keepdim=True))
+            s = s * cands.to(s.device)[torch.stack(errs).argmin(dim=0)]
+        q = torch.round(wf / s).clamp_(-8, 7).to(torch.int8).reshape(k, n)
+        packed[i] = (q[:, :n // 2] & 0x0F) | (q[:, n // 2:] << 4)
+        scales[i] = s[:, 0, :]
+    return QuantizedTensor4(packed, scales)
 
 
 def quantize_params_int4(params: dict, mse: bool = False) -> dict:

@@ -48,6 +48,21 @@ class KVCache(NamedTuple):
     def as_slice(self) -> KVSlice:
         return KVSlice(self.k, self.v, self.length)
 
+    @classmethod
+    def from_slice(cls, s: KVSlice) -> "KVCache":
+        return cls(k=s.k, v=s.v, length=s.start)
+
+    @property
+    def max_seq_len(self) -> int:
+        k = self.k.q if isinstance(self.k, QuantKV) else self.k
+        return k.shape[2]
+
+    def memory_bytes(self) -> int:
+        """Total bytes of both caches incl. quant scales."""
+        parts = [p for kv in (self.k, self.v)
+                 for p in (kv if isinstance(kv, QuantKV) else (kv,))]
+        return sum(p.numel() * p.element_size() for p in parts)
+
 
 def calculate_kv_cache_size(batch_size: int, seq_len: int, num_layers: int,
                             num_kv_heads: int, head_dim: int,

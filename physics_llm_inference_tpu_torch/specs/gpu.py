@@ -7,7 +7,9 @@ under load. `get_gpu_spec` raises on a card it does not know rather than
 guessing (an H100 PCIe or NVL has other bandwidth). `GPUSpec` carries the
 fields and properties of the JAX package's `TPUSpec` that the roofline
 reads (`peak_flops`, `peak_int8_ops`, `fp32_tflops`, `hbm_bandwidth`,
-`ridge_point`), so the JAX roofline functions accept it too.
+`ridge_point`), so the JAX roofline functions accept it too, and the
+per-SM limits the occupancy model reads (`specs/occupancy.py`: the CUDA
+programming guide's table for compute capability 9.0).
 """
 from __future__ import annotations
 
@@ -21,6 +23,13 @@ class GPUSpec:
     int8_tops: float     # dense tensor-core int8
     fp32_tflops: float   # f32 outside the tensor cores
     hbm_gbps: float      # GB/s (1e9 bytes/s)
+    # per-SM limits of the occupancy model (specs/occupancy.py)
+    sm_count: int
+    regs_per_sm: int     # 32-bit registers
+    smem_per_sm: int     # bytes of shared memory an SM can give its blocks
+    smem_per_block: int  # bytes one block may use (dynamic, after opt-in)
+    threads_per_sm: int
+    blocks_per_sm: int
 
     @property
     def peak_flops(self) -> float:
@@ -44,7 +53,10 @@ class GPUSpec:
 
 
 H100_SXM = GPUSpec(name="H100 SXM", bf16_tflops=989.0, int8_tops=1979.0,
-                   fp32_tflops=67.0, hbm_gbps=3350.0)
+                   fp32_tflops=67.0, hbm_gbps=3350.0, sm_count=132,
+                   regs_per_sm=65536, smem_per_sm=228 * 1024,
+                   smem_per_block=227 * 1024, threads_per_sm=2048,
+                   blocks_per_sm=32)
 
 # torch.cuda.get_device_name() substrings of the known cards
 GPU_SPECS: dict[str, GPUSpec] = {"H100 80GB HBM3": H100_SXM}

@@ -827,3 +827,36 @@ def test_sampled_decode_is_captured_with_its_generator(dev):
     assert len({tuple(col) for col in outs[0].T.tolist()}) > 1
 
 
+
+
+@pytest.mark.parametrize("mode", ["w8a16", "w4a16", "w8a8"])
+def test_decode_path_perplexity_runs_k4_every_step(dev, mode):
+    """bench/perplexity's decode path with INT8 or INT4 weights over an INT8
+    cache launches K4 in the weights' mode once a one-token forward (2
+    layers at the 7B widths, 8 windows of 32 tokens: 31 forwards), and no
+    other mode; its perplexity is within 5% of the bf16 weights' over a
+    bf16 cache (random weights: both near the vocabulary size)."""
+    import numpy as np
+
+    from physics_llm_inference_tpu_torch.bench.perplexity import \
+        decode_path_perplexity
+    from physics_llm_inference_tpu_torch.models.quant import (
+        quantize_params_int4, quantize_params_int8)
+
+    cfg = ModelConfig(vocab_size=32000, hidden_dim=4096, num_layers=2,
+                      num_heads=32, num_kv_heads=8, intermediate_dim=11008,
+                      max_seq_len=2048, dtype="bfloat16",
+                      act_quant="int8" if mode == "w8a8" else "none")
+    params = ttf.init_params(_gen(dev), cfg)
+    quant = (quantize_params_int4 if mode == "w4a16"
+             else quantize_params_int8)(params)
+    counters = {"w8a16": "launches", "w4a16": "w4a16_launches",
+                "w8a8": "w8a8_launches"}
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, 8 * 32)
+    before = {m: getattr(t_fd, c) for m, c in counters.items()}
+    ppl = decode_path_perplexity(quant, cfg, toks, window=32,
+                                 kv_dtype=torch.int8)
+    moved = {m: getattr(t_fd, c) - before[m] for m, c in counters.items()}
+    assert moved == {m: 31 if m == mode else 0 for m in counters}
+    ref = decode_path_perplexity(params, cfg, toks, window=32)
+    assert abs(ppl - ref) / ref < 0.05, (ppl, ref)

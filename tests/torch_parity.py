@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 # Logits/activations of the two packages on the same weights and inputs.
@@ -35,3 +36,15 @@ def to_numpy(tree):
 def t2n(t: torch.Tensor) -> np.ndarray:
     return t.detach().float().cpu().numpy() if t.is_floating_point() \
         else t.detach().cpu().numpy()
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """Torch's CPU ops on one thread, for a test module that imports this
+    fixture: right after JAX work in the same process, XLA's worker threads
+    still spin, and torch's thread pool beside them made a toy decode path
+    30x slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
