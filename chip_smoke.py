@@ -10,7 +10,7 @@ The phase clock (phase 3b) alone, from the repository's root:
 Parts alone, after phases 1-2 (each tree's package beside the script: a
 copy of this script in another tree's root measures that tree):
 
-    python3 chip_smoke.py [--k1] [--attention] [--fused] [--decode] [--serving] [--frontend] [--moe] [--accuracy] [--copy]
+    python3 chip_smoke.py [--k1] [--attention] [--fused] [--decode] [--serving] [--frontend] [--moe] [--accuracy] [--parallel] [--copy]
 
 --k1: phase 3's K1 sweep and K3; --attention: phase 3's K2 (S = 256,
 1,024, 4,096), K6 and K7; --fused: K4 in each mode at its seeds, K4's
@@ -19,7 +19,7 @@ capture and replay, and K8, with output digests, and the phase clock;
 the per-op path, each against the eager loop; --serving: the
 bench_serving7b waves, captured and eager, then one wave under
 torch.profiler; --frontend: phase 5c; --moe: phase 5d; --accuracy:
-phase 5e; --copy: phase 3's K9-K12.
+phase 5e; --parallel: phase 5f; --copy: phase 3's K9-K12.
 
 Phases, each of which raises on failure (exit code != 0, no final line):
 1. device: the card's name and power limit (nvidia-smi); no CUDA -> fail;
@@ -149,6 +149,47 @@ Phases, each of which raises on failure (exit code != 0, no final line):
    probe's inputs; (e) the occupancy model for K5's and K7's launches
    from ptxas's registers and shared memory, held to the CUDA runtime's
    count of resident blocks;
+   5f. the parallel layer on torch.distributed, a shared-card correctness
+   run that measures no scaling (no number of it is a scaling result):
+   ranks are spawned processes (torch.distributed.run for the CLI), each
+   file-initialized with a PAR_PG_TIMEOUT_S wait; a rank that raises,
+   hangs or dies fails the phase. (a) make_mesh(model=1) on nccl in a
+   world of one, each collective on device tensors the identity; then
+   two ranks sharing the card over gloo (each collective through pinned
+   host memory), nccl refused for them: (b) the bench.py 7B GQA model at
+   TP 2 (INT8 W+KV; weights from a seed, their digest equal on both
+   ranks): prefill at B 8 x 128 and 32 greedy tokens through forward,
+   and prefill at 512, against the single process's per-op run on the
+   same weights (rank 0): first-step logits within PAR_LOGIT_REL of the
+   largest, greedy tokens identical up to the first position where the
+   reference's top-two gap is below PAR_MARGIN; the bf16 witness (the
+   single process with one weight one ulp away) logged beside it; two
+   controls must break the rule (a rank drops its wo all-reduce's sum;
+   wqkv sharded without the column permutation); (c) the paged engine at
+   TP 2 in the bench_serving7b geometry on 16 requests of prompt 576, 32
+   greedy tokens, against the single-process paged engine: dispatch_trace
+   identical on both ranks and the reference's, greedy tokens identical
+   up to the first near-tie (gaps teacher-forced), and 8 of the requests'
+   prompts and reference tokens teacher-forced through the paged model's
+   prefill chunk and decode step on the engines' own params: the logits
+   at each of the 32 positions within PAR_LOGIT_REL of the reference's
+   largest there, the bf16 witness logged beside them; two controls must
+   break it (rank 1 drops the wo all-reduce sums of the paged prefill
+   chunk, or of the paged decode step); (d)
+   `cli serve --tp 2 --dist-backend gloo --config llama7b --int8` under
+   torch.distributed.run, four chat requests to rank 0, each answer's
+   tokens identical to the single-process slot engine's on the same seed
+   up to the first near-tie (the HTTP answer carries no logits; the slot
+   engine's steps run `forward`, held by logits in (b)); (e) moe_layer_ep
+   over 2 ranks at config
+   5's MoE widths (4,096 tokens, INT8 stacks, capacity 1.25) against
+   moe_layer on each rank's slice; (f) ring attention over 2 ranks (B 1,
+   32 q / 8 kv heads of 128, S 8,192) against K5 over the whole sequence
+   and its plain version; (g) K1 (both routes), K2, K5 and K6 launched
+   by (b) and (c) on each rank (counted around the timed runs only) and
+   held against their plain versions on the ranks' own inputs. Each
+   part's seconds, each rank's ms a decode step and its share in
+   collectives are logged;
 6. the kernel microbenchmark path at the JAX package's default sizes, through
    its public functions: bench_gemm with K9 and with torch.matmul (4096^3
    bf16), bench_gemv (8 x 4096 x 4096, bf16 and K1 int8), bench_attention
@@ -158,7 +199,7 @@ Phases, each of which raises on failure (exit code != 0, no final line):
    suite must give the JAX suite's keys, and no roofline_fraction may
    exceed 1.05.
 Then one JSON line with each kernel's numbers (launches summed over the
-timed runs of phases 5, 5c, 5d, 5e and 6; of 5d's bench/moe.main calls, each
+timed runs of phases 5, 5c, 5d, 5e, 5f (both ranks) and 6; of 5d's bench/moe.main calls, each
 whole call, its warm runs and captures included), and the last line
 {"ok": true, "device": {...}}.
 """
@@ -4730,7 +4771,7 @@ def accuracy_runs(dev, reports: dict) -> dict:
     log(f"phase 5e (c) the kernels on the path's own inputs against their "
         f"plain versions ({nvidia_smi()}): {probe.check('phase 5e')}")
     del probe, params, q8
-    torch.cuda.empty_cache()
+    release()
     log(f"phase 5e (d) probe_attention_memory ({nvidia_smi()}): "
         f"{attention_probe(dev, counts)}")
     torch.cuda.empty_cache()
@@ -4820,6 +4861,990 @@ def serving_alone(dev):
         torch.Generator(device=dev).manual_seed(SEED), cfg), cfg)
 
 
+# ------------------------------------------------------------- phase 5f
+
+# Phase 5f: the parallel layer, two ranks sharing the one card over gloo
+# (a shared-card correctness run: it measures no scaling)
+PAR_B, PAR_PROMPT, PAR_LONG, PAR_TOKENS = 8, 128, 512, 32
+PAR_REQUESTS, PAR_REQ_PROMPT, PAR_REQ_TOKENS, PAR_CHATS = 16, 576, 32, 4
+PAR_FORCED = 8     # (c)'s requests teacher-forced through the paged steps
+PAR_SEED = SEED + 15
+# the TP rule: first-step logits within PAR_LOGIT_REL of the reference's
+# largest logit, and greedy tokens identical up to the first position where
+# the reference's top-two logit gap is below PAR_MARGIN
+PAR_LOGIT_REL, PAR_MARGIN = 3e-2, 0.1
+PAR_PG_TIMEOUT_S = 600     # a rank waiting longer fails the phase
+PAR_DEVICE = "cuda:0"      # both ranks' device: the one card
+PAR_LAYERS = 32
+RING = dict(b=1, hq=32, hkv=8, hd=128, s=8192)
+
+
+def tree_digest(tree) -> str:
+    """A digest of every byte of a parameter tree, on the device: each leaf's
+    bytes, as int64, dotted with pseudo-random int64 weights from a fixed
+    seed (wrapping sums), chunk by chunk; the sums' sha256. Two ranks'
+    trees agree where their digests do."""
+    import hashlib
+
+    import torch
+
+    def leaves(t):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                yield from leaves(t[k])
+        elif isinstance(t, tuple):
+            for x in t:
+                yield from leaves(x)
+        else:
+            yield t
+
+    h, chunk = hashlib.sha256(), 1 << 26
+    for t in leaves(tree):
+        flat = t.contiguous().view(-1).view(torch.uint8)
+        g = torch.Generator(device=flat.device).manual_seed(1234)
+        acc = torch.zeros((), dtype=torch.int64, device=flat.device)
+        for i in range(0, flat.numel(), chunk):
+            part = flat[i:i + chunk].to(torch.int64)
+            w = torch.randint(-(1 << 62), 1 << 62, part.shape,
+                              generator=g, device=flat.device,
+                              dtype=torch.int64)
+            acc += (part * w).sum()
+        h.update(str(int(acc)).encode())
+    return h.hexdigest()[:16]
+
+
+def spawn_ranks(fn_name: str, world: int, backend: str, *args,
+                timeout: float = 900) -> list:
+    """fn_name(rank, world, mesh_backend, *args) of this script on `world`
+    spawned processes sharing the card, one process group over `backend`
+    (file-initialized, PAR_PG_TIMEOUT_S a wait). Returns each rank's
+    result; a rank that raises, hangs or dies fails the phase."""
+    import multiprocessing as mp
+    import pickle
+    import tempfile
+
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp)
+        procs = [ctx.Process(target=_rank_main, args=(
+            r, world, backend, str(out / "pg"), fn_name, args, tmp))
+            for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + timeout
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(30)
+        errs = {r: (out / f"{r}.err").read_text() for r in range(world)
+                if (out / f"{r}.err").exists()}
+        codes = [p.exitcode for p in procs]
+        if hung or errs or any(codes):
+            raise AssertionError(f"phase 5f {fn_name}: ranks hung {hung}, "
+                                 f"exit codes {codes}, errors {errs}")
+        return [pickle.loads((out / f"{r}.pkl").read_bytes())
+                for r in range(world)]
+
+
+def _rank_main(rank, world, backend, init_file, fn_name, args, out_dir):
+    """A spawned rank: the process group, then fn_name; its result or its
+    traceback to out_dir."""
+    import datetime
+    import pickle
+    import traceback
+
+    sys.path.insert(0, str(ROOT))
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if torch.cuda.is_available():
+        torch.cuda.set_device(0)
+    try:
+        dist.init_process_group(
+            backend, init_method=f"file://{init_file}", rank=rank,
+            world_size=world,
+            timeout=datetime.timedelta(seconds=PAR_PG_TIMEOUT_S))
+        res = globals()[fn_name](rank, world, backend, *args)
+        Path(out_dir, f"{rank}.pkl").write_bytes(pickle.dumps(res))
+    except BaseException:
+        Path(out_dir, f"{rank}.err").write_text(traceback.format_exc())
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def nccl_world(rank, world, backend):
+    """Part (a): make_mesh(model=1) on nccl in a world of one, one of each
+    collective on device tensors (each the identity on one rank)."""
+    import torch
+
+    from physics_llm_inference_tpu_torch.parallel import make_mesh
+
+    t0 = time.perf_counter()
+    mesh = make_mesh(model=1, backend="nccl")
+    x = torch.arange(64, dtype=torch.bfloat16,
+                     device=mesh.device).reshape(8, 8)
+    got = {"all_reduce": mesh.all_reduce(x, "model"),
+           "all_gather": mesh.all_gather(x, "model", dim=1),
+           "all_to_all": mesh.all_to_all(x, "model", 0, 1),
+           "ring_shift": mesh.ring_shift(x, "model"),
+           "broadcast": mesh.broadcast(x, "model")}
+    torch.cuda.synchronize()
+    bad = [k for k, v in got.items() if not (v.is_cuda and torch.equal(v, x))]
+    if bad:
+        raise AssertionError(f"phase 5f (a): nccl collectives not the "
+                             f"identity on one rank: {bad}")
+    return {"transport": mesh.transport, "device": str(mesh.device),
+            "s": time.perf_counter() - t0}
+
+
+def _gaps(logits):
+    top = logits.float().topk(2, dim=-1).values
+    return top[..., 0] - top[..., 1]
+
+
+def greedy_tp(params, cfg, prompts, steps: int, mesh=None) -> dict:
+    """Prefill `prompts` (B, P) into an INT8 cache through forward, then
+    steps - 1 greedy decode steps: the first step's logits (B, V), the
+    tokens and the top-two gaps (B, steps), and the decode's ms a step and
+    share of it in the mesh's collectives."""
+    import torch
+
+    from physics_llm_inference_tpu_torch.models.transformer import forward
+    from physics_llm_inference_tpu_torch.runtime.kv_cache import KVCache
+
+    dev = prompts.device
+    b, p = prompts.shape
+    cache = KVCache.create(cfg, b, p + steps, dtype=torch.int8, device=dev)
+    logits, kv = forward(params, prompts, cfg, kv=cache.as_slice(),
+                         last_only=True)
+    first = logits[:, -1].float()
+    toks, gaps = [first.argmax(-1)], [_gaps(first)]
+    torch.cuda.synchronize()
+    if mesh is not None:
+        mesh.time_collectives()
+    t0 = time.perf_counter()
+    for _ in range(steps - 1):
+        logits, kv = forward(params, toks[-1][:, None], cfg, kv=kv,
+                             last_only=True)
+        toks.append(logits[:, -1].argmax(-1))
+        gaps.append(_gaps(logits[:, -1]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    share = None
+    if mesh is not None:
+        share = mesh.comm_s / wall
+        mesh.time_collectives(False)
+    return {"first": first.cpu().numpy(),
+            "tokens": torch.stack(toks, 1).cpu().numpy(),
+            "gaps": torch.stack(gaps, 1).cpu().numpy(),
+            "ms": wall / max(1, steps - 1) * 1e3, "share": share}
+
+
+def tp_rule(ref: dict, got: dict, what: str) -> str:
+    """The TP rule on one run: first-step logits within PAR_LOGIT_REL of
+    the reference's largest logit, tokens identical up to the first
+    position where the reference's top-two gap is below PAR_MARGIN.
+    Raises AssertionError when broken; returns the readings."""
+    import numpy as np
+
+    rel = float(np.abs(got["first"] - ref["first"]).max()
+                / np.abs(ref["first"]).max())
+    if not (np.isfinite(got["first"]).all() and rel <= PAR_LOGIT_REL):
+        raise AssertionError(f"{what}: first-step logits off by {rel:.4g} "
+                             f"of the largest (> {PAR_LOGIT_REL})")
+    held, full = 0, 0
+    if "tokens" in ref:
+        for r in range(ref["tokens"].shape[0]):
+            tie = np.nonzero(ref["gaps"][r] < PAR_MARGIN)[0]
+            upto = int(tie[0]) if tie.size else ref["tokens"].shape[1]
+            if not np.array_equal(got["tokens"][r, :upto],
+                                  ref["tokens"][r, :upto]):
+                raise AssertionError(
+                    f"{what}: row {r} differs before its first near-tie "
+                    f"(position {upto}): {got['tokens'][r].tolist()} vs "
+                    f"{ref['tokens'][r].tolist()}")
+            held += upto
+            full += int(np.array_equal(got["tokens"][r], ref["tokens"][r]))
+    return (f"{what}: logits rel {rel:.4g} (<= {PAR_LOGIT_REL}); tokens held "
+            f"at {held} positions before near-ties (gap < {PAR_MARGIN}), "
+            f"{full} rows identical throughout")
+
+
+def rule_breaks(rule, ref, got, what: str) -> str:
+    """A control must break `rule` (tp_rule or logits_rule)."""
+    try:
+        rule(ref, got, what)
+    except AssertionError as e:
+        return f"{what} breaks the rule ({e})"
+    raise AssertionError(f"phase 5f: the control {what} passes the rule")
+
+
+class skip_wo_reduce:
+    """Control: on `rank`, every wo all-reduce is issued (so the other
+    ranks do not wait forever) but its sum is dropped for the rank's own
+    partial product. forward's all-reduces come in a fixed order, the
+    embedding's first, then wo and down of each layer."""
+
+    def __init__(self, rank: int, on_rank: int):
+        self.active = rank == on_rank
+
+    def __enter__(self):
+        from physics_llm_inference_tpu_torch.models import transformer as tf
+
+        self.tf, self.orig = tf, (tf._tp_psum, tf.embed_lookup)
+        if not self.active:
+            return self
+        n = [0]
+
+        def psum(y, cfg):
+            out = self.orig[0](y, cfg)
+            n[0] += 1
+            return y if n[0] % 2 == 0 else out   # 2, 4, ...: each wo
+
+        def embed(*a):
+            n[0] = 0
+            return self.orig[1](*a)
+
+        tf._tp_psum, tf.embed_lookup = psum, embed
+        return self
+
+    def __exit__(self, *exc):
+        self.tf._tp_psum, self.tf.embed_lookup = self.orig
+
+
+class skip_paged_wo_reduce:
+    """Controls of (c): on `rank`, the paged model's wo all-reduce at one
+    of its two `_tp_psum` sites (`site`: the prefill chunk's or the
+    decode step's) is issued but its sum dropped for the rank's own
+    partial product; the other site, the FFN's and the embedding's stay
+    whole."""
+
+    FNS = {"prefill": "paged_prefill_chunk_impl",
+           "decode": "_paged_decode_step_impl"}
+
+    def __init__(self, rank: int, on_rank: int, site: str):
+        self.active, self.fn = rank == on_rank, self.FNS[site]
+
+    def __enter__(self):
+        from physics_llm_inference_tpu_torch.models import \
+            paged_transformer as pt
+
+        self.pt, self.orig = pt, pt._tp_psum
+        if self.active:
+            def psum(y, cfg):
+                out = self.orig(y, cfg)
+                return y if sys._getframe(1).f_code.co_name == self.fn \
+                    else out
+
+            pt._tp_psum = psum
+        return self
+
+    def __exit__(self, *exc):
+        self.pt._tp_psum = self.orig
+
+
+def paged_wave(eng, prompts, tokens: int) -> dict:
+    """Every prompt at once through a paged engine, greedy: tokens, finish
+    reasons, dispatch_trace and the wall."""
+    import torch
+
+    from physics_llm_inference_tpu_torch.serve.lifecycle import \
+        GenerationRequest
+
+    eng.dispatch_trace = []
+    t0 = time.perf_counter()
+    rids = [eng.submit_request(GenerationRequest(
+        prompt_tokens=list(p), max_tokens=tokens, temperature=0.0,
+        request_id=f"p{i}")) for i, p in enumerate(prompts)]
+    eng.run_until_done(rids)
+    torch.cuda.synchronize()
+    res = [eng.get_result(r) for r in rids]
+    return {"tokens": [list(map(int, r.tokens)) for r in res],
+            "reasons": [r.finish_reason for r in res],
+            "trace": [tuple(x) for x in eng.dispatch_trace],
+            "s": time.perf_counter() - t0}
+
+
+def decode_clock(eng, mesh) -> dict:
+    """Wrap the engine's decode dispatch: the returned dict fills in with
+    the decode steps run, their ms a step (host clock, the device
+    synchronized) and the share of it in the mesh's collectives (which
+    counts only while the mesh counts)."""
+    import torch
+
+    acc = {"steps": 0, "s": 0.0, "comm_s": 0.0}
+    inner = eng._decode
+
+    def timed(horizon, *a, **kw):
+        torch.cuda.synchronize()
+        c0, t0 = mesh.comm_s or 0.0, time.perf_counter()
+        out = inner(horizon, *a, **kw)
+        torch.cuda.synchronize()
+        acc["s"] += time.perf_counter() - t0
+        acc["comm_s"] += (mesh.comm_s or 0.0) - c0
+        acc["steps"] += horizon
+        res["step_ms"] = acc["s"] / acc["steps"] * 1e3
+        res["step_share"] = acc["comm_s"] / acc["s"]
+        res["steps"] = acc["steps"]
+        return out
+
+    res = {}
+    eng._decode = timed
+    return res
+
+
+def forced_gaps(params, cfg, prompts, tokens) -> list:
+    """The reference's top-two gaps at each generated position, from one
+    teacher-forced forward over prompt + its tokens (an engine returns no
+    logits): an approximation of the engine's own decode logits."""
+    import torch
+
+    from physics_llm_inference_tpu_torch.models.transformer import forward
+
+    out = []
+    for p, t in zip(prompts, tokens):
+        ids = torch.tensor([list(p) + list(t[:-1])],
+                           device=params["embed"].device)
+        logits, _ = forward(params, ids, cfg)
+        out.append(_gaps(logits[0, len(p) - 1:]).cpu().numpy())
+        del logits
+    return out
+
+
+def forced_paged_logits(eng, prompts, tokens, steps: int | None = None
+                        ) -> dict:
+    """Teacher-force each prompt and its reference tokens through the
+    paged model's step functions on `eng`'s own params and step config
+    (a TP engine's shard and local config): the prompt in prefill chunks
+    of the engine's max_prefill_chunk (paged_prefill_chunk_impl), then one
+    per-op decode step a reference token (paged_decode_step), over fresh
+    INT8 pools of the engine's block geometry. Returns the logits at each
+    of `steps` (default all) generated positions, (R, T, V) f32, and their
+    top-two gaps (R, T)."""
+    import numpy as np
+    import torch
+
+    from physics_llm_inference_tpu_torch.models.paged_transformer import (
+        paged_decode_step, paged_prefill_chunk_impl)
+    from physics_llm_inference_tpu_torch.models.transformer import QuantKV
+
+    c, cfg, dev = eng.config, eng._run_cfg, eng.device
+    r, p = len(prompts), len(prompts[0])
+    t = len(tokens[0]) if steps is None else steps
+    mb, bs = c.max_blocks_per_request, c.block_size
+    hkv = cfg.num_kv_heads * cfg.head_dim
+    pools = QuantKV(
+        q=torch.zeros((cfg.num_layers, r * mb + 1, 2, bs, hkv),
+                      dtype=torch.int8, device=dev),
+        s=torch.zeros((cfg.num_layers, r * mb + 1, 2, cfg.num_kv_heads, bs),
+                      dtype=torch.float32, device=dev))
+    tables = torch.arange(r * mb, dtype=torch.int32,
+                          device=dev).reshape(r, mb)
+    ids = torch.tensor(np.asarray(prompts), device=dev)
+    forced = torch.tensor(np.asarray(tokens)[:, :t], device=dev)
+    for start in range(0, p, c.max_prefill_chunk):
+        chunk = ids[:, start:start + c.max_prefill_chunk]
+        logits, pools, _ = paged_prefill_chunk_impl(
+            eng.params, chunk, pools, None, tables,
+            torch.full((r,), start, device=dev),
+            torch.full((r,), chunk.shape[1], device=dev), cfg)
+    out = [logits.float()]
+    for i in range(t - 1):
+        logits, pools, _ = paged_decode_step(
+            eng.params, forced[:, i], pools, None, tables,
+            torch.full((r,), p + i, dtype=torch.int32, device=dev), cfg)
+        out.append(logits.float())
+    logits = torch.stack(out, 1)
+    res = {"logits": logits.cpu().numpy(),
+           "gaps": _gaps(logits).cpu().numpy()}
+    del pools, logits, out
+    return res
+
+
+def position_rel(ref, got):
+    """Each position's largest logit error over its (R, V) logits, over
+    the reference's largest logit there: (T,)."""
+    import numpy as np
+
+    return (np.abs(got - ref).max(axis=(0, 2))
+            / np.abs(ref).max(axis=(0, 2)))
+
+
+def logits_rule(ref, got, what: str) -> str:
+    """The TP rule's logits half at every position of a teacher-forced run:
+    at each position, the (R, V) logits within PAR_LOGIT_REL of the
+    reference's largest there. Raises AssertionError when broken; returns
+    the readings."""
+    import numpy as np
+
+    rel = position_rel(ref, got)
+    worst = int(rel.argmax())
+    if not (np.isfinite(got).all() and rel[worst] <= PAR_LOGIT_REL):
+        raise AssertionError(f"{what}: logits at position {worst} off by "
+                             f"{rel[worst]:.4g} of the largest (> "
+                             f"{PAR_LOGIT_REL})")
+    return (f"{what}: logits at all {rel.size} positions of {got.shape[0]} "
+            f"requests within {rel[worst]:.4g} of the largest (worst at "
+            f"position {worst}, median {float(np.median(rel)):.4g}; <= "
+            f"{PAR_LOGIT_REL})")
+
+
+def engine_rule(ref_tokens, gaps, got_tokens, what: str) -> str:
+    """Each request's tokens identical up to the first position where the
+    reference's (teacher-forced) top-two gap is below PAR_MARGIN."""
+    import numpy as np
+
+    held, full = 0, 0
+    for i, (want, g, got) in enumerate(zip(ref_tokens, gaps, got_tokens)):
+        tie = np.nonzero(np.asarray(g) < PAR_MARGIN)[0]
+        upto = int(tie[0]) if tie.size else len(want)
+        if list(got[:upto]) != list(want[:upto]):
+            raise AssertionError(f"{what}: request {i} differs before its "
+                                 f"first near-tie (position {upto})")
+        held += upto
+        full += int(list(got) == list(want))
+    return (f"{what}: tokens held at {held} positions before near-ties, "
+            f"{full}/{len(ref_tokens)} requests identical throughout")
+
+
+def tp_world(rank, world, backend):
+    """Parts (b), (c), (e), (f) and (g) on this rank of two sharing the
+    card over gloo. Rank 0 also runs the single-process references on the
+    full weights. Returns this rank's readings (the parent holds them to
+    the rules)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from physics_llm_inference_tpu_torch.models.config import ModelConfig
+    from physics_llm_inference_tpu_torch.models.quant import (
+        QuantizedTensor, init_params_int8)
+    from physics_llm_inference_tpu_torch.parallel import (
+        make_mesh, tp_local_config, tp_prepare_params)
+    from physics_llm_inference_tpu_torch.serve.paged_engine import (
+        PagedEngineConfig, PagedInferenceEngine)
+
+    dev = torch.device(PAR_DEVICE)
+    out = {"rank": rank}
+    try:
+        make_mesh(model=2, backend="nccl", device=dev)
+        raise AssertionError("nccl with two ranks on one card was accepted")
+    except ValueError as e:
+        out["nccl_refusal"] = str(e)
+    mesh = make_mesh(model=2, backend="gloo", device=dev)
+    out["transport"] = mesh.transport
+
+    # (b) the bench.py 7B GQA model at full width, INT8 weights and KV
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(ModelConfig(num_layers=PAR_LAYERS, **WIDTHS),
+                              fused_decode=False)
+    full = init_params_int8(torch.Generator(device=dev).manual_seed(PAR_SEED),
+                            cfg)
+    out["digest"] = tree_digest(full)
+    g = torch.Generator(device=dev).manual_seed(PAR_SEED + 1)
+    prompts = torch.randint(1, cfg.vocab_size, (PAR_B, PAR_PROMPT),
+                            generator=g, device=dev)
+    long = torch.randint(1, cfg.vocab_size, (PAR_B, PAR_LONG), generator=g,
+                         device=dev)
+    rng = np.random.default_rng(PAR_SEED)
+    req_prompts = [rng.integers(1, cfg.vocab_size, PAR_REQ_PROMPT).tolist()
+                   for _ in range(PAR_REQUESTS)]
+    pc = PagedEngineConfig(max_batch=64, kv_dtype="int8", decode_horizon=8,
+                           enable_radix=True, prefill_tokens_per_iter=2048)
+    if rank == 0:
+        # the single-process references on the full weights
+        r0 = time.perf_counter()
+        out["ref"] = greedy_tp(full, cfg, prompts, PAR_TOKENS)
+        out["ref_long"] = greedy_tp(full, cfg, long, 1)
+        # the witness: the same single process with one weight one bf16
+        # ulp away (ln1 of layer 0, element 0): how far bf16 alone drifts
+        ln1 = full["blocks"]["ln1"]
+        keep = ln1[0, 0].clone()
+        ln1[0, 0] = (keep.float() * (1 + 2 ** -7)).to(ln1.dtype)
+        out["witness"] = {"first": greedy_tp(full, cfg, prompts, 1)["first"]}
+        ln1[0, 0] = keep
+        eng = PagedInferenceEngine(full, cfg, pc)
+        out["ref_paged"] = paged_wave(eng, req_prompts, PAR_REQ_TOKENS)
+        # the paged steps teacher-forced on the reference's tokens; and
+        # the witness of them, ln1[0, 0] one ulp away again
+        forced = forced_paged_logits(eng, req_prompts[:PAR_FORCED],
+                                     out["ref_paged"]["tokens"][:PAR_FORCED])
+        ln1[0, 0] = (keep.float() * (1 + 2 ** -7)).to(ln1.dtype)
+        out["witness_paged"] = forced_paged_logits(
+            eng, req_prompts[:PAR_FORCED],
+            out["ref_paged"]["tokens"][:PAR_FORCED])["logits"]
+        ln1[0, 0] = keep
+        out["ref_forced"] = forced["logits"]
+        del eng
+        torch.cuda.empty_cache()
+        # the gaps of every request, for the tokens rule
+        out["ref_paged"]["gaps"] = forced_gaps(
+            full, cfg, req_prompts, out["ref_paged"]["tokens"])
+        out["ref_s"] = time.perf_counter() - r0
+    local = tp_prepare_params(full, cfg, mesh)
+    lcfg = tp_local_config(cfg, 2, data_axis=None, mesh=mesh)
+    # the control's wqkv: a plain column shard, no permutation
+    i, w = mesh.index("model"), full["blocks"]["wqkv"]
+    per = w.q.shape[-1] // 2
+    unpermuted = dict(local, blocks=dict(local["blocks"], wqkv=QuantizedTensor(
+        w.q.narrow(-1, i * per, per).contiguous(),
+        w.s.narrow(-1, i * per, per).contiguous())))
+    out["shards"] = {k: tuple((v.q if isinstance(v, QuantizedTensor)
+                               else v).shape)
+                     for k, v in [("embed", local["embed"]),
+                                  ("lm_head", local["lm_head"])]
+                     + list(local["blocks"].items())}
+
+    with kernel_probe() as probe:
+        reset_launches()
+        t1 = time.perf_counter()
+        out["tp"] = greedy_tp(local, lcfg, prompts, PAR_TOKENS, mesh)
+        out["tp_long"] = greedy_tp(local, lcfg, long, 1)
+        out["tp_s"] = time.perf_counter() - t1
+        launches_b = read_launches()
+        with skip_wo_reduce(rank, on_rank=1):
+            out["ctl_wo"] = {"first": greedy_tp(local, lcfg, prompts,
+                                                1)["first"]}
+        out["ctl_qkv"] = {"first": greedy_tp(unpermuted, lcfg, prompts,
+                                             1)["first"]}
+        del unpermuted
+        out["b_s"] = time.perf_counter() - t0
+
+        # (c) the paged engine at TP 2 in the bench_serving7b geometry
+        t0 = time.perf_counter()
+        eng = PagedInferenceEngine(full, cfg, pc, mesh=mesh)
+        del full, local, w
+        torch.cuda.empty_cache()
+        reset_launches()
+        clock = decode_clock(eng, mesh)
+        mesh.time_collectives()
+        out["paged"] = paged_wave(eng, req_prompts, PAR_REQ_TOKENS)
+        out["paged"]["share"] = mesh.comm_s / out["paged"]["s"]
+        mesh.time_collectives(False)
+        launches_c = read_launches()
+        out["paged"].update(clock)
+        # the paged steps teacher-forced on the reference's tokens (rank
+        # 0's, broadcast), then the control: rank 1 drops its paged wo sums
+        want = torch.zeros((PAR_FORCED, PAR_REQ_TOKENS), dtype=torch.int64)
+        if rank == 0:
+            want = torch.tensor(out["ref_paged"]["tokens"][:PAR_FORCED])
+        want = mesh.broadcast(want, "model").numpy()
+        forced_prompts = req_prompts[:PAR_FORCED]
+        out["tp_forced"] = forced_paged_logits(eng, forced_prompts,
+                                               want)["logits"]
+        for site in skip_paged_wo_reduce.FNS:
+            with skip_paged_wo_reduce(rank, on_rank=1, site=site):
+                out[f"ctl_paged_{site}"] = forced_paged_logits(
+                    eng, forced_prompts, want, steps=2)["logits"]
+        del eng
+        torch.cuda.empty_cache()
+        out["c_s"] = time.perf_counter() - t0
+    # (g) each kernel of (b) and (c) on the path's own inputs
+    t0 = time.perf_counter()
+    out["probe"] = probe.check(f"phase 5f rank {rank}")
+    out["kinds"] = sorted(map(str, probe.kinds()))
+    del probe
+    torch.cuda.empty_cache()
+    out["launches"] = {k: launches_b[k] + launches_c[k] for k in launches_b}
+    out["launches_b"], out["launches_c"] = launches_b, launches_c
+    out["g_s"] = time.perf_counter() - t0
+
+    out["ep"] = ep_part(rank, dev)
+    out["ring"] = ring_part(rank, mesh, dev)
+    return out
+
+
+def ep_part(rank, dev) -> dict:
+    """Part (e): moe_layer_ep over two ranks at BASELINE config 5's MoE
+    widths (phase 5d's MOE_WIDTHS), INT8 stacks, on MOE_BATCH x MOE_PROMPT
+    tokens, held against moe_layer on this rank's slice."""
+    import torch
+
+    from physics_llm_inference_tpu_torch.models.config import MoEConfig
+    from physics_llm_inference_tpu_torch.models.moe import (init_moe_params,
+                                                            moe_layer)
+    from physics_llm_inference_tpu_torch.models.quant import \
+        _quantize_stacked_int8
+    from physics_llm_inference_tpu_torch.parallel import (make_mesh,
+                                                          moe_layer_ep)
+
+    t0 = time.perf_counter()
+    mesh = make_mesh(expert=2, backend="gloo", device=dev)
+    cfg = moe_cfg(1)
+    moe = MoEConfig(num_experts=cfg.num_experts,
+                    num_experts_per_tok=cfg.num_experts_per_tok,
+                    capacity_factor=cfg.expert_capacity_factor)
+    g = torch.Generator(device=dev).manual_seed(PAR_SEED + 2)
+    p = init_moe_params(g, cfg, moe)
+    params = {k: (v if k == "gate" else _quantize_stacked_int8(v))
+              for k, v in p.items()}
+    t = MOE_BATCH * MOE_PROMPT
+    x = torch.randn((t, cfg.hidden_dim), generator=g, device=dev).to(
+        torch.bfloat16)
+    i, tl = mesh.index("expert"), t // 2
+    ref, _ = moe_layer(x[i * tl:(i + 1) * tl], params, moe)
+    got = moe_layer_ep(mesh, x, params, moe)
+    torch.cuda.synchronize()
+    mine = got[i * tl:(i + 1) * tl].float()
+    err = float((mine - ref.float()).abs().max())
+    rel = err / float(ref.float().abs().max())
+    mesh.time_collectives()
+    t1 = time.perf_counter()
+    moe_layer_ep(mesh, x, params, moe)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t1) * 1e3
+    share = mesh.comm_s / ms * 1e3
+    mesh.time_collectives(False)
+    t1 = time.perf_counter()
+    moe_layer(x[i * tl:(i + 1) * tl], params, moe)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t1) * 1e3
+    return {"err": err, "rel": rel, "finite": bool(torch.isfinite(got).all()),
+            "ms": ms, "plain_ms": plain_ms, "share": share,
+            "s": time.perf_counter() - t0}
+
+
+def ring_part(rank, mesh, dev) -> dict:
+    """Part (f): ring attention over the two ranks, B 1, 32 q / 8 kv heads of
+    128, S 8,192 in bf16; rank 0 holds the gathered output against K5
+    flash_attention over the whole sequence and against its plain
+    version."""
+    import torch
+
+    from physics_llm_inference_tpu_torch.kernels import flash_attention as kfa
+    from physics_llm_inference_tpu_torch.parallel.ring_attention import \
+        ring_attention
+
+    t0 = time.perf_counter()
+    r = RING
+    g = torch.Generator(device=dev).manual_seed(PAR_SEED + 3)
+    q = torch.randn((r["b"], r["hq"], r["s"], r["hd"]), generator=g,
+                    device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((r["b"], r["hkv"], r["s"], r["hd"]), generator=g,
+                        device=dev).to(torch.bfloat16) for _ in range(2))
+    i, s = mesh.index("model"), r["s"] // 2
+    chunk = [t[:, :, i * s:(i + 1) * s].contiguous() for t in (q, k, v)]
+    torch.cuda.synchronize()
+    mesh.time_collectives()
+    t1 = time.perf_counter()
+    mine = ring_attention(mesh, *chunk)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    share = mesh.comm_s / wall
+    mesh.time_collectives(False)
+    whole = mesh.all_gather(mine, "model", dim=2)
+    out = {"ms": wall * 1e3, "share": share}
+    if rank == 0:
+        launches = kfa.launches
+        k5 = kfa.flash_attention(q, k, v, causal=True)
+        plain = kfa.flash_attention_plain(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        out["k5_launched"] = kfa.launches - launches
+        out["vs_k5"] = float((whole.float() - k5.float()).abs().max())
+        out["vs_plain"] = float((whole.float() - plain.float()).abs().max())
+        out["k5_vs_plain"] = float((k5.float() - plain.float()).abs().max())
+        out["finite"] = bool(torch.isfinite(whole).all())
+        del k5, plain
+    del q, k, v, chunk, whole, mine
+    torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def cli_chats(dev) -> str:
+    """Part (d): `cli serve --tp 2 --dist-backend gloo --config llama7b
+    --int8` launched by torch.distributed.run; PAR_CHATS greedy chat
+    requests to rank 0, each answer's tokens held against the
+    single-process slot engine on the same seed weights (built here first,
+    then freed): identical up to the first position where the reference's
+    teacher-forced top-two gap is below PAR_MARGIN. An HTTP answer carries
+    no logits; the TP slot engine's steps run `forward`, which (b) holds
+    by logits with its controls. The CLI's tokenizer maps a
+    character to its code point mod 256, one character a token: a
+    response's characters are compared position by position."""
+    import argparse
+    import json as _json
+    import re
+    import socket
+    import threading
+    import urllib.request
+
+    import torch
+
+    from physics_llm_inference_tpu_torch import cli
+    from physics_llm_inference_tpu_torch.serve.api_types import \
+        ChatCompletionRequest
+    from physics_llm_inference_tpu_torch.serve.engine import (EngineConfig,
+                                                              InferenceEngine)
+    from physics_llm_inference_tpu_torch.serve.lifecycle import \
+        GenerationRequest
+    from physics_llm_inference_tpu_torch.serve.tokenizer_pool import \
+        TokenizerPool
+
+    t0 = time.perf_counter()
+    rng = __import__("numpy").random.default_rng(PAR_SEED + 4)
+    bodies = [{"model": "llama7b", "temperature": 0.0,
+               "max_tokens": PAR_REQ_TOKENS,
+               "messages": [{"role": "user", "content": "".join(
+                   chr(int(c)) for c in rng.integers(97, 123, 40 + 8 * j))}]}
+              for j in range(PAR_CHATS)]
+    tok = TokenizerPool(num_workers=1)
+    prompts = [tok.tokenize(ChatCompletionRequest.from_dict(b).prompt_text())
+               for b in bodies]
+    # the reference: the CLI's model and engine on one process
+    args = argparse.Namespace(config="llama7b", hf=None, ckpt=None,
+                              int8=True, device="cuda")
+    params, cfg = cli._load_model(args, dev)
+    eng = InferenceEngine(params, cfg, EngineConfig(num_slots=8,
+                                                    max_seq_len=1024))
+    rids = [eng.submit_request(GenerationRequest(
+        prompt_tokens=p, max_tokens=PAR_REQ_TOKENS, temperature=0.0))
+        for p in prompts]
+    eng.run_until_done(rids)
+    ref = [list(eng.get_result(r).tokens) for r in rids]
+    gaps = forced_gaps(params, cfg, prompts, ref)
+    del eng, params
+    release()
+    ref_s = time.perf_counter() - t0
+
+    free, total = torch.cuda.mem_get_info()
+    log(f"phase 5f (d): the card before the CLI's world: {free / 2**30:.1f} "
+        f"of {total / 2**30:.1f} GiB free, this process holds "
+        f"{torch.cuda.memory_reserved() / 2**30:.1f} GiB reserved")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        master = s.getsockname()[1]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+           "2", "--master-addr", "127.0.0.1", "--master-port", str(master),
+           "-m", f"{PKG}.cli", "serve", "--tp", "2", "--dist-backend",
+           "gloo", "--config", "llama7b", "--int8", "--port", "0",
+           "--slots", "8", "--max-seq-len", "1024"]
+    t1 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE, text=True)
+    lines, port = [], []
+    ready = threading.Event()
+
+    def read():
+        for line in proc.stderr:
+            lines.append(line.rstrip())
+            if "[cli] serving on http://" in line:
+                port.append(int(line.rsplit(":", 1)[1]))
+                ready.set()
+        ready.set()
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    try:
+        if not ready.wait(600) or not port:
+            raise AssertionError("phase 5f (d): the CLI did not serve: "
+                                 + " | ".join(lines[-80:]))
+        up_s = time.perf_counter() - t1
+        answers = []
+        t2 = time.perf_counter()
+        for b in bodies:
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{port[0]}/v1/chat/completions",
+                data=_json.dumps(b).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=300) as r:
+                answers.append(_json.loads(r.read())["choices"][0]
+                               ["message"]["content"])
+        chat_s = time.perf_counter() - t2
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(30)
+        reader.join(10)
+    got = [[ord(c) for c in a] for a in answers]
+    want = [[t % 256 for t in r] for r in ref]
+    # the two ranks share one pipe: their lines can run into each other
+    ranks = sorted(set(re.findall(r"\[cli\] rank (\d): mesh", "\n".join(
+        lines))))
+    if ranks != ["0", "1"]:
+        raise AssertionError(f"phase 5f (d): not two ranks: {ranks}")
+    rule = engine_rule(want, gaps, got, "phase 5f (d) cli serve --tp 2")
+    return (f"{rule}; reference {ref_s:.1f} s, the world up in {up_s:.1f} s, "
+            f"{PAR_CHATS} chats one after another in {chat_s:.1f} s "
+            f"({chat_s / (PAR_CHATS * PAR_REQ_TOKENS) * 1e3:.0f} ms a token "
+            f"at the client, prefill included); total "
+            f"{time.perf_counter() - t0:.1f} s; ranks {ranks}")
+
+
+def parallel_runs(dev) -> dict:
+    """Phase 5f: the parallel layer on torch.distributed at 7B widths, two
+    ranks sharing the one card over gloo (tensors through host memory), a
+    shared-card correctness run that measures no scaling. (a) nccl in a
+    world of one; (b) TP 2 of bench.py's 7B GQA model (prefill 128 and 32
+    greedy tokens, prefill 512) against the single-process per-op run on
+    the same weights, and two controls; (c) the paged engine at TP 2 on 16
+    requests, 8 of them teacher-forced through its steps by logits, and two
+    controls; (d) `cli serve --tp 2` under torch.distributed.run; (e) EP 2
+    at config 5's MoE widths; (f) ring attention at S 8,192; (g) each
+    kernel of (b) and (c) against its plain version on the ranks' inputs.
+    Returns the launches of (b) and (c)'s timed runs, summed over the
+    ranks."""
+    import numpy as np
+
+    import torch
+
+    t0 = time.perf_counter()
+    smi = nvidia_smi()
+    free, total = torch.cuda.mem_get_info()
+    log(f"phase 5f: the card at the start: {free / 2**30:.1f} of "
+        f"{total / 2**30:.1f} GiB free, this process holds "
+        f"{torch.cuda.memory_reserved() / 2**30:.1f} GiB reserved")
+    a = spawn_ranks("nccl_world", 1, "nccl")[0]
+    log(f"phase 5f (a) nccl, world 1 ({smi}): every collective the identity "
+        f"on {a['device']}, transport {a['transport']}, {a['s']:.1f} s")
+
+    r0, r1 = spawn_ranks("tp_world", 2, "gloo")
+    log(f"phase 5f: shared-card correctness run, 2 ranks over gloo on one "
+        f"card ({smi}); no number here is a scaling result")
+    for r in (r0, r1):
+        log(f"phase 5f rank {r['rank']}: transport {r['transport']}; "
+            f"weights digest {r['digest']}; nccl refused: "
+            f"{r['nccl_refusal']}; shards {r['shards']}")
+    if r0["digest"] != r1["digest"]:
+        raise AssertionError("phase 5f (b): the ranks' weights differ")
+    # (b)
+    for r in (r0, r1):
+        log(tp_rule(r0["ref"], r["tp"], f"phase 5f (b) rank {r['rank']} "
+                    f"prompt {PAR_PROMPT}"))
+        log(tp_rule(r0["ref_long"], r["tp_long"], f"phase 5f (b) rank "
+                    f"{r['rank']} prompt {PAR_LONG}"))
+    if not (np.array_equal(r0["tp"]["tokens"], r1["tp"]["tokens"])
+            and np.array_equal(r0["tp"]["first"], r1["tp"]["first"])):
+        raise AssertionError("phase 5f (b): the ranks' outputs differ")
+    ref_first = r0["ref"]["first"]
+    scale = float(np.abs(ref_first).max())
+    wit = float(np.abs(r0["witness"]["first"] - ref_first).max()) / scale
+    moved = {k: int((v["first"].argmax(-1) != ref_first.argmax(-1)).sum())
+             for k, v in (("TP", r0["tp"]), ("witness", r0["witness"]))}
+    log(f"phase 5f (b) the bf16 witness (the single process with ln1[0, 0] "
+        f"one ulp away): first-step logits off by {wit:.4g} of the largest "
+        f"({scale:.4g}); first tokens moved in {moved['witness']} of "
+        f"{PAR_B} rows, TP's in {moved['TP']}; the reference's top-two gaps "
+        f"at its {PAR_TOKENS} positions: median "
+        f"{float(np.median(r0['ref']['gaps'])):.4g}, "
+        f"{float((r0['ref']['gaps'] < PAR_MARGIN).mean()):.0%} below "
+        f"{PAR_MARGIN}")
+    log(rule_breaks(tp_rule, r0["ref"], r0["ctl_wo"], "control: rank 1 "
+                    "skips its wo all-reduce"))
+    log(rule_breaks(tp_rule, r0["ref"], r0["ctl_qkv"], "control: wqkv "
+                    "sharded without the column permutation"))
+    log(f"phase 5f (b) decode ms a step: single process "
+        f"{r0['ref']['ms']:.2f}; TP rank 0 {r0['tp']['ms']:.2f} "
+        f"(collectives {r0['tp']['share']:.0%}), rank 1 "
+        f"{r1['tp']['ms']:.2f} (collectives {r1['tp']['share']:.0%}); "
+        f"references {r0['ref_s']:.1f} s, TP runs {r0['tp_s']:.1f} s, "
+        f"part {r0['b_s']:.1f} s")
+    # (c)
+    ref = r0["ref_paged"]
+    for r in (r0, r1):
+        p = r["paged"]
+        if p["trace"] != ref["trace"]:
+            raise AssertionError(f"phase 5f (c) rank {r['rank']}: "
+                                 f"dispatch_trace differs from the "
+                                 f"reference's")
+        log(engine_rule(ref["tokens"], ref["gaps"], p["tokens"],
+                        f"phase 5f (c) paged TP 2 rank {r['rank']}"))
+    if r0["paged"]["tokens"] != r1["paged"]["tokens"]:
+        raise AssertionError("phase 5f (c): the ranks' tokens differ")
+    forced = r0["ref_forced"]
+    for r in (r0, r1):
+        log(logits_rule(forced, r["tp_forced"], f"phase 5f (c) paged TP 2 "
+                        f"rank {r['rank']}, teacher-forced"))
+    wit = position_rel(forced, r0["witness_paged"])
+    log(f"phase 5f (c) the bf16 witness, teacher-forced (the single process "
+        f"with ln1[0, 0] one ulp away): worst {float(wit.max()):.4g}, median "
+        f"{float(np.median(wit)):.4g} of the largest over the "
+        f"{wit.size} positions")
+    for site in ("prefill", "decode"):
+        for r in (r0, r1):
+            log(rule_breaks(logits_rule, forced[:, :2],
+                            r[f"ctl_paged_{site}"], f"control: rank 1 drops "
+                            f"its paged {site} step's wo sums, seen on rank "
+                            f"{r['rank']}"))
+    ranks = "; ".join(
+        f"rank {r['rank']} {r['paged']['s']:.1f} s (collectives "
+        f"{r['paged']['share']:.0%}), {r['paged']['steps']} decode steps at "
+        f"{r['paged']['step_ms']:.1f} ms (collectives "
+        f"{r['paged']['step_share']:.0%})" for r in (r0, r1))
+    log(f"phase 5f (c) {PAR_REQUESTS} requests of prompt {PAR_REQ_PROMPT}, "
+        f"{PAR_REQ_TOKENS} tokens: reference {ref['s']:.1f} s; TP {ranks}; "
+        f"dispatch_trace identical on both ranks and the reference's; part "
+        f"{r0['c_s']:.1f} s")
+    # (e), (f)
+    for r in (r0, r1):
+        e = r["ep"]
+        if not (e["finite"] and e["rel"] <= 1e-2):
+            raise AssertionError(f"phase 5f (e) rank {r['rank']}: EP off "
+                                 f"moe_layer by {e['rel']:.4g} (> 1e-2)")
+        log(f"phase 5f (e) EP 2 rank {r['rank']}: max abs err {e['err']:.4g} "
+            f"(rel {e['rel']:.4g} <= 1e-2) against moe_layer on its slice; "
+            f"wall: EP {e['ms']:.2f} ms (collectives {e['share']:.0%}), "
+            f"moe_layer on the slice {e['plain_ms']:.2f} ms; part "
+            f"{e['s']:.1f} s")
+    f = r0["ring"]
+    if not (f["finite"] and f["vs_k5"] <= 2e-2 and f["vs_plain"] <= 2e-2
+            and f["k5_launched"] >= 1):
+        raise AssertionError(f"phase 5f (f): ring attention {f}")
+    log(f"phase 5f (f) ring attention S {RING['s']}: max abs err vs K5 "
+        f"{f['vs_k5']:.4g}, vs plain {f['vs_plain']:.4g} (K5 vs plain "
+        f"{f['k5_vs_plain']:.4g}; rule 2e-2); rank 0 {f['ms']:.1f} ms "
+        f"(collectives {f['share']:.0%}), rank 1 {r1['ring']['ms']:.1f} ms "
+        f"(collectives {r1['ring']['share']:.0%}); part {f['s']:.1f} s")
+    # (g)
+    need = ("int8_matmul", "int8_matmul_prefill", "int8_kv_decode_attention",
+            "flash_attention", "int8_paged_decode_attention")
+    for r in (r0, r1):
+        missing = [k for k in need if r["launches"][k] == 0]
+        if missing:
+            raise AssertionError(f"phase 5f (g) rank {r['rank']}: kernels "
+                                 f"not launched: {missing}")
+        log(f"phase 5f (g) rank {r['rank']} launches: (b) "
+            f"{ {k: v for k, v in r['launches_b'].items() if v} }, (c) "
+            f"{ {k: v for k, v in r['launches_c'].items() if v} }; on the "
+            f"path's inputs: {r['probe']}; {r['g_s']:.1f} s")
+    log(cli_chats(dev))
+    log(f"phase 5f (parallel layer): {time.perf_counter() - t0:.1f} s")
+    return {k: r0["launches"][k] + r1["launches"][k] for k in KERNELS}
+
+
+def release() -> None:
+    """Return this process's free cached blocks to the card. A phase's
+    tensors can outlive it in reference cycles (a frame of a caught
+    exception's traceback holds its locals), and one small tensor left in
+    a large cached segment keeps the whole segment: collect them first."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def log_memory(after: str) -> None:
+    """What this process still holds on the card after a phase."""
+    import torch
+
+    log(f"after {after}: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB "
+        f"reserved")
+
+
 def main(argv=()) -> int:
     import torch
 
@@ -4849,10 +5874,11 @@ def main(argv=()) -> int:
     for line in ptxas_report(reports):
         log(line)
 
+    parts = set(argv) & {"--k1", "--attention", "--fused", "--decode",
+                         "--serving", "--frontend", "--copy", "--moe",
+                         "--accuracy", "--parallel"}
     flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
-    if set(argv) & {"--k1", "--attention", "--fused", "--decode",
-                    "--serving", "--frontend", "--copy", "--moe",
-                    "--accuracy"}:
+    if parts:
         # parts alone, for comparing trees: K1 in phase 3; K2, K6 and K7
         # in phase 3; K4 in each mode, K8 and the phase clock; decode at
         # prompt 128 in each K4 mode; the bench_serving7b wave
@@ -4884,6 +5910,8 @@ def main(argv=()) -> int:
             moe_runs(dev)
         if "--accuracy" in argv:
             accuracy_runs(dev, reports)
+        if "--parallel" in argv:
+            parallel_runs(dev)
         log(nvidia_smi())
         return 0
     kernels = check_kernels(dev, flush)
@@ -4899,14 +5927,19 @@ def main(argv=()) -> int:
     paged = serving_runs(dev, params)
     front = frontend_runs(dev, params, step_ms)
     del params
-    torch.cuda.empty_cache()
+    release()
+    log_memory("phase 5c")
     moe = moe_runs(dev)
-    torch.cuda.empty_cache()
+    release()
+    log_memory("phase 5d")
     acc = accuracy_runs(dev, reports)
-    torch.cuda.empty_cache()
+    release()
+    log_memory("phase 5e")
+    par = parallel_runs(dev)
+    release()
     micro = micro_path(dev)
-    counts = {k: dense[k] + paged[k] + front[k] + moe[k] + acc[k] + micro[k]
-              for k in KERNELS}
+    counts = {k: dense[k] + paged[k] + front[k] + moe[k] + acc[k] + par[k]
+              + micro[k] for k in KERNELS}
 
     rows = []
     for name, row in kernels.items():

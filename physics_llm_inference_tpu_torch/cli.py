@@ -10,8 +10,21 @@ Configs are named presets (toy/small/1b/llama7b/qwen3) initialized from seed
 (models/loader.py); --int8 quantizes random or --hf weights
 (models/quant.quantize_params_int8). Every command runs on the card;
 `--device cpu` is the only way onto the CPU, and without CUDA and that flag
-the command exits with an error. Not ported: --tp/--dp above 1 (parallel
-serving, ROADMAP Queue A item 7) raise.
+the command exits with an error.
+
+`serve --tp N --dp M` runs one process a rank, launched as
+
+  python -m torch.distributed.run --nproc-per-node N*M \
+      -m physics_llm_inference_tpu_torch.cli serve --tp N --dp M ...
+
+over a (data M, model N) mesh (parallel/mesh.py) on `--dist-backend`
+(nccl on CUDA by default; gloo shares one card between ranks, its tensors
+through host memory). Every rank builds the model and its engine over its
+shard; rank 0 binds the HTTP port, and every rank steps its engine through
+parallel/multihost.DPServingGroup's admission broadcast, which keeps the
+ranks in lockstep. `--check` builds everything on every rank, then exits.
+Without a launched world, --tp/--dp above 1 exit with the launcher
+command.
 """
 from __future__ import annotations
 
@@ -54,13 +67,13 @@ def _device(args) -> torch.device:
     return torch.device(args.device)
 
 
-def _load_model(args):
+def _load_model(args, dev=None):
     from .models.loader import load_llama, load_params
     from .models.quant import quantize_params_int8
     from .models.transformer import init_params
 
     cfg = _named_config(args.config)
-    dev = _device(args)
+    dev = dev or _device(args)
     if args.hf:
         params = load_llama(args.hf, cfg, int8=args.int8, device=dev)
     elif args.ckpt:
@@ -85,15 +98,38 @@ def _add_model_args(p):
                    help="torch device (default cuda; cpu to run on the CPU)")
 
 
-def cmd_serve(args):
-    from .serve import EngineConfig, InferenceEngine
-    from .serve.http_server import InferenceServer
+def _serving_mesh(args):
+    """The (data, model) mesh of a launched world for --tp/--dp."""
+    import os
 
-    if args.tp > 1 or args.dp > 1:
-        raise NotImplementedError("--tp/--dp above 1 need parallel serving, "
-                                  "which is not ported yet (ROADMAP Queue A "
-                                  "item 7)")
-    params, cfg = _load_model(args)
+    from .parallel.mesh import default_backend, make_mesh, rank_device
+    from .parallel.multihost import initialize_multihost
+
+    n = args.tp * args.dp
+    if int(os.environ.get("WORLD_SIZE", 1)) != n:
+        raise SystemExit(
+            f"--tp {args.tp} --dp {args.dp} needs a world of {n} ranks: "
+            f"launch with python -m torch.distributed.run --nproc-per-node "
+            f"{n} -m physics_llm_inference_tpu_torch.cli serve --tp "
+            f"{args.tp} --dp {args.dp} ...")
+    if args.device != "cpu" and not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: pass --device cpu to run on the "
+                         "CPU")
+    dev = rank_device(cpu=args.device == "cpu")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    backend = args.dist_backend or default_backend(dev)
+    initialize_multihost(backend=backend)
+    mesh = make_mesh(data=args.dp, model=args.tp, backend=backend,
+                     device=dev)
+    print(f"[cli] rank {mesh.rank}: mesh {mesh.shape} on {dev} "
+          f"({mesh.transport})", file=sys.stderr)
+    return mesh
+
+
+def _build_engine(args, params, cfg, mesh):
+    from .serve import EngineConfig, InferenceEngine
+
     if args.paged:
         from .serve.paged_engine import (PagedEngineConfig,
                                          PagedInferenceEngine)
@@ -110,24 +146,49 @@ def cmd_serve(args):
                 num_blocks=args.slots * ((args.max_seq_len + 15) // 16),
                 block_size=16,
                 max_blocks_per_request=(args.max_seq_len + 15) // 16)
-        engine = PagedInferenceEngine(params, cfg, pc)
+        return PagedInferenceEngine(params, cfg, pc, mesh=mesh)
+    return InferenceEngine(params, cfg, EngineConfig(
+        num_slots=args.slots, max_seq_len=args.max_seq_len), mesh=mesh)
+
+
+def cmd_serve(args):
+    from .serve.http_server import InferenceServer
+
+    mesh = _serving_mesh(args) if args.tp * args.dp > 1 else None
+    if mesh is None:
+        params, cfg = _load_model(args)
+        engine = _build_engine(args, params, cfg, None)
+        del params
     else:
-        engine = InferenceEngine(params, cfg, EngineConfig(
-            num_slots=args.slots, max_seq_len=args.max_seq_len))
+        from .parallel.multihost import DPServingGroup
+
+        # every rank builds the full model, keeps its shard, frees the rest
+        params, cfg = _load_model(args, mesh.device)
+        engine = DPServingGroup(_build_engine(args, params, cfg, mesh))
+        del params
+        if not engine.leader:
+            # steps in lockstep with rank 0 until its shutdown lands
+            engine.run_worker_loop()
+            print(f"[cli] rank {mesh.rank} done", file=sys.stderr)
+            return
     server = InferenceServer(engine, host=args.host, port=args.port,
                              model_name=args.config)
     print(f"[cli] serving on http://{args.host}:{server.port}",
-          file=sys.stderr)
+          file=sys.stderr, flush=True)
     if args.check:
         # validation mode: engine and server are built (port bound), but no
         # request loop starts
         server.close()
+        if mesh is not None:
+            engine.shutdown()
         print("[cli] check ok", file=sys.stderr)
         return
     try:
         server.serve_forever()
     except KeyboardInterrupt:
         server.shutdown()
+        if mesh is not None:
+            engine.shutdown()
 
 
 def cmd_generate(args):
@@ -176,9 +237,13 @@ def main(argv=None):
     s.add_argument("--paged", action="store_true",
                    help="paged-KV engine with radix prefix cache")
     s.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel ways (not ported: must be 1)")
+                   help="tensor-parallel ways (a launched world of tp*dp "
+                        "ranks)")
     s.add_argument("--dp", type=int, default=1,
-                   help="data-parallel ways (not ported: must be 1)")
+                   help="data-parallel ways (the slot engine only)")
+    s.add_argument("--dist-backend", choices=("nccl", "gloo"),
+                   help="the mesh's backend (default nccl on CUDA, gloo on "
+                        "the CPU)")
     s.add_argument("--check", action="store_true",
                    help="construct engine+server, then exit — config "
                         "validation")

@@ -7,7 +7,7 @@ imported, and so are `MoEConfig` and the named configurations.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 
@@ -43,6 +43,9 @@ class ModelConfig:
     num_experts: int = 0
     num_experts_per_tok: int = 2
     expert_capacity_factor: float = 1.25
+    # Tensor parallelism: a per-rank TPConfig (parallel/tp.py
+    # tp_local_config) names the mesh axis it shards on; head_dim_override
+    # keeps the true head size when num_heads is the local count
     tp_axis: str | None = None
     tp_data_axis: str | None = None
     head_dim_override: int | None = None
@@ -69,6 +72,16 @@ class ModelConfig:
         norms = 2 * d
         per_layer = attn + mlp + norms
         return v * d + self.num_layers * per_layer + d + d * v
+
+
+@dataclass(frozen=True)
+class TPConfig(ModelConfig):
+    """The per-rank ModelConfig of tensor parallelism (parallel/tp.py
+    tp_local_config): local head and FFN counts, `tp_axis`, and the mesh
+    whose group reduces over that axis. ModelConfig itself stays the JAX
+    package's field for field."""
+
+    tp_mesh: object = field(default=None, compare=False, repr=False)
 
 
 @dataclass(frozen=True)

@@ -29,7 +29,9 @@ What differs from the JAX package, on purpose:
   `valid` mask, as in the JAX package: a padded row of a prefill chunk and
   an inactive decode row route like real ones. Its decode never passes
   the fused gate (K8 has no MoE mode), so it runs K6 or K7.
-- Tensor parallelism raises NotImplementedError, as `forward` does.
+- Under tensor parallelism (a local config from parallel/tp.py) the wo and
+  down partial sums are all-reduced, as in `forward`; the pools hold this
+  rank's KV heads, and the fused gate is shut (per-op K1, K6 or K7).
 """
 from __future__ import annotations
 
@@ -46,14 +48,8 @@ from ..ops.rope import apply_rope, rope_frequencies
 from ..ops.sampling import sample_token
 from .config import ModelConfig
 from .quant import QuantizedTensor
-from .transformer import (QuantKV, _ffn, _linear, embed_lookup, layer_view,
-                          lm_logits)
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.tp_axis is not None:
-        raise NotImplementedError("tensor parallelism is not ported yet "
-                                  "(ROADMAP Queue A)")
+from .transformer import (QuantKV, _ffn, _linear, _tp_psum, embed_lookup,
+                          layer_view, lm_logits)
 
 
 def _rope_tables(cfg: ModelConfig, device):
@@ -97,7 +93,6 @@ def _paged_decode_step_impl(params: dict, tokens: torch.Tensor, k_pools,
     or the merged QuantKV pools with v_pools=None; tables: (B, MB) int32;
     lengths: (B,) tokens already in cache (the new token lands at position
     `lengths`). Returns (logits (B, V) f32, k_pools, v_pools)."""
-    _check_supported(cfg)
     b = tokens.shape[0]
     quantized = isinstance(k_pools, QuantKV)
     bs = k_pools.q.shape[3] if quantized else k_pools.shape[2]
@@ -144,7 +139,8 @@ def _paged_decode_step_impl(params: dict, tokens: torch.Tensor, k_pools,
             v_pools[l, block_ids, offsets] = v[:, 0].to(v_pools.dtype)
             attn = paged_decode_attention(q[:, 0], k_pools, v_pools, tables,
                                           ctx, layer=l)
-        x = x + _linear(attn.reshape(b, 1, hq * hd), bp["wo"])
+        x = x + _tp_psum(_linear(attn.reshape(b, 1, hq * hd), bp["wo"]),
+                         cfg)
         x = x + _ffn(bp, rms_norm(x, bp["ln2"], cfg.norm_eps), cfg)
     logits = lm_logits(x, params, cfg)
     return logits[:, 0], k_pools, v_pools
@@ -216,7 +212,6 @@ def paged_prefill_chunk_impl(params: dict, ids: torch.Tensor, k_pools,
     attention at per-request q_offset.
     A 1-D table with scalar start/nvalid is one request. Returns
     (last-valid-position logits (R, V) f32, k_pools, v_pools)."""
-    _check_supported(cfg)
     dev = ids.device
     if table.dim() == 1:
         table = table[None]
@@ -269,7 +264,7 @@ def paged_prefill_chunk_impl(params: dict, ids: torch.Tensor, k_pools,
                                v_seq.transpose(1, 2), q_offset=start,
                                causal=True)
         attn = attn.transpose(1, 2).reshape(r, c, hq * hd)
-        x = x + _linear(attn, bp["wo"])
+        x = x + _tp_psum(_linear(attn, bp["wo"]), cfg)
         x = x + _ffn(bp, rms_norm(x, bp["ln2"], cfg.norm_eps), cfg)
     last = x[torch.arange(r, device=dev), (nvalid - 1).clamp_min(0)]
     return lm_logits(last, params, cfg), k_pools, v_pools

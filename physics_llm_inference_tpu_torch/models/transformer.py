@@ -29,6 +29,13 @@ What differs from the JAX package, on purpose:
   An MoE config never passes the fused gate (K4 has no MoE mode in the
   reference): its decode is per-op, its FFN `models/moe.moe_forward`
   (moe_layer's output, without its aux).
+- Under tensor parallelism (a TPConfig from parallel/tp.tp_local_config,
+  with `cfg.tp_axis` and `cfg.tp_mesh`) each rank runs this code on its
+  shard: `_tp_psum` all-reduces the wo and down partial sums, `embed_lookup`
+  assembles the vocab-row-sharded embedding and `lm_logits` all-gathers
+  the vocab shards. The fused decode kernel and the fused head stay shut,
+  as in the JAX package: a kernel that runs every layer cannot reduce
+  between them, so TP decode is per-op (K1, K2).
 """
 from __future__ import annotations
 
@@ -198,8 +205,9 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
     hd = cfg.head_dim
 
     def w(shape, fan_in):
-        return (torch.randn(shape, generator=generator, device=device)
-                * fan_in ** -0.5).to(dtype)
+        # scaled in place: one f32 temporary of the leaf at a time
+        return torch.randn(shape, generator=generator,
+                           device=device).mul_(fan_in ** -0.5).to(dtype)
 
     qkv_out = (cfg.num_heads + 2 * cfg.num_kv_heads) * hd
     blocks = {
@@ -233,15 +241,39 @@ def layer_view(blocks: dict, layer: int) -> dict:
     return out
 
 
+def _tp_psum(y: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """A row-parallel partial product summed over the TP axis; y itself
+    on a single device."""
+    if cfg.tp_axis is None:
+        return y
+    return cfg.tp_mesh.all_reduce(y, cfg.tp_axis)
+
+
 def embed_lookup(params: dict, input_ids: torch.Tensor,
                  cfg: ModelConfig) -> torch.Tensor:
-    return params["embed"][input_ids].to(torch_dtype(cfg))
+    """Token embedding in the compute dtype. Under TP the embedding is
+    vocab-row-sharded: each rank looks up the ids of its row range, 0
+    elsewhere, and one all-reduce assembles the rows."""
+    if cfg.tp_axis is None:
+        return params["embed"][input_ids].to(torch_dtype(cfg))
+    vloc = params["embed"].shape[0]
+    loc = input_ids - cfg.tp_mesh.index(cfg.tp_axis) * vloc
+    ok = (loc >= 0) & (loc < vloc)
+    emb = params["embed"][loc.clamp(0, vloc - 1)]
+    emb = torch.where(ok[..., None], emb, torch.zeros_like(emb))
+    return _tp_psum(emb, cfg).to(torch_dtype(cfg))
 
 
 def lm_logits(x: torch.Tensor, params: dict, cfg: ModelConfig) -> torch.Tensor:
-    """Final norm + lm_head, f32 logits."""
+    """Final norm + lm_head, f32 logits. Under TP the head is
+    vocab-column-sharded and the shards are all-gathered, so every rank
+    samples from the same full logits."""
     x = rms_norm(x, params["norm"], cfg.norm_eps)
-    return _linear(x, params["lm_head"]).float()
+    logits = _linear(x, params["lm_head"]).float()
+    if cfg.tp_axis is not None:
+        logits = cfg.tp_mesh.all_gather(logits, cfg.tp_axis,
+                                        dim=logits.dim() - 1)
+    return logits
 
 
 def _ffn(bp: dict, h: torch.Tensor, cfg: ModelConfig,
@@ -257,7 +289,7 @@ def _ffn(bp: dict, h: torch.Tensor, cfg: ModelConfig,
                                 "w3": bp["moe_w3"], "w2": bp["moe_w2"]},
                            moe, valid=valid)
     gate, up = _linear(h, bp["w_gate_up"]).chunk(2, dim=-1)
-    return _linear(F.silu(gate) * up, bp["w_down"])
+    return _tp_psum(_linear(F.silu(gate) * up, bp["w_down"]), cfg)
 
 
 def _attend(q, k, v, q_slots, k_slots, valid_from=None):
@@ -340,7 +372,8 @@ def block_forward(bp: dict, x: torch.Tensor, cfg: ModelConfig,
                 q[:, 0].contiguous(), k_cache.q, k_cache.s, v_cache.q,
                 v_cache.s, q_slot=slots[:, 0], valid_from=valid_from,
                 layer=layer)
-            x = x + _linear(attn.reshape(b, 1, hq * hd), bp["wo"])
+            x = x + _tp_psum(_linear(attn.reshape(b, 1, hq * hd),
+                                     bp["wo"]), cfg)
             x = x + _ffn(bp, rms_norm(x, bp["ln2"], cfg.norm_eps), cfg,
                          valid=ffn_valid)
             return x, kv
@@ -374,7 +407,7 @@ def block_forward(bp: dict, x: torch.Tensor, cfg: ModelConfig,
     else:
         attn = _attend(q.transpose(1, 2), kq, vq, slots, k_slots, valid_from)
     attn = attn.transpose(1, 2).reshape(b, s, hq * hd)
-    x = x + _linear(attn, bp["wo"])
+    x = x + _tp_psum(_linear(attn, bp["wo"]), cfg)
     x = x + _ffn(bp, rms_norm(x, bp["ln2"], cfg.norm_eps), cfg,
                  valid=ffn_valid)
     return x, kv
@@ -446,9 +479,6 @@ def forward(params: dict, input_ids: torch.Tensor, cfg: ModelConfig,
     head kernel where the JAX gate takes it. `k_limit` statically bounds the
     attended cache slots; `fresh_kv` selects the one-shot prefill branch.
     Returns (logits or ids, kv)."""
-    if cfg.tp_axis is not None:
-        raise NotImplementedError("tensor parallelism is not ported yet "
-                                  "(ROADMAP Queue A)")
     b, s = input_ids.shape
     x = embed_lookup(params, input_ids, cfg)
     dev = x.device
@@ -497,6 +527,7 @@ def forward(params: dict, input_ids: torch.Tensor, cfg: ModelConfig,
     if greedy_head:
         lm = params["lm_head"]
         if (isinstance(lm, QuantizedTensor) and lm.q.dim() == 2
+                and cfg.tp_axis is None
                 and lmhead_greedy_ok(x.shape[0], lm.q.shape[0],
                                      lm.q.shape[1], x.element_size())):
             tok = lmhead_greedy(x[:, -1, :].contiguous(), params["norm"],

@@ -147,18 +147,19 @@ class StagedInputs:
 
 
 def staged_step(fn: Callable, device, pool=None, generators=(),
-                **buffers: torch.Tensor):
+                capture: bool = True, **buffers: torch.Tensor):
     """A serving engine's dispatch step over static input buffers: returns
     (inputs, step), where `inputs` is the StagedInputs over `buffers` and
     `step()` runs `fn(**buffers)`: captured into `pool` on CUDA (the capture
     warms `fn` up on the buffers' initial values, so those must make its
-    writes harmless), `fn` itself, eagerly, on the CPU."""
+    writes harmless), `fn` itself, eagerly, on the CPU or with
+    `capture=False` (a step that runs collectives of a mesh)."""
     device = torch.device(device)
     inputs = StagedInputs(device, **buffers)
 
     def run():
         return fn(**inputs.buffers)
 
-    if device.type != "cuda":
+    if device.type != "cuda" or not capture:
         return inputs, run
     return inputs, CapturedStep(run, device, pool, generators)

@@ -36,13 +36,27 @@ request stream gives the same `dispatch_trace`. What differs:
   `generate_stream`, `wait_result`) is serve/lifecycle.py's, shared with
   the paged engine: a listener is registered in the critical section that
   makes the request schedulable, so a stream misses no token.
-- `mesh` (tensor-parallel serving) raises: ROADMAP Queue A item 7.
+- `mesh` (parallel/mesh.py, axes data x model): one engine a rank, each
+  rank's the same host logic (parallel/multihost.DPServingGroup keeps the
+  ranks' request streams identical). The params are this rank's Megatron
+  shard (parallel/tp.tp_prepare_params) and the steps run on the local
+  config, whose row-parallel sums and logits gather go over the `model`
+  axis. The pool holds this rank's KV heads of its data rank's
+  num_slots / data slots: a prefill chunk runs on the ranks of the slot's
+  data rank alone, which broadcast its first token over `data`; a decode
+  step runs each data rank's slots, and the sampled tokens are gathered
+  over `data`, so every rank's scheduler, slots and results stay those of
+  the single-process engine. Under a mesh the steps run eagerly on any
+  backend: a gloo collective is a host call, which a CUDA graph cannot
+  capture (capture under NCCL is open work). Speculative decoding under a
+  mesh raises, as the JAX engine asserts.
 On CUDA with INT8 weights and an INT8 pool, prefill linears run K1 (and K5
 from 512 slots of context), a decode step that passes the fused gate runs
 K4, the others K1 and K2.
 """
 from __future__ import annotations
 
+import sys
 import time
 from dataclasses import dataclass
 
@@ -152,18 +166,23 @@ def _copy_cache(dst, src) -> None:
 class InferenceEngine(RequestLifecycle):
     def __init__(self, params, model_cfg: ModelConfig,
                  config: EngineConfig | None = None, mesh=None):
-        """params: the port's parameter dict; the pools are made on the
-        device of params["embed"]. mesh: TP serving is not ported."""
-        if mesh is not None:
-            raise NotImplementedError("tensor-parallel slot serving is not "
-                                      "ported yet (ROADMAP Queue A item 7)")
+        """params: the port's parameter dict (the full model, also under a
+        mesh); the pools are made on the device of the params, or of the
+        mesh. mesh: a (data, model) Mesh of more than one rank serves
+        sharded (the module's docstring); its steps run eagerly."""
+        self.mesh = mesh if (mesh is not None and mesh.world > 1) else None
         self.cfg = model_cfg
         self.config = c = config or EngineConfig()
+        self._run_cfg = model_cfg   # the config the steps run on
+        self._dp, self._data_rank = 1, 0
+        if self.mesh is not None:
+            params = self._shard(params, model_cfg)
         self.params = params
         self.device = dev = params["embed"].device
+        self._slots_local = c.num_slots // self._dp
 
         kv_dtype = getattr(torch, c.kv_dtype or model_cfg.dtype)
-        nl, hkv, hd = (model_cfg.num_layers, model_cfg.num_kv_heads,
+        nl, hkv, hd = (model_cfg.num_layers, self._run_cfg.num_kv_heads,
                        model_cfg.head_dim)
 
         def pool(slots):
@@ -178,7 +197,7 @@ class InferenceEngine(RequestLifecycle):
             return torch.zeros((nl, slots, c.max_seq_len, hkv, hd),
                                dtype=kv_dtype, device=dev)
 
-        self._k, self._v = pool(c.num_slots), pool(c.num_slots)
+        self._k, self._v = pool(self._slots_local), pool(self._slots_local)
         # the slot buffers every prefill chunk runs on
         self._slot_k, self._slot_v = pool(1), pool(1)
 
@@ -197,7 +216,9 @@ class InferenceEngine(RequestLifecycle):
 
         self._init_lifecycle()
         gen_dev = dev if dev.type == "cuda" else "cpu"
-        self._rng = torch.Generator(device=gen_dev).manual_seed(0)
+        # one stream a data rank (the JAX engine folds the data index in)
+        self._rng = torch.Generator(device=gen_dev).manual_seed(
+            self._data_rank)
         # aggregate stats (ref ch10/engine.py:200-211)
         self._start = time.monotonic()
 
@@ -216,6 +237,29 @@ class InferenceEngine(RequestLifecycle):
             self._spec_accept_hist: list[float] = []
         # (kind, shape-params, slots) of every dispatch when a list
         self.dispatch_trace: list | None = None
+
+    def _shard(self, params, cfg: ModelConfig) -> dict:
+        """Check the mesh, set the local config, and return this rank's
+        shard of the params."""
+        from ..parallel.tp import tp_local_config, tp_prepare_params
+
+        c, shape = self.config, self.mesh.shape
+        if set(shape) != {"data", "model"}:
+            raise ValueError(f"the slot engine serves on a (data, model) "
+                             f"mesh, not {shape}")
+        self._dp, tp = shape["data"], shape["model"]
+        if c.num_slots % self._dp:
+            raise ValueError(f"num_slots {c.num_slots} must divide the data "
+                             f"axis {self._dp}")
+        if c.speculative_k > 0:
+            raise ValueError("speculative decoding is single-device "
+                             "(host-side drafting)")
+        self._data_rank = self.mesh.index("data")
+        if tp > 1:
+            self._run_cfg = tp_local_config(cfg, tp, mesh=self.mesh)
+        print(f"[engine] mesh {shape} ({self.mesh.transport}): dispatch "
+              f"steps run eagerly, no CUDA graph capture", file=sys.stderr)
+        return tp_prepare_params(params, cfg, self.mesh)
 
     def _pick_horizon(self) -> int:
         """Largest power-of-two horizon that fits every active slot's
@@ -242,33 +286,48 @@ class InferenceEngine(RequestLifecycle):
         buffers start at start 0: a capture's warm-up writes only the
         slot buffers, which every chunk refills first."""
         def fn(ids, start, nvalid, temp, top_k, top_p):
-            return prefill_chunk(self.params, self.cfg, ids, self._slot_k,
-                                 self._slot_v, start, nvalid, self._rng,
-                                 temp, top_k, top_p)
+            return prefill_chunk(self.params, self._run_cfg, ids,
+                                 self._slot_k, self._slot_v, start, nvalid,
+                                 self._rng, temp, top_k, top_p)
 
         buf = self._buf
         return staged_step(fn, self.device, self._graph_pool, (self._rng,),
-                           ids=buf(1, cb), start=buf(), nvalid=buf(fill=1),
+                           capture=self.mesh is None, ids=buf(1, cb),
+                           start=buf(), nvalid=buf(fill=1),
                            temp=buf(dtype=torch.float32), top_k=buf(1),
                            top_p=buf(fill=1, dtype=torch.float32))
 
     def _prefill(self, slot: int, ids, pos: int, n: int,
-                 sampling: SamplingParams) -> torch.Tensor:
+                 sampling: SamplingParams) -> torch.Tensor | None:
         """One chunk into `slot`: the slot copied into the slot buffers, the
         bucket's step, the buffers copied back. Returns the sampled token,
         (1,) on the device (the step's output, overwritten by its next
-        run)."""
+        run); None on a rank whose data rank does not hold the slot."""
+        # every rank looks the step up, so the StepCache stats agree
         inputs, step = self._prefill_cache.get(ids.shape[1])
-        _copy_cache(self._slot_k, _slot_of_cache(self._k, slot))
-        _copy_cache(self._slot_v, _slot_of_cache(self._v, slot))
+        owner, local = divmod(slot, self._slots_local)
+        if owner != self._data_rank:
+            return None
+        _copy_cache(self._slot_k, _slot_of_cache(self._k, local))
+        _copy_cache(self._slot_v, _slot_of_cache(self._v, local))
         inputs.load(ids=ids, start=pos, nvalid=n,
                     temp=sampling.temperature,
                     top_k=np.full(1, sampling.top_k, np.int32),
                     top_p=sampling.top_p)
         tok = step()
-        _copy_cache(_slot_of_cache(self._k, slot), self._slot_k)
-        _copy_cache(_slot_of_cache(self._v, slot), self._slot_v)
+        _copy_cache(_slot_of_cache(self._k, local), self._slot_k)
+        _copy_cache(_slot_of_cache(self._v, local), self._slot_v)
         return tok
+
+    def _first_token(self, slot: int, tok) -> int:
+        """The token a request's last prefill chunk sampled, on every rank:
+        broadcast over `data` from the slot's data rank."""
+        if self._dp > 1:
+            if tok is None:
+                tok = torch.zeros(1, dtype=torch.int32, device=self.device)
+            tok = self.mesh.broadcast(tok, "data",
+                                      src=slot // self._slots_local)
+        return int(tok[0])
 
     def _decode_for(self, horizon: int, filtered: bool):
         """The multi-step decode of this horizon: (inputs, step). Its
@@ -279,26 +338,35 @@ class InferenceEngine(RequestLifecycle):
             c, buf = self.config, self._buf
 
             def fn(tokens, lengths, temps, top_ks, top_ps):
-                return decode_horizon(self.params, self.cfg, self._k,
+                return decode_horizon(self.params, self._run_cfg, self._k,
                                       self._v, tokens, lengths, self._rng,
                                       temps, top_ks, top_ps, horizon,
                                       filtered)
 
+            n = self._slots_local
             self._decode_fns[key] = staged_step(
                 fn, self.device, self._graph_pool, (self._rng,),
-                tokens=buf(c.num_slots),
-                lengths=buf(c.num_slots, fill=c.max_seq_len - 1),
-                temps=buf(c.num_slots, fill=1, dtype=torch.float32),
-                top_ks=buf(c.num_slots),
-                top_ps=buf(c.num_slots, fill=1, dtype=torch.float32))
+                capture=self.mesh is None, tokens=buf(n),
+                lengths=buf(n, fill=c.max_seq_len - 1),
+                temps=buf(n, fill=1, dtype=torch.float32),
+                top_ks=buf(n), top_ps=buf(n, fill=1, dtype=torch.float32))
         return self._decode_fns[key]
 
     def _decode(self, horizon: int, filtered: bool, tokens, lens, temps,
                 top_ks, top_ps) -> np.ndarray:
+        """The horizon over every slot: this data rank's rows decoded
+        here, the others' gathered over `data`. Returns (num_slots,
+        horizon) tokens."""
         inputs, step = self._decode_for(horizon, filtered)
-        inputs.load(tokens=tokens, lengths=lens, temps=temps, top_ks=top_ks,
-                    top_ps=top_ps)
-        return step().cpu().numpy()
+        rows = slice(self._data_rank * self._slots_local,
+                     (self._data_rank + 1) * self._slots_local)
+        inputs.load(tokens=tokens[rows], lengths=lens[rows],
+                    temps=temps[rows], top_ks=top_ks[rows],
+                    top_ps=top_ps[rows])
+        toks = step()
+        if self._dp > 1:
+            toks = self.mesh.all_gather(toks, "data", dim=0)
+        return toks.cpu().numpy()
 
     def _spec_for(self, w: int):
         """The verify window of width w = speculative_k + 1: (inputs,
@@ -508,7 +576,8 @@ class InferenceEngine(RequestLifecycle):
                 continue
             self._lengths[slot] = p
             self._active[slot] = True
-            tok_i = int(tok[0])  # sampled from the final chunk's last token
+            # sampled from the final chunk's last token
+            tok_i = self._first_token(slot, tok)
             r.first_token_time = time.monotonic()
             r.output_tokens.append(tok_i)
             emitted.setdefault(r.request_id, []).append(tok_i)

@@ -30,19 +30,27 @@ from .tokenizer_pool import TokenizerPool
 
 class ServingLoop:
     """Background thread stepping the engine (slot or paged) while work
-    exists."""
+    exists. A lockstep engine (parallel/multihost.DPServingGroup, whose
+    `lockstep` is True) is also stepped when idle, every 50 ms: each of its
+    steps is the broadcast the other ranks wait on."""
 
     def __init__(self, engine):
         self.engine = engine
+        self._lockstep = getattr(engine, "lockstep", False)
         self._wake = threading.Event()
         self._stop = False
         self._thread = threading.Thread(target=self._run, daemon=True)
         self._thread.start()
 
+    def _busy(self) -> bool:
+        if self._lockstep:
+            return self.engine.has_work()
+        sched = self.engine.scheduler
+        return bool(sched.waiting or sched.running)
+
     def _run(self):
         while not self._stop:
-            sched = self.engine.scheduler
-            if sched.waiting or sched.running:
+            if self._busy():
                 self.engine.step()
                 # hand the engine lock over: step() releases it and takes
                 # it again at once, so a handler thread blocked in
@@ -50,6 +58,8 @@ class ServingLoop:
                 # engine to go idle; a yield lets it in between two steps
                 time.sleep(0)
             else:
+                if self._lockstep:
+                    self.engine.step()
                 self._wake.wait(timeout=0.05)
                 self._wake.clear()
 

@@ -29,8 +29,17 @@ the default INT8 geometry decodes through K8 (the fused paged kernel); the
 per-op routes run K6 (INT8 pools) or K7 (bf16 pools). The request
 lifecycle (intake with stream listeners, abort, `generate_stream`,
 `wait_result`) is serve/lifecycle.py's, shared with the slot engine; the
-HTTP server (serve/http_server.py) streams through it. Not ported yet: TP serving (`mesh` raises; ROADMAP
-Queue A item 7).
+HTTP server (serve/http_server.py) streams through it.
+
+`mesh` (parallel/mesh.py) serves tensor-parallel on its `model` axis, one
+engine a rank: the params are this rank's Megatron shard, the pools hold
+its KV heads, and every prefill chunk and decode horizon runs on the local
+config. The block pool is one resource addressed by block tables, so the
+engine shards on `model` only (its data axis must be 1, as the JAX engine
+asserts); data parallelism is engine replicas (parallel/multihost.py).
+Under a mesh the steps run eagerly on any backend (a gloo collective is a
+host call, which a CUDA graph cannot capture) and the fused gate is shut:
+decode is per-op, K1 with K6 or K7.
 """
 from __future__ import annotations
 
@@ -93,18 +102,34 @@ class PagedEngineConfig:
 class PagedInferenceEngine(RequestLifecycle):
     def __init__(self, params, model_cfg: ModelConfig,
                  config: PagedEngineConfig | None = None, mesh=None):
-        """params: the port's parameter dict; the pools are made on the
-        device of params["embed"]. mesh: TP serving is not ported."""
-        if mesh is not None:
-            raise NotImplementedError("tensor-parallel paged serving is not "
-                                      "ported yet (ROADMAP Queue A)")
+        """params: the port's parameter dict (the full model, also under a
+        mesh); the pools are made on the device of the params, or of the
+        mesh. mesh: a Mesh whose `model` axis has more than one rank serves
+        tensor-parallel (the module's docstring); its steps run
+        eagerly."""
         self.cfg = model_cfg
         self.config = c = config or PagedEngineConfig()
+        self.mesh = mesh if (mesh is not None
+                             and mesh.shape.get("model", 1) > 1) else None
+        self._run_cfg = model_cfg   # the config the steps run on
+        if self.mesh is not None:
+            from ..parallel.tp import tp_local_config, tp_prepare_params
+
+            if self.mesh.shape.get("data", 1) != 1:
+                raise ValueError("the paged engine shards on 'model' only "
+                                 "(data parallelism is engine replicas)")
+            self._run_cfg = tp_local_config(model_cfg,
+                                            self.mesh.size("model"),
+                                            data_axis=None, mesh=self.mesh)
+            params = tp_prepare_params(params, model_cfg, self.mesh)
+            print(f"[paged-engine] mesh {self.mesh.shape} "
+                  f"({self.mesh.transport}): dispatch steps run eagerly, "
+                  f"no CUDA graph capture; per-op decode", file=sys.stderr)
         self.params = params
         self.device = dev = params["embed"].device
 
         kv_dtype = getattr(torch, c.kv_dtype or model_cfg.dtype)
-        nl, hkv, hd = (model_cfg.num_layers, model_cfg.num_kv_heads,
+        nl, hkv, hd = (model_cfg.num_layers, self._run_cfg.num_kv_heads,
                        model_cfg.head_dim)
         if kv_dtype == torch.int8:
             # merged pools: each block's K page (axis-2 index 0) and V page
@@ -125,7 +150,8 @@ class PagedInferenceEngine(RequestLifecycle):
 
         # the reference's line about the fused gate, where the gate is read:
         # on the accelerator
-        if self._kv_quantized and dev.type == "cuda":
+        if (self._kv_quantized and dev.type == "cuda" and self.mesh is None
+                and model_cfg.fused_decode):
             if fused_paged_decode_ok(model_cfg, c.max_batch,
                                      c.max_blocks_per_request, c.block_size,
                                      NB=c.num_blocks + 1):
@@ -248,7 +274,7 @@ class PagedInferenceEngine(RequestLifecycle):
         buffers' initial values must make `fn`'s writes harmless (tables on
         the trash block), since the capture's warm-up runs it on them."""
         return staged_step(fn, self.device, self._graph_pool, generators,
-                           **buffers)
+                           capture=self.mesh is None, **buffers)
 
     def _buf(self, *shape, fill=0, dtype=torch.int32) -> torch.Tensor:
         return torch.full(shape, fill, dtype=dtype, device=self.device)
@@ -262,7 +288,7 @@ class PagedInferenceEngine(RequestLifecycle):
         def fn(ids, tables, starts, nval):
             logits, self._k, self._v = paged_prefill_chunk_impl(
                 self.params, ids, self._k, self._v, tables, starts, nval,
-                self.cfg)
+                self._run_cfg)
             return logits
 
         def prefill(ids, tables, starts, nval):
@@ -291,7 +317,7 @@ class PagedInferenceEngine(RequestLifecycle):
             def fn(tokens, tables, lengths, temps, top_ks, top_ps):
                 toks, self._k, self._v = paged_decode_scan_impl(
                     self.params, tokens, self._k, self._v, tables, lengths,
-                    self._rng, temps, top_ps, self.cfg, horizon=horizon,
+                    self._rng, temps, top_ps, self._run_cfg, horizon=horizon,
                     top_ks=top_ks, filtered=filtered)
                 return toks
 

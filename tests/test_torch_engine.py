@@ -286,9 +286,28 @@ def test_stats_match_jax_engine(toy):
 
 
 def test_mesh_raises(toy):
+    """A mesh the engine cannot serve on raises ValueError before any
+    collective: slots that do not split over `data`, an axis it has no use
+    for, speculative decoding. A mesh of one rank serves unsharded."""
+    from types import SimpleNamespace
+
+    from torch_dist_workers import OneRankMesh
+
     _, tcfg, _, tparams = toy
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        t_engine.InferenceEngine(tparams, tcfg, mesh=object())
+    dm = SimpleNamespace(world=2, shape={"data": 2, "model": 1})
+    with pytest.raises(ValueError, match="num_slots 3 must divide"):
+        t_engine.InferenceEngine(tparams, tcfg, t_engine.EngineConfig(
+            num_slots=3), mesh=dm)
+    with pytest.raises(ValueError, match="speculative"):
+        t_engine.InferenceEngine(tparams, tcfg, t_engine.EngineConfig(
+            num_slots=4, speculative_k=2), mesh=dm)
+    ep = SimpleNamespace(world=2, shape={"data": 1, "expert": 2,
+                                         "model": 1})
+    with pytest.raises(ValueError, match="data, model"):
+        t_engine.InferenceEngine(tparams, tcfg, mesh=ep)
+    eng = t_engine.InferenceEngine(tparams, tcfg,
+                                   mesh=OneRankMesh(data=1, model=1))
+    assert eng.mesh is None and eng.params is tparams
 
 
 # ------------------------------------------- the paged engine's new calls

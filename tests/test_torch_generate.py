@@ -134,10 +134,15 @@ def test_unported_paths_are_refused_not_substituted():
     tok, _ = ttf.forward(mparams, ids, moe, kv=cache.as_slice(),
                          greedy_head=True)
     assert tok.shape == (8,)
-    # tensor parallelism is not ported: forward refuses it
-    tp = tcfg_mod.ModelConfig(**{**small.__dict__, "tp_axis": "model"})
-    with pytest.raises(NotImplementedError, match="Queue A"):
-        ttf.forward(params, torch.ones((2, 4), dtype=torch.int64), tp)
+    # a TP local config runs forward through its hooks (the wo and down
+    # all-reduces, the sharded embedding and the logits gather): on one
+    # rank they are the identity, and the fused head stays shut
+    from physics_llm_inference_tpu_torch.parallel.tp import tp_local_config
+    from torch_dist_workers import OneRankMesh
+    tp = tp_local_config(small, 1, mesh=OneRankMesh(data=1, model=1))
+    ids = torch.ones((2, 4), dtype=torch.int64)
+    np.testing.assert_array_equal(t2n(ttf.forward(params, ids, tp)[0]),
+                                  t2n(ttf.forward(params, ids, small)[0]))
 
 
 def test_uncached_forward_logits_match():

@@ -37,7 +37,10 @@ def test_walk_finds_every_module():
                      "models.loader", "bench.perplexity", "bench.accuracy",
                      "ops.softmax", "ops.attention", "specs.occupancy",
                      "sched.continuous_batcher", "sched.chunked_prefill",
-                     "sched.mixed_batch", "sched.overlap"):
+                     "sched.mixed_batch", "sched.overlap", "parallel",
+                     "parallel.mesh", "parallel.tp", "parallel.ep",
+                     "parallel.ring_attention", "parallel.multihost",
+                     "specs.nvlink", "bench.scaling", "bench.ep_scaling"):
         assert f"{port.__name__}.{expected}" in names
 
 
@@ -54,6 +57,22 @@ def test_no_module_imports_jax():
             "             or m == 'physics_llm_inference_tpu'\n"
             "             or m.split('.')[0] in ('safetensors', 'ml_dtypes',\n"
             "                                    'tokenizers'))\n"
+            "assert not bad, bad\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_parallel_test_workers_import_no_jax():
+    """The spawned ranks of the parallel tests unpickle their targets from
+    tests/torch_dist_workers.py: it, and what it imports, must not bring
+    jax (nor chip_smoke.py, run where there is none)."""
+    code = ("import sys\n"
+            "sys.path.insert(0, 'tests')\n"
+            "import torch_dist_workers, chip_smoke\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
+            "             or m.split('.')[0] == 'physics_llm_inference_tpu')\n"
             "assert not bad, bad\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)

@@ -153,19 +153,26 @@ def test_per_op_decode_step_and_scan_match_jax(model, quantized):
 
 
 def test_moe_and_tp_raise(model):
-    """Tensor parallelism raises; an MoE config runs a paged decode step
-    (the routed FFN over every row, the inactive one included, with no
-    valid mask) whose logits and pools equal the JAX package's."""
+    """Neither an MoE nor a TP config raises in the paged step any more
+    (both once did; the test keeps its name): a TP local config runs the
+    paged decode step through its hooks (on one rank the identity: the
+    same logits as the plain config); an MoE config runs a paged decode
+    step (the routed FFN over every row, the inactive one included, with
+    no valid mask) whose logits and pools equal the JAX package's."""
     _, tcfg, _, tparams = model
-    import dataclasses
+    from physics_llm_inference_tpu_torch.parallel.tp import tp_local_config
+    from torch_dist_workers import OneRankMesh
 
-    cfg = dataclasses.replace(tcfg, tp_axis="model")
-    with pytest.raises(NotImplementedError):
-        tpt.paged_decode_step(tparams, torch.zeros(1, dtype=torch.int32),
-                              *paged_kv_from_jax(*_np(*_pools(False)),
-                                                 device="cpu"),
-                              torch.zeros((1, MB), dtype=torch.int32),
-                              torch.zeros(1, dtype=torch.int32), cfg)
+    cfg = tp_local_config(tcfg, 1, data_axis=None,
+                          mesh=OneRankMesh(model=1))
+    args = (torch.full((1,), 5, dtype=torch.int32),)
+    want = tpt.paged_decode_step(tparams, *args, *paged_kv_from_jax(
+        *_np(*_pools(False)), device="cpu"), torch.zeros(
+        (1, MB), dtype=torch.int32), torch.zeros(1, dtype=torch.int32), tcfg)
+    got = tpt.paged_decode_step(tparams, *args, *paged_kv_from_jax(
+        *_np(*_pools(False)), device="cpu"), torch.zeros(
+        (1, MB), dtype=torch.int32), torch.zeros(1, dtype=torch.int32), cfg)
+    np.testing.assert_array_equal(t2n(got[0]), t2n(want[0]))
 
     # capacity factor 4.0: no pair is dropped, so an f32 ulp cannot move a
     # token across an expert's capacity (tests/test_moe_serving.py)

@@ -358,7 +358,9 @@ def test_cli_refusals(monkeypatch):
     with pytest.raises(FileNotFoundError):   # --ckpt loads, and x.npz is not there
         cli.main(["serve", "--config", "toy", "--ckpt", "x.npz",
                   "--device", "cpu", "--check"])
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
+    # --tp above 1 without a launched world: the launcher command
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(SystemExit, match="python -m torch.distributed.run"):
         cli.main(["serve", "--config", "toy", "--tp", "2", "--device",
                   "cpu", "--check"])
     with pytest.raises(SystemExit):
