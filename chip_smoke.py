@@ -10,7 +10,7 @@ The phase clock (phase 3b) alone, from the repository's root:
 Parts alone, after phases 1-2 (each tree's package beside the script: a
 copy of this script in another tree's root measures that tree):
 
-    python3 chip_smoke.py [--k1] [--attention] [--fused] [--decode] [--serving] [--frontend] [--moe] [--accuracy] [--parallel] [--copy]
+    python3 chip_smoke.py [--k1] [--attention] [--fused] [--decode] [--serving] [--frontend] [--moe] [--accuracy] [--parallel] [--copy] [--capture] [--train] [--benches] [--determinism {replay,eager,interleave} N]
 
 --k1: phase 3's K1 sweep and K3; --attention: phase 3's K2 (S = 256,
 1,024, 4,096), K6 and K7; --fused: K4 in each mode at its seeds, K4's
@@ -19,7 +19,11 @@ capture and replay, and K8, with output digests, and the phase clock;
 the per-op path, each against the eager loop; --serving: the
 bench_serving7b waves, captured and eager, then one wave under
 torch.profiler; --frontend: phase 5c; --moe: phase 5d; --accuracy:
-phase 5e; --parallel: phase 5f; --copy: phase 3's K9-K12.
+phase 5e; --parallel: phase 5f; --copy: phase 3's K9-K12; --capture:
+part A (captured steps against eager runs, below) with its stress
+repeated CAPTURE_REPS times; --train: phase 5g; --benches: phase 5h;
+--determinism FORM N: part A's check 2 on K4 W8A16 alone, N launches
+replayed, eager or both in turn, each bit-equal to the first.
 
 Phases, each of which raises on failure (exit code != 0, no final line):
 1. device: the card's name and power limit (nvidia-smi); no CUDA -> fail;
@@ -190,6 +194,39 @@ Phases, each of which raises on failure (exit code != 0, no final line):
    held against their plain versions on the ranks' own inputs. Each
    part's seconds, each rank's ms a decode step and its share in
    collectives are logged;
+   A. (after phase 5's paged engine, on its 7B weights) captured steps
+   against eager runs: (1) two captured steps of one owner, A then B,
+   replayed B, A, B, A: B's static output must stay an eager B's (a raw
+   pair of graphs sharing one pool is the control that shows the
+   hazard); (2) every kernel of phase 5's captured paths and the library
+   GEMM of prefill linears captured, then replays and eager launches
+   interleaved on fixed inputs, each bit-equal to the first eager launch
+   (kernel_determinism); (3)
+   cached_generate's captured decode loop and the same loop stepped
+   eagerly, in lockstep at prompt 128 and 512: the prefills, then each
+   step's tokens and written cache slot; the paged engine captured and
+   eager, stepped in turn on the bench_serving7b stream: each step's
+   tokens, dispatches and pools but the trash block; (4) the stress:
+   full_run at prompt 128 and 512 with (3)'s lockstep, and the paged
+   engine's captured wave against its eager one, FULL_RUN_CAPTURE's
+   repetitions (--capture: CAPTURE_REPS). Every check logs before the
+   part fails;
+   5g. a checkpoint trained on the card: bench/train_toy trains 14m for
+   600 steps in a temporary directory (the mean of its last 25 logged
+   losses TRAIN_LOSS_MARGIN below its first); bench/accuracy on it (its
+   INT8 budget stands; K4 launched in W8A16 and W4A16); W8A8's
+   decode-path perplexity (K4 W8A8 once a one-token forward), one of its
+   launches held to W8A8's rule two layers at a time with phase 3's
+   controls' catches reported; the slot engine with speculative_k 4
+   against 0 on held-out prompts (accepted tokens a dispatch, requests
+   whose tokens equal the plain engine's);
+   5h. bench/serving7b, bench/speculative, bench/attribution,
+   bench/probe_step_overhead and bench/probe_prefill at their defaults,
+   each JSON on its own line, each launching its kernels (BENCHES) and
+   its result held by bench_check; utils/profiling's dispatch_overhead
+   and fusion_benefit. After phase 5e the process may hold at most 2 GiB
+   reserved above what it has allocated (device_memory_stats). Each
+   phase's seconds are logged;
 6. the kernel microbenchmark path at the JAX package's default sizes, through
    its public functions: bench_gemm with K9 and with torch.matmul (4096^3
    bf16), bench_gemv (8 x 4096 x 4096, bf16 and K1 int8), bench_attention
@@ -199,8 +236,9 @@ Phases, each of which raises on failure (exit code != 0, no final line):
    suite must give the JAX suite's keys, and no roofline_fraction may
    exceed 1.05.
 Then one JSON line with each kernel's numbers (launches summed over the
-timed runs of phases 5, 5c, 5d, 5e, 5f (both ranks) and 6; of 5d's bench/moe.main calls, each
-whole call, its warm runs and captures included), and the last line
+timed runs of phases 5, 5c, 5d, 5e, 5f (both ranks), 5g, 5h and 6; of
+5d's bench/moe.main calls and 5h's benches, each whole call, its warm
+runs and captures included), and the last line
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -3250,9 +3288,8 @@ def spec_frontend(dev, params, cfg) -> dict:
     phrase of 8-24 tokens repeated to 96-256) through the slot engine with
     speculative_k=4, captured and eager (identical tokens, finish reasons
     and dispatch_trace), then through the plain engine: the drafts
-    accepted a dispatch, and the share of requests whose tokens equal the
-    plain engine's (the verify window's per-op route and K4 round apart).
-    Returns the captured run's launch counts."""
+    accepted a dispatch, and the tokens held to the plain engine's up to
+    near-ties (spec_ties). Returns the captured run's launch counts."""
     import gc
 
     import numpy as np
@@ -3290,21 +3327,17 @@ def spec_frontend(dev, params, cfg) -> dict:
     if "spec" not in kinds or counts["int8_matmul_prefill"] == 0:
         raise AssertionError(f"{what}: no verify window ran through K1 "
                              f"({kinds.count('spec')} windows; {counts})")
-    first = []
-    for a, b in zip(runs["captured"][0], runs["plain"][0]):
-        first.append(next((j for j, (x, y) in enumerate(zip(a.tokens,
-                                                             b.tokens))
-                           if x != y), None))
-    equal = sum(f is None for f in first)
+    ties = spec_ties(params, cfg, prompts,
+                     [r.tokens for r in runs["plain"][0]],
+                     [r.tokens for r in runs["captured"][0]],
+                     "speculative_k=4 against the plain engine")
     log(f"{what} ({nvidia_smi()}): 16 slots, 16 requests of repetitive "
         f"prompts, {FRONT_TOKENS} greedy tokens: {kinds.count('spec')} "
         f"verify windows, {spec['tokens_per_dispatch']:.3f} tokens a request "
         f"a dispatch ({spec['tokens_per_dispatch'] - 1:.3f} drafts accepted "
         f"beside the bonus token); wall {runs['captured'][2]:.3f} s against "
         f"the plain engine's {runs['plain'][2]:.3f} s; captured and eager "
-        f"identical; requests with the plain engine's tokens: {equal} of "
-        f"{len(first)}, first differing position of the others: "
-        f"{[f for f in first if f is not None]}; launches "
+        f"identical; {ties}; launches "
         f"{({k: v for k, v in counts.items() if v})}")
     return counts
 
@@ -3837,7 +3870,8 @@ def k4_rule(a, kw, mode: str, what: str) -> str:
             f"{cfg.num_layers} layers: {rows}")
 
 
-def w8a8_windows(kf, blocks, x, cache, args, kw, what: str) -> str:
+def w8a8_windows(kf, blocks, x, cache, args, kw, what: str,
+                 require_controls: bool = True) -> str:
     """K4 W8A8 held over the whole stack two layers at a time: window i
     runs layers 2i and 2i + 1 (the stacks' and the cache's) from the plain
     version's x_out of window i - 1 (the path's x for the first), with the
@@ -3846,7 +3880,9 @@ def w8a8_windows(kf, blocks, x, cache, args, kw, what: str) -> str:
     point skips it in every layer, so each control (w8a8_controls) must
     break the rule in at least one window. Returns the readings: the
     kernel's worst window, and each control's count of windows that catch
-    it and its window nearest to passing."""
+    it and its window nearest to passing. With `require_controls` False
+    (the trained model's readings, phase 5g) a control that no window
+    catches is reported, not raised: the rule's power is what is read."""
     import dataclasses
 
     import torch
@@ -3897,7 +3933,7 @@ def w8a8_windows(kf, blocks, x, cache, args, kw, what: str) -> str:
         f"{len(meds)}, and its window nearest to passing: " + ", ".join(
             f"{p} {caught[p]} (median {m:.4g}, worst {w:.4g} at layers "
             f"{l}-{l + 1})" for p, (m, w, l) in nearest.items()))
-    if not all(caught.values()):
+    if require_controls and not all(caught.values()):
         raise AssertionError(f"{what}: a control that no window catches: "
                              f"{readings}")
     return readings
@@ -5314,6 +5350,61 @@ def engine_rule(ref_tokens, gaps, got_tokens, what: str) -> str:
             f"{full}/{len(ref_tokens)} requests identical throughout")
 
 
+# speculative decoding against the plain engine: the two emitted tokens at a
+# request's first differing position within SPEC_TIE_REL of the reference's
+# largest logit there (each path within PAR_LOGIT_REL of the reference)
+SPEC_TIE_REL = 2 * PAR_LOGIT_REL
+
+
+def spec_ties(params, cfg, prompts, plain, spec, what: str) -> str:
+    """Greedy tokens with speculative decoding (`spec`) against the plain
+    engine's (`plain`) on the same prompts. The verify window's logits come
+    from the per-op forward, the plain engine's from K4, whose residual
+    stream stays f32, so a token may flip where the two paths are near a
+    tie. At each request's first differing position one teacher-forced
+    forward (per-op, over the prompt and the tokens both emitted) gives the
+    reference's logits there: the plain token's logit less the speculative
+    one's must lie within SPEC_TIE_REL of the largest logit, so a verify
+    window that accepts a draft the model does not rank at the top fails.
+    The same number of tokens is held. Logs each such position with the
+    reference's top-two gap; raises AssertionError, returns the line."""
+    import torch
+
+    from physics_llm_inference_tpu_torch.models.transformer import forward
+
+    same, ties, bad = 0, [], 0
+    for p, a, b in zip(prompts, plain, spec):
+        a, b = list(a), list(b)
+        if len(a) != len(b):
+            raise AssertionError(f"{what}: speculation emitted {len(b)} "
+                                 f"tokens against the plain engine's "
+                                 f"{len(a)}")
+        j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            same += 1
+            continue
+        ids = torch.tensor([list(p) + a[:j]], device=params["embed"].device)
+        with torch.no_grad():
+            logits, _ = forward(params, ids, cfg)
+        lg = logits[0, -1].float()
+        top = lg.topk(2).values
+        d = float(lg[a[j]] - lg[b[j]])
+        bound = SPEC_TIE_REL * float(lg.abs().max())
+        bad += abs(d) > bound
+        ties.append(f"({j}, {float(top[0] - top[1]):.4f}, {d:+.4f}, "
+                    f"{bound:.4f})")
+        del logits
+    line = (f"{what}: requests with the plain engine's tokens {same} of "
+            f"{len(prompts)}; at each other's first differing position "
+            "(position, the reference's top-two gap, the plain token's "
+            "logit less the speculative one's, the bound "
+            f"{SPEC_TIE_REL:g} of the largest logit): " + (", ".join(ties)
+                                                          or "none"))
+    if bad:
+        raise AssertionError(f"{line}: {bad} beyond the bound")
+    return line
+
+
 def tp_world(rank, world, backend):
     """Parts (b), (c), (e), (f) and (g) on this rank of two sharing the
     card over gloo. Rank 0 also runs the single-process references on the
@@ -5823,6 +5914,855 @@ def parallel_runs(dev) -> dict:
     return {k: r0["launches"][k] + r1["launches"][k] for k in KERNELS}
 
 
+# Part A (--capture): captured steps held against eager runs
+CAPTURE_REPS = 5          # repetitions of the stress (part 4)
+INTERLEAVED_LAUNCHES = 3000  # replays (and as many eager launches) of K4, K8
+# the full run's, inside its time limit: phase 5 itself ran the stress's
+# checks once more
+FULL_RUN_CAPTURE = dict(reps=2, interleaved=300)
+
+
+def pool_order_check(dev) -> str:
+    """Part A, check 1: two captured steps of one owner, A (K1 into an
+    intermediate of B's output size, then a row sum) and B (K1 into its
+    static output). Capture A, then B; replay B, A, B, A: after each
+    replay B's static output must equal an eager B. The same with raw
+    torch.cuda.graph captures sharing one pool is the control: where it
+    changes B's output, a shared pool's hazard is live on this card."""
+    import torch
+
+    from physics_llm_inference_tpu_torch.kernels.int8_matmul import \
+        int8_matmul
+    from physics_llm_inference_tpu_torch.runtime.step_cache import \
+        CapturedStep
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 31)
+    M, K, N = 64, 4096, 4096
+
+    def w():
+        return (torch.randint(-127, 128, (K, N), dtype=torch.int8,
+                              generator=g, device=dev),
+                torch.rand((1, N), generator=g, device=dev) * 1e-2)
+
+    wa, wb = w(), w()
+    xa = (torch.randn((M, K), generator=g, device=dev) * 0.1).bfloat16()
+    xb = (torch.randn((M, K), generator=g, device=dev) * 0.1).bfloat16()
+
+    def fa():
+        return int8_matmul(xa, *wa).float().sum(dim=-1)
+
+    def fb():
+        return int8_matmul(xb, *wb)
+
+    want = fb().clone()
+
+    def run(make) -> list:
+        a = make(fa)
+        b = make(fb)
+        bad = []
+        for i, step in enumerate((b, a, b, a)):
+            step()
+            torch.cuda.synchronize()
+            if not torch.equal(b.out, want):
+                bad.append(i)
+        return bad
+
+    port = run(lambda fn: CapturedStep(fn, dev))
+
+    class Raw:
+        """A raw capture into the shared pool, warmed up first."""
+
+        def __init__(self, fn):
+            fn()
+            torch.cuda.synchronize()
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph, pool=shared):
+                self.out = fn()
+
+        def __call__(self):
+            self.graph.replay()
+            return self.out
+
+    shared = torch.cuda.graph_pool_handle()
+    control = run(Raw)
+    line = (f"pool order (check 1): B's static output after the replays "
+            f"B, A, B, A differs from an eager B after replays {port} "
+            f"(the port's graphs); control, raw graphs sharing one pool: "
+            f"after replays {control}"
+            + (" (the shared pool's hazard is live)" if control
+               else " (the control did not show the hazard)"))
+    log(line)
+    if port:
+        raise AssertionError(line)
+    return line
+
+
+def _disjoint_tables(g, dev, B: int, MB: int, NB: int):
+    """(B, MB) block tables, no block in two rows and none the trash block
+    (NB - 1): a launch's writes then land where no row reads."""
+    import torch
+
+    return torch.randperm(NB - 1, generator=g, device=dev)[:B * MB].reshape(
+        B, MB).int()
+
+
+def _launch_difference(got, want) -> str:
+    """Where a launch's outputs differ from the reference launch's: for
+    each output that differs, its elements that differ and the largest
+    difference, and for a stack (a leading layer axis, K4's written cache
+    rows) the first layer that differs and its rows."""
+    import torch
+
+    out = []
+    for i, (a, b) in enumerate(zip(got, want)):
+        ne = a != b
+        if not bool(ne.any()):
+            continue
+        d = float((a.float() - b.float()).abs().max())
+        s = f"output {i}: {int(ne.sum())} elements, by up to {d:.4g}"
+        if a.dim() == 3:
+            l = int(ne.flatten(1).any(dim=1).nonzero()[0])
+            rows = ne[l].flatten(1).any(dim=1).nonzero()[:, 0].tolist()
+            s += f", first at layer {l}, rows {rows[:8]}"
+        elif a.dim() == 2:
+            rows = ne.any(dim=1).nonzero()[:, 0].tolist()
+            s += f", rows {rows[:8]} ({len(rows)})"
+        out.append(s)
+    return "; ".join(out)
+
+
+def kernel_determinism(dev, params, cfg,
+                       launches: int = INTERLEAVED_LAUNCHES,
+                       forms=("replay", "eager"), only=None) -> str:
+    """Part A, check 2: each kernel of phase 5's captured paths at the main
+    path's shapes, captured once, then its replays interleaved with eager
+    launches on the same inputs, each held bit for bit against the first
+    eager launch: K4 W8A16 (32 layers, B 64, S 256, write slot 200) and K8
+    (the engine's geometry, disjoint tables) `launches` times each; K4
+    W8A8, K1 on each route, K2, K3, K5 (square, and the paged chunk's
+    4 x 512 over 1,024) and the library GEMM of prefill-sized linears
+    (M 2,048 and 4,096; its handle's workspace is the capture stream's
+    under capture) a tenth as often, at least 20 times. `forms` picks the
+    launches (replays, eager ones, or both in turn) and `only` the cases
+    by name (`--determinism`)."""
+    import dataclasses
+
+    import torch
+
+    from physics_llm_inference_tpu_torch.kernels import fused_decode as kf
+    from physics_llm_inference_tpu_torch.kernels.flash_attention import \
+        flash_attention
+    from physics_llm_inference_tpu_torch.kernels.int8_kv_attention import \
+        int8_kv_decode_attention
+    from physics_llm_inference_tpu_torch.kernels.int8_matmul import _launch
+    from physics_llm_inference_tpu_torch.kernels.lmhead import lmhead_greedy
+    from physics_llm_inference_tpu_torch.models.transformer import \
+        _linear_f32
+    from physics_llm_inference_tpu_torch.ops.rope import rope_frequencies
+    from physics_llm_inference_tpu_torch.runtime.step_cache import \
+        CapturedStep
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 33)
+    blocks, lm = params["blocks"], params["lm_head"]
+    L, B, S = cfg.num_layers, 64, 256
+    D, hq, hkv, hd = cfg.hidden_dim, cfg.num_heads, cfg.num_kv_heads, \
+        cfg.head_dim
+
+    def act(*shape):
+        return (torch.randn(shape, generator=g, device=dev)
+                * shape[-1] ** -0.5).bfloat16()
+
+    cos, sin = rope_frequencies(hd, cfg.max_seq_len, device=dev)
+    x = act(B, D)
+    cache = []
+    for _ in ("k", "v"):
+        cache += [torch.randint(-127, 128, (L, B, S, hkv * hd),
+                                dtype=torch.int8, generator=g, device=dev),
+                  torch.rand((L, B, hkv, S), generator=g, device=dev) * 0.03]
+    slot = torch.full((B,), 200, dtype=torch.int32, device=dev)
+    vfrom = torch.zeros(B, dtype=torch.int32, device=dev)
+    c200, s200 = cos[200].expand(B, -1), sin[200].expand(B, -1)
+
+    def k4(c):
+        def run():
+            x_out, kq_, ks_, vq_, vs_ = kf.fused_decode_step(
+                blocks, x, *cache, slot, vfrom, c200, s200, c, slot=slot,
+                write_cache=True)
+            return [x_out, kq_[:, :, 200], ks_[..., 200], vq_[:, :, 200],
+                    vs_[..., 200]]
+        return run
+
+    NB, BS, MB = 161, 512, 2
+    kvp = torch.randint(-127, 128, (L, NB, 2, BS, hkv * hd),
+                        dtype=torch.int8, generator=g, device=dev)
+    kvs = torch.rand((L, NB, 2, hkv, BS), generator=g, device=dev) * 0.03
+    tables = _disjoint_tables(g, dev, B, MB, NB)
+    plens = torch.randint(1, MB * BS - 1, (B,), generator=g,
+                          device=dev).int()
+    pos = plens.long()
+    wgu = blocks["w_gate_up"]
+    w0 = type(wgu)(wgu.q[0], wgu.s[0])
+    xs = {m: act(m, D) for m in (64, 512, 2048, 4096)}
+    q2 = act(B, hq, hd)
+    last = torch.full((B,), S - 1, dtype=torch.int32, device=dev)
+    q5, k5 = act(8, hq, 512, hd), act(8, hkv, 512, hd)
+    qc, kc = act(4, hq, 512, hd), act(4, hkv, 1024, hd)
+    off = torch.tensor([0, 100, 512, 511], device=dev)
+    few = max(20, launches // 10)
+    cases = [
+        ("K4 W8A16", k4(cfg), launches),
+        ("K8", lambda: [kf.fused_paged_decode_step(
+            blocks, x, kvp, kvs, tables, plens, cos[pos], sin[pos], cfg,
+            inplace=True)[0]], launches),
+        ("K4 W8A8", k4(dataclasses.replace(cfg, act_quant="int8")), few),
+        ("K1 stream, M 64", lambda: [_launch("stream", xs[64], w0.q,
+                                             w0.s)], few),
+        ("K1 wgmma, M 512", lambda: [_launch("wgmma", xs[512], w0.q,
+                                             w0.s)], few),
+        ("K2, B 64, S 256", lambda: [int8_kv_decode_attention(
+            q2, cache[0][0], cache[1][0], cache[2][0], cache[3][0], last)],
+         few),
+        ("K3, B 64", lambda: [lmhead_greedy(xs[64], params["norm"], lm.q,
+                                            lm.s, eps=cfg.norm_eps)], few),
+        ("K5, B 8, S 512", lambda: [flash_attention(q5, k5, k5,
+                                                    causal=True)], few),
+        ("K5, paged chunk (4 x 512 over 1,024)", lambda: [flash_attention(
+            qc, kc, kc, q_offset=off, causal=True)], few)] + [
+        (f"torch.mm f32 out, M {m}", lambda m=m: [_linear_f32(xs[m], w0)],
+         few) for m in (2048, 4096)]
+    res, failed = [], False
+    for name, fn, n in cases:
+        if only is not None and name not in only:
+            continue
+        want = [t.clone() for t in fn()]
+        captured = CapturedStep(lambda fn=fn: fn(), dev)
+        bad = {"replay": [], "eager": []}
+        first = ""
+        for i in range(n):
+            for kind, run in (("replay", captured), ("eager", fn)):
+                if kind not in forms:
+                    continue
+                got = run()
+                if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                    bad[kind].append(i)
+                    first = first or (f" (the first, {kind} {i}: "
+                                      f"{_launch_difference(got, want)})")
+        torch.cuda.synchronize()
+        failed = failed or bool(bad["replay"] or bad["eager"])
+        res.append(f"{name}: " + " and ".join(
+            f"{len(bad[k])} of {n} {k} launches" for k in forms)
+            + f" differ{first}")
+        del captured
+    line = ("kernels captured and eager, interleaved on fixed inputs "
+            "(check 2): " + "; ".join(res))
+    log(line)
+    if failed:
+        raise AssertionError(line)
+    return line
+
+
+def decode_lockstep(dev, params, cfg, prompt: int) -> str:
+    """Part A, check 3 (dense): cached_generate's loop captured (through a
+    step cache, as phase 5 runs it) and the same loop stepped eagerly, in
+    lockstep on full_run's prompts: the two prefills (logits and written
+    caches), then after each decode step the current tokens and the cache
+    slot the step wrote (codes and scales, every layer). Reports the first
+    step that differs and what."""
+    import torch
+
+    from physics_llm_inference_tpu_torch.ops.sampling import sample_token
+    from physics_llm_inference_tpu_torch.runtime import generate as gen
+
+    g = torch.Generator().manual_seed(SEED + prompt)
+    prompts = torch.randint(1, cfg.vocab_size, (BATCH, prompt),
+                            generator=g).tolist()
+    ids, lens = gen.pad_and_stack(prompts, device=dev)
+    b, p = ids.shape
+    cap = -(-(p + NEW_TOKENS) // 128) * 128
+    steps = gen.decode_step_cache()
+    key = (gen._Same(params), cfg, b, cap, torch.int8, True, 0, False, (),
+           0, None)
+    loop_c, step_c = steps.get(*key)
+    loop_e = gen.DecodeLoop(params, cfg, b, cap, torch.int8, True, 0, False,
+                            (), 0, None)
+    firsts = []
+    for loop in (loop_c, loop_e):
+        logits, _, vfrom = gen._prefill(params, cfg, ids, lens,
+                                        loop.cache.as_slice())
+        firsts.append((logits, vfrom))
+    torch.cuda.synchronize()
+    found = []
+    if not torch.equal(firsts[0][0], firsts[1][0]):
+        found.append("prefill logits")
+    for name in ("k", "v"):
+        a, e = getattr(loop_c.cache, name), getattr(loop_e.cache, name)
+        if not (torch.equal(a.q[:, :, :p], e.q[:, :, :p])
+                and torch.equal(a.s[..., :p], e.s[..., :p])):
+            found.append(f"prefill {name} cache")
+    for loop, (logits, vfrom) in zip((loop_c, loop_e), firsts):
+        loop.begin(sample_token(logits, None, temperature=0.0), lens, vfrom,
+                   p, 0.0, 1.0)
+    first_step = None
+    for i in range(NEW_TOKENS):
+        step_c()
+        loop_e.step()
+        what = []
+        if not torch.equal(loop_c.tok, loop_e.tok):
+            what.append(f"tokens of {int((loop_c.tok != loop_e.tok).sum())}"
+                        " rows")
+        at = p + i
+        for name in ("k", "v"):
+            a, e = getattr(loop_c.cache, name), getattr(loop_e.cache, name)
+            if not (torch.equal(a.q[:, :, at], e.q[:, :, at])
+                    and torch.equal(a.s[..., at], e.s[..., at])):
+                what.append(f"{name} cache slot {at}")
+        if what and first_step is None:
+            first_step = (i, what)
+    same = torch.equal(loop_c.emitted, loop_e.emitted)
+    line = (f"decode lockstep (check 3), prompt {prompt}: prefill "
+            + (f"differs ({', '.join(found)})" if found else "identical")
+            + "; decode "
+            + (f"first differs at step {first_step[0]} "
+               f"({', '.join(first_step[1])})" if first_step
+               else f"identical over {NEW_TOKENS} steps")
+            + f"; emitted tokens identical: {same}")
+    log(line)
+    if found or first_step or not same:
+        raise AssertionError(line)
+    return line
+
+
+def _owned_positions(eng):
+    """(blocks + trash, block size) bool on the engine's device: every
+    position of every block but the trash block, which the rows that do not
+    decode in a dispatch write (which of those writes lands is
+    unspecified). A decode dispatch writes through the tables of its
+    decoding rows only, so every other position two engines hold on one
+    request stream must agree."""
+    import torch
+
+    c = eng.config
+    owned = torch.ones((c.num_blocks + 1, c.block_size), dtype=torch.bool,
+                       device=eng.device)
+    owned[eng._trash] = False
+    return owned
+
+
+def _differing_positions(a, b, live):
+    """(layers, blocks, 2, block size) bool: the positions (`live`) where
+    two INT8 pools' codes or scales differ, a layer at a time (a whole pool
+    compared at once is tens of GiB)."""
+    import torch
+
+    return torch.stack([
+        ((a.q[l] != b.q[l]).any(dim=-1) | (a.s[l] != b.s[l]).any(dim=2))
+        & live[:, None, :] for l in range(a.q.shape[0])])
+
+
+def _pool_difference(eng, a, b, diff) -> str:
+    """Where two INT8 pools differ (`diff`, _differing_positions): layers, K or V pages, the largest code and
+    scale differences, and for each of the first blocks its positions and
+    whose it is in `eng`."""
+    import torch
+
+    hit = diff.nonzero()
+    blocks = sorted(set(hit[:, 1].tolist()))
+    code = max(int((a.q[l].int() - b.q[l].int()).abs().max())
+               for l in sorted(set(hit[:, 0].tolist())))
+    owners = {}
+    for rid, t in eng.pool.tables.items():
+        for i, blk in enumerate(t.block_ids):
+            owners.setdefault(blk, []).append(
+                f"{rid}[{i}] (tokens {t.num_tokens})")
+    radix = getattr(eng, "_radix_owned", {})
+    parts = []
+    for blk in blocks[:6]:
+        pos = sorted(set(diff[:, blk].nonzero()[:, 2].tolist()))
+        who = owners.get(blk) or (["radix"] if blk in radix else ["?"])
+        parts.append(f"block {blk} positions {pos[:4]}..{pos[-4:]} "
+                     f"({len(pos)}) of {', '.join(who)}")
+    return (f"{len(blocks)} blocks differ, layers "
+            f"{sorted(set(hit[:, 0].tolist()))[:6]}, pages "
+            f"{sorted(set(hit[:, 2].tolist()))}, codes by up to {code}: "
+            + "; ".join(parts))
+
+
+def paged_lockstep(dev, params, cfg) -> str:
+    """Part A, check 3 (paged): the paged engine in the bench_serving7b
+    configuration, captured, and the same engine with eager dispatch
+    functions (eager_engine_class), each warmed up, on one request stream
+    (a warm wave of 64 x 16 tokens, then 128 requests of prompt 576, every
+    fourth behind a shared block, 64 greedy tokens), stepped in turn: after
+    each engine step the emitted tokens, the dispatches it made and both
+    pools whole but for the trash block (_owned_positions). Reports the
+    first step that differs."""
+    import numpy as np
+    import torch
+
+    from physics_llm_inference_tpu_torch.serve.engine import GenerationRequest
+    from physics_llm_inference_tpu_torch.serve.paged_engine import (
+        PagedEngineConfig, PagedInferenceEngine)
+
+    pc = PagedEngineConfig(max_batch=64, kv_dtype="int8", decode_horizon=8,
+                           enable_radix=True, prefill_tokens_per_iter=2048)
+    engs = [PagedInferenceEngine(params, cfg, pc),
+            eager_engine_class()(params, cfg, pc)]
+    for eng in engs:
+        eng.warmup()
+        eng.dispatch_trace = []
+    rng = np.random.default_rng(SEED)
+    prefixes = [rng.integers(1, cfg.vocab_size, pc.block_size).tolist()
+                for _ in range(SHARED_PREFIXES)]
+
+    def submit(eng, count, tokens, seed):
+        rng = np.random.default_rng(seed)
+        for i in range(count):
+            pre = prefixes[(i // 4) % SHARED_PREFIXES] if i % 4 == 0 else []
+            p = pre + rng.integers(1, cfg.vocab_size,
+                                   SERVE_PROMPT - len(pre)).tolist()
+            eng.submit_request(GenerationRequest(
+                prompt_tokens=p, max_tokens=tokens, temperature=0.0))
+
+    first, n_steps = None, 0
+    for count, tokens, seed in ((64, 16, SEED + 1),
+                                (SERVE_REQUESTS, SERVE_TOKENS, SEED + 2)):
+        for eng in engs:
+            submit(eng, count, tokens, seed)
+        while any(e.scheduler.waiting or e.scheduler.running for e in engs):
+            outs, marks = [], []
+            for eng in engs:
+                mark = len(eng.dispatch_trace)
+                outs.append(eng.step())
+                marks.append(eng.dispatch_trace[mark:])
+            torch.cuda.synchronize()
+            n_steps += 1
+            what = []
+            if outs[0] != outs[1]:
+                what.append("emitted tokens")
+            if marks[0] != marks[1]:
+                what.append(f"dispatches {marks[0]} against {marks[1]}")
+            diff = _differing_positions(engs[0]._k, engs[1]._k,
+                                        _owned_positions(engs[0]))
+            if bool(diff.any()):
+                what.append("pool blocks" if first else
+                            "pool blocks: " + _pool_difference(
+                                engs[0], engs[0]._k, engs[1]._k, diff)
+                            + f"; this step's dispatches {marks[0]}")
+            if what and first is None:
+                first = (n_steps, what)
+            if n_steps > 20000:
+                raise AssertionError("paged lockstep: the engines did not "
+                                     "drain")
+    line = ("paged engine lockstep (check 3), bench_serving7b "
+            f"configuration, {n_steps} engine steps, "
+            f"{len(engs[0].dispatch_trace)} dispatches: "
+            + (f"first differs at step {first[0]} ({'; '.join(first[1])})"
+               if first else "captured and eager identical at every step "
+               "(tokens, dispatches, every pool block but the trash block)"))
+    log(line)
+    del engs
+    release()
+    if first:
+        raise AssertionError(line)
+    return line
+
+
+def capture_stress(dev, params, cfg, reps: int = CAPTURE_REPS) -> str:
+    """Part A, check 4: phase 5's captured-against-eager checks run `reps`
+    times in this process: full_run at prompt 128 and 512 (fused W8A16),
+    each followed by check 3's step-by-step lockstep of the same loop, and
+    the paged engine's captured waves against its eager ones (one wave
+    each time). Every failure is logged; the part fails after the last
+    repetition if any did."""
+    fused = ("int8_matmul", "fused_decode_step", "lmhead_greedy")
+    fails, t0 = [], time.perf_counter()
+    for rep in range(reps):
+        for prompt, expect in ((PROMPT, fused),
+                               (LONG_PROMPT, fused + ("flash_attention",))):
+            for what, run in (
+                    ("full_run", lambda: full_run(
+                        dev, params, prompt, True, cfg.num_layers, expect)),
+                    ("lockstep", lambda: decode_lockstep(dev, params, cfg,
+                                                         prompt))):
+                try:
+                    run()
+                except AssertionError as e:
+                    fails.append(f"rep {rep}, prompt {prompt}, {what}: {e}")
+                    log(f"capture stress: {fails[-1]}")
+        try:
+            serve(dev, params, serving_cfg(), "capture stress, paged "
+                  "engine", dict(max_batch=64, kv_dtype="int8",
+                                 decode_horizon=8, enable_radix=True,
+                                 prefill_tokens_per_iter=2048),
+                  SERVE_REQUESTS, SERVE_PROMPT, SERVE_TOKENS,
+                  expect=("fused_paged_decode_step", "flash_attention",
+                          "int8_matmul"), forbid=(), shared=True, warm=64,
+                  waves=1, compare=True)
+        except AssertionError as e:
+            fails.append(f"rep {rep}, paged wave: {e}")
+            log(f"capture stress: {fails[-1]}")
+        release()
+    line = (f"capture stress (check 4): {reps} repetitions of full_run and "
+            f"the decode lockstep at prompt {PROMPT} and {LONG_PROMPT} (fused "
+            f"W8A16) and of the paged engine's captured wave against its "
+            f"eager one: {len(fails)} of {5 * reps} failed "
+            f"({time.perf_counter() - t0:.1f} s)")
+    log(line)
+    if fails:
+        raise AssertionError(line + ": " + " | ".join(fails))
+    return line
+
+
+def determinism_alone(dev, form: str, n: int) -> str:
+    """`--determinism FORM N`: part A's check 2 on K4 W8A16 alone (32
+    layers, B 64, S 256, its fixed inputs), N launches replayed, eager, or
+    both in turn (FORM replay, eager or interleave), each held bit for bit
+    against the first eager launch. A race as rare as once in 4,000
+    launches needs ~10,000 of each form to show."""
+    import torch
+
+    from physics_llm_inference_tpu_torch.models.config import ModelConfig
+    from physics_llm_inference_tpu_torch.models.quant import init_params_int8
+
+    forms = {"replay": ("replay",), "eager": ("eager",),
+             "interleave": ("replay", "eager")}[form]
+    cfg = ModelConfig(num_layers=32, **WIDTHS)
+    params = init_params_int8(
+        torch.Generator(device=dev).manual_seed(SEED), cfg)
+    return kernel_determinism(dev, params, cfg, n, forms=forms,
+                              only=("K4 W8A16",))
+
+
+def capture_runs(dev, params=None, reps: int = CAPTURE_REPS,
+                 interleaved: int = INTERLEAVED_LAUNCHES) -> None:
+    """Part A (--capture): checks 1-4 on the bench.py 7B model at 32 layers
+    (`params`: phase 5's INT8 weights, or made here from phase 5's seed),
+    the stress `reps` times, check 2's interleaving `interleaved` launches
+    of each form. Every check runs and logs before the first failure
+    raises."""
+    import torch
+
+    from physics_llm_inference_tpu_torch.models.config import ModelConfig
+    from physics_llm_inference_tpu_torch.models.quant import init_params_int8
+
+    cfg = ModelConfig(num_layers=32, **WIDTHS)
+    if params is None:
+        params = init_params_int8(
+            torch.Generator(device=dev).manual_seed(SEED), cfg)
+    t0 = time.perf_counter()
+    errors = []
+    checks = [lambda: pool_order_check(dev),
+              lambda: kernel_determinism(dev, params, cfg, interleaved),
+              lambda: decode_lockstep(dev, params, cfg, PROMPT),
+              lambda: decode_lockstep(dev, params, cfg, LONG_PROMPT),
+              lambda: paged_lockstep(dev, params, serving_cfg()),
+              lambda: capture_stress(dev, params, cfg, reps)]
+    for check in checks:
+        try:
+            check()
+        except AssertionError as e:
+            errors.append(str(e))
+        release()
+    log(f"part A (--capture): {len(checks) - len(errors)} of {len(checks)} "
+        f"checks passed, {time.perf_counter() - t0:.1f} s")
+    if errors:
+        raise AssertionError("part A: " + " || ".join(errors))
+
+
+# phase 5g (--train): a checkpoint trained on the card, and what it measures
+TRAIN_LOSS_MARGIN = 1.0      # nats the last 25 logged losses' mean must fall
+TRAIN_PROBED_CALL = 128      # the W8A8 decode-path call whose inputs are held
+SPEC_K, SPEC_SLOTS, SPEC_PROMPT, SPEC_DECODE = 4, 8, 128, 64
+
+
+def trained_w8a8(dev, ckpt: str, counts: dict) -> str:
+    """Phase 5g (c): W8A8's decode-path perplexity on the trained weights
+    (INT8 stacks, act_quant int8, INT8 cache: phase 5e's route), one K4
+    W8A8 launch a one-token forward; its TRAIN_PROBED_CALL-th launch's
+    inputs held to W8A8's rule two layers at a time (w8a8_windows), each
+    window also reporting which of phase 3's controls (a quantization point
+    left out) it catches: the rule's power on trained weights."""
+    import dataclasses
+
+    import torch
+
+    from physics_llm_inference_tpu_torch.bench.perplexity import \
+        decode_path_perplexity
+    from physics_llm_inference_tpu_torch.models.quant import \
+        quantize_params_int8
+
+    params, cfg, held = trained_model(dev, ckpt)
+    cfg8 = dataclasses.replace(cfg, act_quant="int8")
+    q8 = quantize_params_int8(params)
+    reset_launches()
+    with kernel_probe(("fused_decode_step",),
+                      at={"fused_decode_step": TRAIN_PROBED_CALL}) as probe:
+        ppl = decode_path_perplexity(q8, cfg8, held, window=256,
+                                     kv_dtype=torch.int8)
+    c = read_launches()
+    for k in KERNELS:
+        counts[k] += c[k]
+    steps = 256 - 1
+    if c["fused_decode_step_w8a8"] != steps:
+        raise AssertionError(f"phase 5g: W8A8 decode path launched K4 W8A8 "
+                             f"{c['fused_decode_step_w8a8']} times, not "
+                             f"{steps}")
+    (key, (a, kw)), = probe.calls.items()
+    kf = kernel_module("fused_decode_step")
+    qslot, vfrom, cos, sin, c8 = a[6:]
+    if vfrom is None:
+        vfrom = torch.zeros_like(qslot, dtype=torch.int32)
+    rule = w8a8_windows(kf, a[0], a[1], a[2:6], (qslot, vfrom, cos, sin, c8),
+                        kw, "phase 5g: K4 W8A8, trained weights",
+                        require_controls=False)
+    return (f"W8A8 decode path (INT8 cache) perplexity {ppl:.4f}, K4 W8A8 "
+            f"{steps} launches; its call {TRAIN_PROBED_CALL} held two layers "
+            f"at a time: {rule}")
+
+
+def trained_model(dev, ckpt: str):
+    """(bf16 params on the card, bf16 ModelConfig, held-out tokens of
+    bench/accuracy's 32 windows of 256) of a bench/train_toy checkpoint."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from physics_llm_inference_tpu_torch.models.config import ModelConfig
+    from physics_llm_inference_tpu_torch.models.loader import load_params
+
+    conf = json.loads((Path(ckpt) / "config.json").read_text())
+    fields = {f.name for f in dataclasses.fields(ModelConfig)}
+    cfg = ModelConfig(dtype="bfloat16", **{k: v for k, v in conf.items()
+                                           if k in fields})
+    params = load_params(str(Path(ckpt) / "params.npz"), device=dev)
+
+    def cast(t):
+        return {k: cast(v) for k, v in t.items()} if isinstance(t, dict) \
+            else t.to(torch.bfloat16)
+
+    held = np.load(Path(ckpt) / "heldout.npy")
+    return cast(params), cfg, held[:32 * 256]
+
+
+def trained_speculation(dev, ckpt: str, counts: dict) -> str:
+    """Phase 5g (d): the slot engine on the trained INT8 weights with
+    speculative_k = SPEC_K against 0 (bench/speculative.run_case), on
+    SPEC_SLOTS prompts of SPEC_PROMPT held-out tokens, SPEC_DECODE greedy
+    tokens: accepted tokens a dispatch, each wall, and the tokens held to
+    the plain engine's up to near-ties (spec_ties)."""
+    import numpy as np
+
+    from physics_llm_inference_tpu_torch.bench.speculative import run_case
+    from physics_llm_inference_tpu_torch.models.quant import \
+        quantize_params_int8
+
+    params, cfg, _ = trained_model(dev, ckpt)
+    held = np.load(Path(ckpt) / "heldout.npy")
+    step = (len(held) - SPEC_PROMPT) // SPEC_SLOTS
+    prompts = [held[i * step:i * step + SPEC_PROMPT].tolist()
+               for i in range(SPEC_SLOTS)]
+    q8 = quantize_params_int8(params)
+    reset_launches()
+    rows = [run_case(q8, cfg, k, prompts, SPEC_DECODE, "trained, held-out")
+            for k in (0, SPEC_K)]
+    c = read_launches()
+    for k in KERNELS:
+        counts[k] += c[k]
+    plain, spec = rows
+    ties = spec_ties(q8, cfg, prompts, plain["outputs"], spec["outputs"],
+                     f"speculative_k={SPEC_K} against 0")
+    return (f"speculative_k={SPEC_K} on {SPEC_SLOTS} held-out prompts of "
+            f"{SPEC_PROMPT} tokens, {SPEC_DECODE} greedy tokens: "
+            f"{spec['tokens_per_dispatch']:.3f} tokens accepted a dispatch "
+            f"over {spec['dispatches']} dispatches, wall "
+            f"{spec['wall_s']:.4f} s ({spec['tok_per_s']:.1f} tok/s) against "
+            f"speculative_k=0's {plain['wall_s']:.4f} s "
+            f"({plain['tok_per_s']:.1f} tok/s); {ties}")
+
+
+def train_runs(dev) -> dict:
+    """Phase 5g (--train): (a) bench/train_toy trains 14m for 600 steps on
+    the card in a temporary directory (bytes where `tokenizers` is absent);
+    the mean of its last 25 logged losses must sit TRAIN_LOSS_MARGIN below
+    the first; (b) bench/accuracy.main(["--ckpt", dir]) on it, whose INT8
+    budget stands as the script's assertions do, K4 launched in W8A16 and
+    W4A16; (c) trained_w8a8; (d) trained_speculation. Returns the launches
+    of (b)-(d)."""
+    import tempfile
+
+    from physics_llm_inference_tpu_torch.bench import accuracy, train_toy
+
+    counts = {k: 0 for k in KERNELS}
+    with tempfile.TemporaryDirectory(prefix="toy-") as tmp:
+        t0 = time.perf_counter()
+        res = train_toy.main(["--out", tmp])
+        losses = [v for _, v in res["losses"]]
+        last = losses[-25:]
+        mean = sum(last) / len(last)
+        log(f"phase 5g (a) bench/train_toy, {res['size']} "
+            f"({res['params'] / 1e6:.2f} M params, {res['tokenizer']} "
+            f"tokenizer, vocab {res['vocab_size']}, {res['tokens']} tokens, "
+            f"{res['heldout_tokens']} held out), {res['steps']} steps in "
+            f"{res['train_s']:.1f} s ({nvidia_smi()}): loss "
+            f"{losses[0]:.4f} first, {losses[-1]:.4f} last, the last "
+            f"{len(last)} logged losses' mean {mean:.4f} (margin "
+            f"{TRAIN_LOSS_MARGIN} below the first: "
+            f"{mean < losses[0] - TRAIN_LOSS_MARGIN}); "
+            f"{time.perf_counter() - t0:.1f} s with the corpus")
+        if not mean < losses[0] - TRAIN_LOSS_MARGIN:
+            raise AssertionError("phase 5g: the loss did not fall: "
+                                 f"{res['losses']}")
+        reset_launches()
+        t0 = time.perf_counter()
+        acc = accuracy.main(["--ckpt", tmp])
+        c = read_launches()
+        for k in KERNELS:
+            counts[k] += c[k]
+        dec = acc["decode"]
+        log(f"phase 5g (b) bench/accuracy on the trained checkpoint "
+            f"({nvidia_smi()}; {time.perf_counter() - t0:.1f} s): parallel "
+            f"forward bf16 {acc['forward']['ppl_fp']:.4f}, INT8 W "
+            f"{acc['forward']['ppl_quantized']:.4f} "
+            f"({acc['forward']['delta']:+.4f}); decode path bf16 "
+            f"{acc['decode_fp']:.4f}, INT8 W+KV {dec['int8']['ppl']:.4f} "
+            f"({dec['int8']['delta']:+.4f}), INT4 RTN "
+            f"{dec['int4']['ppl']:.4f} ({dec['int4']['delta']:+.4f}), INT4 "
+            f"MSE {dec['int4_mse']['ppl']:.4f} "
+            f"({dec['int4_mse']['delta']:+.4f}); budget "
+            f"{acc['budget']:.4f}, within: {acc['within_budget']}; K4 "
+            f"launches W8A16 {c['fused_decode_step']}, W4A16 "
+            f"{c['fused_decode_step_w4a16']}")
+        if not acc["within_budget"]:
+            raise AssertionError("phase 5g: the INT8 deltas break "
+                                 f"bench/accuracy's budget: {acc}")
+        if not (c["fused_decode_step"] and c["fused_decode_step_w4a16"]):
+            raise AssertionError(f"phase 5g: K4 did not run: {c}")
+        log(f"phase 5g (c) ({nvidia_smi()}): "
+            f"{trained_w8a8(dev, tmp, counts)}")
+        release()
+        log(f"phase 5g (d) ({nvidia_smi()}): "
+            f"{trained_speculation(dev, tmp, counts)}")
+    release()
+    return counts
+
+
+# phase 5h (--benches): the bench modules at their defaults
+BENCHES = (  # module, the kernels its run must launch
+    ("serving7b", ("fused_paged_decode_step", "int8_matmul",
+                   "int8_matmul_prefill", "flash_attention")),
+    # the slot engine: K4 decodes its horizons; the verify window (k + 1
+    # queries) attends its INT8 slots by the plain dequantized product, as
+    # any forward of fewer than 128 queries; the heads sample, so K1, not K3
+    ("speculative", ("int8_matmul", "int8_matmul_prefill",
+                     "fused_decode_step")),
+    ("attribution", ("int8_matmul", "int8_kv_decode_attention")),
+    ("probe_step_overhead", ("fused_decode_step", "int8_matmul",
+                             "lmhead_greedy")),
+    ("probe_prefill", ("int8_matmul_prefill",)),
+)
+
+
+def bench_check(name: str, out: dict) -> str:
+    """What each bench's result must hold beyond its launches."""
+    import math
+
+    if name == "serving7b":
+        want = out["config"]["requests"] * out["config"]["decode"]
+        if out["num_requests"] != out["config"]["requests"] or \
+                out["tokens_per_s"] * out["total_time_s"] < want - 0.5:
+            raise AssertionError(f"phase 5h: serving7b served {out}")
+        return (f"{out['total_time_s']:.3f} s, {out['tokens_per_s']:.1f} "
+                f"tok/s, TTFT p50 {out['ttft']['p50_ms']:.1f} ms")
+    if name == "speculative":
+        # the module's weights and prompts, made again from its seeds, for
+        # the reference forwards of spec_ties
+        import numpy as np
+        import torch
+
+        from physics_llm_inference_tpu_torch.bench import speculative as sp
+        from physics_llm_inference_tpu_torch.models.quant import \
+            init_params_int8
+
+        cfg = sp.model_config()
+        params = init_params_int8(
+            torch.Generator(device="cuda").manual_seed(0), cfg)
+        rows = out["rows"]
+        ties = [spec_ties(params, cfg, ps, rows[a]["outputs"],
+                          rows[a + 1]["outputs"],
+                          f"{rows[a]['case']}, k={rows[a + 1]['k']} against 0")
+                for a, ps in zip((0, 2), sp.prompts(
+                    np.random.default_rng(0), cfg.vocab_size,
+                    len(rows[0]["outputs"]), sp.parse_args([]).prompt))]
+        del params
+        return "; ".join(f"{r['case']} k={r['k']} {r['tok_per_s']:.1f} tok/s"
+                         f" ({r['tokens_per_dispatch']:.3f} a dispatch)"
+                         for r in rows) + "; " + "; ".join(ties)
+    if name == "attribution":
+        vals = [out[k] for k in ("matmul_s", "attn_s", "full_s",
+                                 "glue_alone_s")]
+        if not all(math.isfinite(v) and v > 0 for v in vals) or \
+                max(out["matmul_eff"], out["attn_eff"]) > 1.05:
+            raise AssertionError(f"phase 5h: attribution {out}")
+        return (f"matmul {out['matmul_s'] * 1e3:.3f} ms "
+                f"({out['matmul_eff']:.3f} of its floor), attention "
+                f"{out['attn_s'] * 1e3:.3f} ms ({out['attn_eff']:.3f}), glue "
+                f"{out['glue_s'] * 1e3:.3f} ms (alone "
+                f"{out['glue_alone_s'] * 1e3:.3f}), step "
+                f"{out['full_s'] * 1e3:.3f} ms")
+    if name == "probe_step_overhead":
+        rows = out["ms_per_step"]
+        if not all(v > 0 for v in rows.values()):
+            raise AssertionError(f"phase 5h: probe_step_overhead {out}")
+        return "; ".join(f"{k} {v:.3f} ms" for k, v in rows.items())
+    arms = {k: out[k] for k in ("full", "int8", "k1", "bf16")}
+    if any(v is None or v["of_peak"] > 1.05 for v in arms.values()):
+        raise AssertionError(f"phase 5h: probe_prefill {out}")
+    return "; ".join(f"{k} {v['ms']:.2f} ms ({v['of_peak']:.3f} of peak)"
+                     for k, v in arms.items())
+
+
+def bench_runs(dev) -> dict:
+    """Phase 5h (--benches): each bench module's main([]) at its defaults
+    (bench/serving7b, bench/speculative, bench/attribution,
+    bench/probe_step_overhead, bench/probe_prefill), each printing its JSON
+    line, its launches counted over the whole call and held to BENCHES,
+    its result to bench_check; then utils/profiling's dispatch_overhead
+    and fusion_benefit. Returns the benches' launches."""
+    import importlib
+
+    from physics_llm_inference_tpu_torch.utils import profiling
+
+    counts, failed = {k: 0 for k in KERNELS}, []
+    for name, expect in BENCHES:
+        mod = importlib.import_module(f"{PKG}.bench.{name}")
+        reset_launches()
+        t0 = time.perf_counter()
+        out = mod.main([])
+        secs = time.perf_counter() - t0
+        c = read_launches()
+        release()
+        for k in KERNELS:
+            counts[k] += c[k]
+        try:
+            missing = [k for k in expect if c[k] == 0]
+            if missing:
+                raise AssertionError(f"phase 5h: bench/{name} launched none "
+                                     f"of {missing}")
+            line = bench_check(name, out)
+        except AssertionError as e:     # logged, then raised below
+            failed.append(str(e))
+            line = f"FAILED: {e}"
+        log(f"phase 5h bench/{name} ({nvidia_smi()}; {secs:.1f} s): {line};"
+            f" launches { {k: v for k, v in c.items() if v} }")
+    log(f"phase 5h utils/profiling ({nvidia_smi()}): dispatch_overhead "
+        f"{json.dumps(profiling.dispatch_overhead())}; fusion_benefit "
+        f"{json.dumps(profiling.fusion_benefit())}")
+    if failed:
+        raise AssertionError(" | ".join(failed))
+    return counts
+
+
 def release() -> None:
     """Return this process's free cached blocks to the card. A phase's
     tensors can outlive it in reference cycles (a frame of a caught
@@ -5836,13 +6776,40 @@ def release() -> None:
     torch.cuda.empty_cache()
 
 
-def log_memory(after: str) -> None:
-    """What this process still holds on the card after a phase."""
-    import torch
+def log_memory(after: str) -> dict:
+    """What this process still holds on the card after a phase, read
+    through utils/profiling.device_memory_stats: allocated and reserved,
+    and the largest free block that keeps a cached segment. Returns the
+    stats."""
+    from physics_llm_inference_tpu_torch.utils.profiling import \
+        device_memory_stats
 
-    log(f"after {after}: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
-        f"allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB "
-        f"reserved")
+    st = device_memory_stats()
+    log(f"after {after}: {st['bytes_in_use'] / 2**30:.2f} GiB allocated, "
+        f"{st['reserved_bytes'] / 2**30:.2f} GiB reserved (largest free "
+        f"block inside a segment in use "
+        f"{st['largest_inactive_split_bytes'] / 2**30:.2f} GiB; "
+        f"device_memory_stats)")
+    return st
+
+
+def memory_after_5e() -> None:
+    """After phase 5e (and release()) the process may hold at most 2 GiB
+    reserved above what it has allocated."""
+    st = log_memory("phase 5e")
+    if st["reserved_bytes"] > st["bytes_in_use"] + (2 << 30):
+        raise AssertionError("after phase 5e the process holds "
+                             f"{st['reserved_bytes'] / 2**30:.2f} GiB "
+                             "reserved, more than 2 GiB above the "
+                             f"{st['bytes_in_use'] / 2**30:.2f} GiB allocated")
+
+
+def timed(phase: str, fn, *a, **kw):
+    """fn(*a, **kw), its seconds logged under `phase`."""
+    t0 = time.perf_counter()
+    out = fn(*a, **kw)
+    log(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def main(argv=()) -> int:
@@ -5868,6 +6835,9 @@ def main(argv=()) -> int:
 
     t0 = time.perf_counter()
     reports = {}
+    # built from the sources every run: a library left by an earlier run
+    # would skip nvcc, whose ptxas report phases 2 and 5e read
+    _build.LIB_PATH.unlink(missing_ok=True)
     _build.build(ptxas=reports)
     _build.lib()
     log(f"build: {time.perf_counter() - t0:.1f} s -> {_build.LIB_PATH}")
@@ -5876,7 +6846,8 @@ def main(argv=()) -> int:
 
     parts = set(argv) & {"--k1", "--attention", "--fused", "--decode",
                          "--serving", "--frontend", "--copy", "--moe",
-                         "--accuracy", "--parallel"}
+                         "--accuracy", "--parallel", "--capture",
+                         "--train", "--benches", "--determinism"}
     flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
     if parts:
         # parts alone, for comparing trees: K1 in phase 3; K2, K6 and K7
@@ -5910,36 +6881,66 @@ def main(argv=()) -> int:
             moe_runs(dev)
         if "--accuracy" in argv:
             accuracy_runs(dev, reports)
+            release()
+            memory_after_5e()
         if "--parallel" in argv:
             parallel_runs(dev)
+        if "--determinism" in argv:
+            # --determinism {replay,eager,interleave} N: K4 W8A16 alone,
+            # N launches of the form(s), each bit-equal to the first
+            i = argv.index("--determinism")
+            form, n = argv[i + 1], int(argv[i + 2])
+            determinism_alone(dev, form, n)
+        failed = []
+        for flag, phase, fn in (("--capture", "A (--capture)", capture_runs),
+                                ("--train", "5g", train_runs),
+                                ("--benches", "5h", bench_runs)):
+            if flag in argv:
+                try:
+                    timed(phase, fn, dev)
+                except AssertionError as e:     # logged, then raised below
+                    failed.append(f"{flag}: {e}")
+                    log(f"{flag} failed: {e}")
+                release()
         log(nvidia_smi())
+        if failed:
+            raise AssertionError(" || ".join(failed))
         return 0
-    kernels = check_kernels(dev, flush)
+    kernels = timed("3", check_kernels, dev, flush)
     del flush
     torch.cuda.empty_cache()
-    phase_clock(dev)
+    timed("3b", phase_clock, dev)
+    t0 = time.perf_counter()
     slice_parity(dev, fused=False)
     for mode in FUSED_MODES:
         slice_parity(dev, fused=True, mode=mode)
     paged_slice_parity(dev)
+    log(f"phase 4: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
-    dense, params, step_ms = full_runs(dev)
-    paged = serving_runs(dev, params)
-    front = frontend_runs(dev, params, step_ms)
+    dense, params, step_ms = timed("5 (cached_generate, headline)",
+                                   full_runs, dev)
+    paged = timed("5 (paged engine)", serving_runs, dev, params)
+    timed("A (captured steps against eager)", capture_runs, dev, params,
+          **FULL_RUN_CAPTURE)
+    front = timed("5c", frontend_runs, dev, params, step_ms)
     del params
     release()
     log_memory("phase 5c")
-    moe = moe_runs(dev)
+    moe = timed("5d", moe_runs, dev)
     release()
     log_memory("phase 5d")
-    acc = accuracy_runs(dev, reports)
+    acc = timed("5e", accuracy_runs, dev, reports)
     release()
-    log_memory("phase 5e")
-    par = parallel_runs(dev)
+    memory_after_5e()
+    par = timed("5f", parallel_runs, dev)
     release()
-    micro = micro_path(dev)
+    trained = timed("5g", train_runs, dev)
+    release()
+    benches = timed("5h", bench_runs, dev)
+    release()
+    micro = timed("6", micro_path, dev)
     counts = {k: dense[k] + paged[k] + front[k] + moe[k] + acc[k] + par[k]
-              + micro[k] for k in KERNELS}
+              + trained[k] + benches[k] + micro[k] for k in KERNELS}
 
     rows = []
     for name, row in kernels.items():

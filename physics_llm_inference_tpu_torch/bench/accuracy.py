@@ -5,7 +5,8 @@ repository's `scripts/accuracy_report.py`.
 
 DIR holds `config.json` (the ModelConfig fields), `params.npz`
 (models/loader.save_params format), `heldout.npy` (a token stream) and,
-optionally, `tokenizer.json`, as `scripts/train_toy.py` writes them. The
+optionally, `tokenizer.json`, as `scripts/train_toy.py` and `bench/train_toy`
+write them (the latter also records its tokenizer in `config.json`). The
 budget of BASELINE.md (0.1 perplexity, here max(0.1, 0.1% of the fp
 perplexity) as the script states it) is checked through every serving
 numerics path:
@@ -26,6 +27,7 @@ it, and in bfloat16 on the card, whose kernels take bf16 activations.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -95,7 +97,11 @@ def report(args) -> dict:
                          "CPU")
     dtype = "float32" if dev.type == "cpu" else "bfloat16"
     with open(os.path.join(args.ckpt, "config.json")) as f:
-        cfg = ModelConfig(dtype=dtype, **json.load(f))
+        conf = json.load(f)
+    # the ModelConfig fields; bench/train_toy also records its tokenizer
+    fields = {f.name for f in dataclasses.fields(ModelConfig)}
+    cfg = ModelConfig(dtype=dtype, **{k: v for k, v in conf.items()
+                                      if k in fields})
     params = _cast(load_params(os.path.join(args.ckpt, "params.npz"),
                                device=dev), getattr(torch, dtype))
     held = np.load(os.path.join(args.ckpt, "heldout.npy"))

@@ -51,6 +51,16 @@ def log(*a):
     print(*a, file=sys.stderr, flush=True)
 
 
+def device_of(device) -> torch.device:
+    """`device` as a torch.device; a CUDA device without CUDA raises (a
+    bench runs on the CPU only when asked to)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: pass device='cpu' (--device cpu) "
+                         "to run on the CPU")
+    return dev
+
+
 def median_run(outs: list):
     """The run of median decode tok/s (bench.py:104-105)."""
     outs = sorted(outs, key=lambda o: o.decode_tokens_per_s)

@@ -72,7 +72,8 @@
 // bits, which no order changes), so the step is deterministic; the summing
 // phases read them four columns a load, every partial in flight. L1 is not
 // coherent across SMs, so everything another block wrote in this launch is
-// read through L2 (ld.global.cg).
+// read through L2 (ld.global.cg; the GEMM phases' x chunks by cp.async.cg,
+// w8s::produce_x_rows, not TMA: see w8a16_stream.cuh).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -101,7 +102,7 @@ constexpr int ASC_LN1 = 0, ASC_ATTN = 1, ASC_LN2 = 2, ASC_FF = 3, ASC_FFMAX = 4;
 constexpr int QKV = 0, WO = 1, GU = 2, DN = 3;
 
 // W8A8: the bytes between two int8 activation rows of width n, a multiple
-// of 16 (a TMA stride must be).
+// of 16 (a 16-byte copy's alignment).
 static __host__ __device__ __forceinline__ int row_pitch(int n) { return (n + 15) & ~15; }
 
 struct Params {
@@ -723,14 +724,24 @@ static __device__ void silu_quant_phase(const Params& p) {
   }
 }
 
-// The tensor maps (w8a16_stream.cuh) of each GEMM phase: its weights, its
-// activations (h, attn, h, ff; W8A8 a8 at each phase's width) and, W4A16,
-// its group scales.
+// The tensor maps (w8a16_stream.cuh) of each GEMM phase: its weights and,
+// W4A16, its group scales. Its activations, which this launch writes, come
+// through w8s::produce_x_rows, not TMA.
 struct Maps {
   CUtensorMap w[4];
-  CUtensorMap x[4];
   CUtensorMap s[4];
 };
+
+// The x of GEMM phase ph (QKV, WO, GU, DN): the bf16 rows of h, attn, h, ff
+// or, W8A8, the int8 rows of a8 at the phase's width.
+template <int kMode>
+static __device__ __forceinline__ w8s::XRows x_rows(const Params& p, int ph) {
+  const int K = ph == WO ? p.HQ * p.HD : ph == DN ? p.F : p.D;
+  if constexpr (kMode == W8A8)
+    return w8s::XRows{reinterpret_cast<const char*>(p.a8), p.B, K, row_pitch(K)};
+  const __nv_bfloat16* x = ph == WO ? p.attn : ph == DN ? p.ff : p.h;
+  return w8s::XRows{reinterpret_cast<const char*>(x), p.B, 2 * K, 2 * K};
+}
 
 // The grid barrier, over the consumer threads only: the n-th barrier of a
 // launch waits for the counter (zeroed before the launch) to reach n *
@@ -793,14 +804,16 @@ fused_decode_stream_kernel(const Params p, const __grid_constant__ Maps maps) {
   const w8s::Ring<kMode> ring{base};
   CrewSmem* crews = reinterpret_cast<CrewSmem*>(dsmem + (base + RING_SPAN - raw));
   short* order = reinterpret_cast<short*>(crews + 2);
-  if (w8s::thread0()) w8s::ring_init(ring);
+  if (w8s::thread0()) w8s::ring_init(ring, w8s::X_LANES);
   __syncthreads();
 
   const int D = p.D, F = p.F, QH = p.HQ * p.HD;
   const int QO = QH + 2 * p.HKV * p.HD;
   if (threadIdx.x >= w8s::CONSUMERS) {
-    // the producers: every weight tile of this block, layer after layer,
-    // and every x chunk, each once its phase is open
+    // the producers: every weight tile of this block, layer after layer
+    // (one thread), and every x chunk, each once its phase is open (the
+    // other three warps): h, attn, h, ff, or W8A8's int8 rows of a8 at
+    // each phase's width
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(w8s::PRODUCER_REGS));
     const int N[4] = {QO, D, 2 * F, D};
     const int G[4] = {p.g_qkv, p.g_wo, p.g_gu, p.g_dn};
@@ -811,11 +824,12 @@ fused_decode_stream_kernel(const Params p, const __grid_constant__ Maps maps) {
         for (int ph = 0; ph < 4; ++ph)
           w8s::produce(p.plan[ph], &maps.w[ph], &maps.s[ph], l,
                        kMode == W4A16 ? N[ph] / 2 : N[ph], G[ph], ring, it);
-    } else if (threadIdx.x == w8s::CONSUMERS + 32) {
+    } else if (threadIdx.x >= w8s::CONSUMERS + 32) {
+      const int lane = threadIdx.x - (w8s::CONSUMERS + 32);
       for (int l = 0; l < p.L; ++l)
 #pragma unroll
         for (int ph = 0; ph < 4; ++ph)
-          w8s::produce_x(p.plan[ph], &maps.x[ph], 4 * l + ph, ring, it);
+          w8s::produce_x_rows(p.plan[ph], x_rows<kMode>(p, ph), 4 * l + ph, ring, it, lane);
     }
     return;
   }
@@ -889,21 +903,17 @@ static void set_plan(Params& p, const int* plan) {
   }
 }
 
-// The tensor maps of `mode`: weights (L, K, N) int8 or (L, K, N/2) packed,
-// activations bf16 or, W8A8, the int8 rows of a8; W4A16 its group scales,
-// as many rows a box as a stage holds groups.
+// The tensor maps of `mode`: weights (L, K, N) int8 or (L, K, N/2) packed;
+// W4A16 its group scales, as many rows a box as a stage holds groups.
 static bool encode_maps(Maps& maps, const Params& p, int mode) {
   const int QH = p.HQ * p.HD, QO = QH + 2 * p.HKV * p.HD;
   const void* w[4] = {p.wqkv, p.wo, p.wgu, p.wdn};
   const float* s[4] = {p.sqkv, p.swo, p.sgu, p.sdn};
-  const void* x[4] = {p.h, p.attn, p.h, p.ff};
   const int K[4] = {p.D, QH, p.D, p.F}, N[4] = {QO, p.D, 2 * p.F, p.D};
   const int G[4] = {p.g_qkv, p.g_wo, p.g_gu, p.g_dn};
   for (int ph = 0; ph < 4; ++ph) {
-    const bool a8 = mode == W8A8, w4 = mode == W4A16;
-    if (!w8s::encode_weights(&maps.w[ph], w[ph], p.L, K[ph], w4 ? N[ph] / 2 : N[ph]) ||
-        !w8s::encode_x(&maps.x[ph], a8 ? p.a8 : x[ph], p.B, K[ph],
-                       a8 ? row_pitch(K[ph]) : 2 * K[ph], a8))
+    const bool w4 = mode == W4A16;
+    if (!w8s::encode_weights(&maps.w[ph], w[ph], p.L, K[ph], w4 ? N[ph] / 2 : N[ph]))
       return false;
     if (w4 && !w8s::encode_scales(&maps.s[ph], s[ph], p.L, K[ph] / G[ph], N[ph],
                                   G[ph] < w8s::KT ? w8s::KT / G[ph] : 1))

@@ -37,15 +37,22 @@
 //    activations, so the next phase's and the next layer's first tiles land
 //    while the row, RoPE and attention phases run. Weights stay in their
 //    layout; no copy is made.
-//  - Activations. A second producer thread puts the unit's x chunk (64 rows x
-//    KT; bf16 128-byte swizzled, int8 64-byte swizzled; zero-filled past M
-//    and K) into the same stage with TMA, once a phase's activations exist:
-//    the consumers open each GEMM phase after its grid barrier
-//    (`open_phase`), and the x producer fences the async proxy before it
-//    reads what other blocks wrote. The consumers do no copies and meet at
-//    no barrier inside a phase: loading x themselves (cp.async) with a
-//    consumer barrier a stage held the stream well below what the same loop
-//    ran at without them.
+//  - Activations. The unit's x chunk (64 rows x KT; bf16 128-byte swizzled,
+//    int8 64-byte swizzled; zero-filled past M and K) goes into the same
+//    stage once a phase's activations exist: the consumers open each GEMM
+//    phase after its grid barrier (`open_phase`). K1, whose x was written
+//    before its launch, loads it with TMA from a second producer thread
+//    (`produce_x`). The fused kernel's activations are written in the same
+//    launch by other blocks' generic stores: read by TMA after the grid
+//    barrier, about one 32-layer launch in 4,000 came out different (a
+//    few rows, each in the first half of a chunk), proxy fences on both
+//    sides notwithstanding. There the producer warpgroup's other three
+//    warps copy the chunk with cp.async.cg, which the barrier's release
+//    and acquire order like any generic load (`produce_x_rows`): no launch
+//    of 36,000 differed.
+//    The consumers do no copies and meet at no barrier inside a phase:
+//    loading x themselves (cp.async) with a consumer barrier a stage held
+//    the stream well below what the same loop ran at without them.
 //  - The math. Eight consumer warps, each all 64 rows of its slice of the
 //    slab, on mma.sync with the accumulators in registers; A-fragments come
 //    from the x chunk with ldmatrix, B-fragments are made in registers from
@@ -260,13 +267,14 @@ struct Ring {
   }
 };
 
-// One thread: every stage's barriers (the full one counts the two
-// producers' arrivals plus the TMA bytes, the empty one an arrive of each
-// consumer warp), and no phase opened.
+// One thread: every stage's barriers (the full one counts the weight
+// producer's arrival, the x producer's `x_arrivals` (one thread's TMA, or
+// each of produce_x_rows' X_LANES threads) and the TMA bytes, the empty one
+// an arrive of each consumer warp), and no phase opened.
 template <int kMode>
-static __device__ __forceinline__ void ring_init(const Ring<kMode>& r) {
+static __device__ __forceinline__ void ring_init(const Ring<kMode>& r, int x_arrivals = 1) {
   for (int s = 0; s < Geo<kMode>::STAGES; ++s) {
-    mbar_init(r.full(s), 2);
+    mbar_init(r.full(s), 1 + x_arrivals);
     mbar_init(r.empty(s), CONSUMERS / 32);
   }
   asm volatile("st.shared.u32 [%0], 0;\n" ::"r"(r.opened()) : "memory");
@@ -331,6 +339,63 @@ static __device__ __forceinline__ void produce_x(const Plan& pl, const CUtensorM
     mbar_expect_tx(r.full(s), G::X_BYTES);   // rows past M count whole
     tma_load_2d(r.xchunk(s), map, r.full(s), (t % pl.ktn) * KT,
                 (t / pl.ktn / pl.slabs) * MT);
+  }
+}
+
+// The x of a GEMM phase for produce_x_rows: M rows `pitch` bytes apart
+// (16-byte aligned, a multiple of 16), `bytes` bytes of each live.
+struct XRows {
+  const char* base;
+  int M, bytes, pitch;
+};
+
+// The threads of produce_x_rows: the producer warpgroup's three warps
+// beside the weight producer's.
+constexpr int X_LANES = 96;
+
+// The x producer of a kernel whose activations other blocks write in the
+// same launch, run by X_LANES threads (`lane` the thread's index among
+// them): after the phase opens (as produce_x), each copies its 16-byte
+// pieces of every unit's x chunk with cp.async.cg (through L2) into the
+// layout TMA gives the chunk (128-byte swizzle for bf16 rows, 64-byte for
+// int8), zero-filling pieces past M and past the row, and its arrival on
+// the stage's full barrier lands when its copies have
+// (cp.async.mbarrier.arrive.noinc: ring_init with x_arrivals X_LANES). One
+// warp's copies held the bf16 GEMM phases to ~60% of TMA's stream (H100
+// SXM, 700 W).
+template <int kMode>
+static __device__ __forceinline__ void produce_x_rows(const Plan& pl, const XRows& x, int phase,
+                                                      const Ring<kMode>& r, uint32_t& it,
+                                                      int lane) {
+  using G = Geo<kMode>;
+  constexpr int ROW = G::X_BYTES / MT;        // bytes of a chunk row: KT values
+  constexpr int PIECES = ROW / 16;
+  unsigned long long since = 0;
+  for (;;) {
+    uint32_t opened;
+    asm volatile("ld.acquire.cta.shared.u32 %0, [%1];\n"
+                 : "=r"(opened) : "r"(r.opened()) : "memory");
+    if (static_cast<int>(opened) > phase) break;
+    check_stuck(since);
+    __nanosleep(256);
+  }
+  if (static_cast<int>(blockIdx.x) >= pl.blocks) return;
+  const int t1 = first_tile(pl, blockIdx.x + 1);
+  for (int t = first_tile(pl, blockIdx.x); t < t1; ++t, ++it) {
+    const int s = it % G::STAGES;
+    mbar_wait(r.empty(s), ((it / G::STAGES) & 1) ^ 1);
+    const int k0 = (t % pl.ktn) * ROW, m0 = (t / pl.ktn / pl.slabs) * MT;
+    const uint32_t dst = r.xchunk(s);
+#pragma unroll 1
+    for (int i = lane; i < MT * PIECES; i += X_LANES) {
+      const int row = i / PIECES, c = i % PIECES, off = k0 + 16 * c;
+      const int n = m0 + row < x.M && off < x.bytes ? min(16, x.bytes - off) : 0;
+      const int sw = ROW == 128 ? c ^ (row & 7) : c ^ ((row >> 1) & 3);
+      kv_attn::cp16(dst + row * ROW + (sw << 4),
+                    x.base + (n > 0 ? (size_t)(m0 + row) * x.pitch + off : 0), n);
+    }
+    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(r.full(s))
+                 : "memory");
   }
 }
 

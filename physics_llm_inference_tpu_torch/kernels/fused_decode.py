@@ -80,7 +80,6 @@ PHASES_W8A8 = (PHASES[:3] + ("attn_quant",) + PHASES[3:7] + ("silu_quant",)
 GEMM_PHASES = {"qkv_gemm": "wqkv", "wo_gemm": "wo", "gu_gemm": "w_gate_up",
                "down_gemm": "w_down"}
 _grid: dict[tuple, int] = {}  # (device index, instance) -> blocks of one launch
-_workspaces: dict[tuple, dict] = {}  # (device, shapes) -> scratch tensors
 
 
 def _pick_tile(dim: int, target: int) -> int:
@@ -314,32 +313,31 @@ def _launch_grid(device: torch.device, instance: int) -> int:
     return _grid[idx, instance]
 
 
-def _workspace(device, L, B, D, F_, QH, KH, HKV, ws_floats) -> dict:
-    """The scratch tensors of one launch shape (kept across launches): the
-    activation rows, the partials' workspace (`ws_floats` f32), the new K/V
-    of a write_cache launch, W8A8's int8 rows (16-byte row pitch: a TMA
-    stride), their scales and silu's f32 row, and the kernel's two counters,
-    its grid barrier's and its attention items' (zeroed by every launch)."""
-    key = (str(device), L, B, D, F_, QH, KH, ws_floats)
-    if key not in _workspaces:
-        def e(*shape, dtype=torch.bfloat16):
-            return torch.empty(shape, dtype=dtype, device=device)
+def _workspace(device, B, D, F_, QH, ws_floats, mode: int) -> dict:
+    """The scratch tensors of one launch: the activation rows, the
+    partials' workspace (`ws_floats` f32), W8A8's int8 rows (16-byte row
+    pitch), their scales and silu's f32 row (null pointers in the other
+    modes), and the kernel's two counters, its grid barrier's and its
+    attention items' (zeroed by the launch). Fresh for every launch: an
+    eager launch's scratch goes back to the allocator's cache when it
+    returns (the stream orders its reuse), and a launch under capture takes
+    its own from the graph's memory pool, so no other launch writes a
+    graph's scratch between its replays and none is kept for the process's
+    life."""
+    def e(*shape, dtype=torch.bfloat16):
+        return torch.empty(shape, dtype=dtype, device=device)
 
-        _workspaces[key] = dict(
-            xf=e(B, D, dtype=torch.float32), h=e(B, D), qbuf=e(B, QH),
-            attn=e(B, QH), ff=e(B, F_), ws=e(ws_floats, dtype=torch.float32),
-            k_new=e(L, B, KH, dtype=torch.int8),
-            ks_new=e(L, B, HKV, dtype=torch.float32),
-            v_new=e(L, B, KH, dtype=torch.int8),
-            vs_new=e(L, B, HKV, dtype=torch.float32),
-            # W8A8: the quantized activation rows, a row of scales per
-            # quantization point (ln1, attention, ln2, silu) and the silu
-            # row's absmax, and silu's f32 (B, F) row
-            a8=e(B * -(-max(D, QH, F_) // 16) * 16, dtype=torch.int8),
-            asc=e(5, B, dtype=torch.float32),
-            ffs=e(B, F_, dtype=torch.float32),
-            sync=e(2, dtype=torch.int32))
-    return _workspaces[key]
+    w = dict(xf=e(B, D, dtype=torch.float32), h=e(B, D), qbuf=e(B, QH),
+             attn=e(B, QH), ff=e(B, F_), ws=e(ws_floats, dtype=torch.float32),
+             sync=e(2, dtype=torch.int32), a8=None, asc=None, ffs=None)
+    if mode == W8A8:
+        # the quantized activation rows, a row of scales per quantization
+        # point (ln1, attention, ln2, silu) and the silu row's absmax, and
+        # silu's f32 (B, F) row
+        w.update(a8=e(B * -(-max(D, QH, F_) // 16) * 16, dtype=torch.int8),
+                 asc=e(5, B, dtype=torch.float32),
+                 ffs=e(B, F_, dtype=torch.float32))
+    return w
 
 
 def _shapes(x, cfg) -> dict:
@@ -402,16 +400,15 @@ def _scratch(x, L: int, cfg, mode: int, paged: bool = False):
     packed bytes). The workspace holds the largest phase's partials: f32
     (W8A16, W4A16) or int32 (W8A8)."""
     B = x.shape[0]
-    hkv, hd = cfg.num_kv_heads, cfg.head_dim
     grid = _launch_grid(x.device, _K8 if paged else mode)
     shapes = _shapes(x, cfg).values()
     plans = [_plan(B, n // 2, k, grid, SLAB4) if mode == W4A16
              else _plan(B, n, k, grid) for k, n in shapes]
     ws_floats = B * max(pl.partials * n for pl, (_, n) in zip(plans, shapes))
     plan = [v for pl in plans for v in pl.args()]
-    D, F_, QH = x.shape[1], cfg.intermediate_dim, cfg.num_heads * hd
+    D, F_, QH = x.shape[1], cfg.intermediate_dim, cfg.num_heads * cfg.head_dim
     return grid, (ctypes.c_int * 20)(*plan), _workspace(
-        x.device, L, B, D, F_, QH, hkv * hd, hkv, ws_floats)
+        x.device, B, D, F_, QH, ws_floats, mode)
 
 
 def _new_kv(L: int, B: int, KH: int, hkv: int, device):
@@ -502,16 +499,13 @@ def fused_decode_step(blocks, x, k_q, k_s, v_q, v_s, q_slot, valid_from,
         raise ValueError("the int8 cache must be 16-byte aligned")
 
     grid, plan, w = _scratch(x, L, cfg, mode)
-    if write_cache:
-        new = (w["k_new"], w["ks_new"], w["v_new"], w["vs_new"])
-        wslot = write_slots(slot, B, x.device)
-    else:
-        new = _new_kv(L, B, KH, hkv, x.device)
-        wslot = qslot   # not read: nothing is written
+    new = _new_kv(L, B, KH, hkv, x.device)
+    # not read without write_cache: nothing is written
+    wslot = write_slots(slot, B, x.device) if write_cache else qslot
     groups = [int4_group_size(k, n) if mode == W4A16 else 0
               for k, n in _shapes(x, cfg).values()]
     x_out = torch.empty_like(x)
-    ptr = [t.data_ptr() for t in (
+    ptr = [0 if t is None else t.data_ptr() for t in (
         x, blocks["ln1"], blocks["ln2"], wqkv.q, wqkv.s, wo.q, wo.s, wgu.q,
         wgu.s, wdn.q, wdn.s, k_q, k_s, v_q, v_s, cos, sin, qslot, vfrom,
         wslot, *new, x_out, w["xf"], w["h"], w["qbuf"], w["attn"], w["ff"],

@@ -175,10 +175,8 @@ def decode_step_cache() -> StepCache:
     greedy or not, the filters, the stop tokens, the pad id and, for a
     sampled loop, the device of the caller's generator (the loop draws from
     its own, loaded with the caller's state each call). On CUDA each entry
-    holds its step captured as a CUDA graph; the loops of one cache share
-    one graph memory pool. The cache keeps every entry's parameters and KV
-    cache alive."""
-    pool = []
+    holds its step captured as a CUDA graph. The cache keeps every entry's
+    parameters and KV cache alive."""
 
     def make(params, cfg, b, capacity, kv_dtype, greedy, top_k, has_top_p,
              stop_tokens, pad_id, gen_device):
@@ -188,9 +186,7 @@ def decode_step_cache() -> StepCache:
         dev = params["embed"].device
         if dev.type != "cuda":
             return loop, loop.step
-        if not pool:
-            pool.append(torch.cuda.graph_pool_handle())
-        return loop, CapturedStep(loop.step, dev, pool[0], (loop.generator,))
+        return loop, CapturedStep(loop.step, dev, (loop.generator,))
 
     return StepCache(make)
 

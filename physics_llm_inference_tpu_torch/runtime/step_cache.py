@@ -80,14 +80,19 @@ class CapturedStep:
     replay.
 
     At construction `fn` runs once eagerly on a side stream (kernel builds,
-    workspaces that launchers keep, the allocator's blocks), then once under
-    capture into `pool` (a `torch.cuda.graph_pool_handle()` shared by the
-    graphs of one owner). The warm-up runs on whatever the static buffers
-    hold: the owner fills them with values whose writes are harmless first.
-    `generators`: the `torch.Generator`s `fn` draws from, registered with
-    the graph so each replay advances them. A capture that fails raises."""
+    the allocator's blocks), then once under capture. Each graph captures
+    into a memory pool of its own: what `fn` allocates during capture (its
+    intermediates, its kernels' scratch, its static output) lives in that
+    pool for the graph's life, and no other graph's replay or eager launch
+    writes it. (A pool shared by several graphs is safe only while they
+    replay in capture order: a graph captured later may place its static
+    output in blocks an earlier graph uses for intermediates.) The warm-up
+    runs on whatever the static buffers hold: the owner fills them with
+    values whose writes are harmless first. `generators`: the
+    `torch.Generator`s `fn` draws from, registered with the graph so each
+    replay advances them. A capture that fails raises."""
 
-    def __init__(self, fn: Callable, device, pool=None, generators=()):
+    def __init__(self, fn: Callable, device, generators=()):
         device = torch.device(device)
         main = torch.cuda.current_stream(device)
         side = torch.cuda.Stream(device)
@@ -100,7 +105,7 @@ class CapturedStep:
             if gen is not None:
                 self.graph.register_generator_state(gen)
         before = _launch_counters()
-        with torch.cuda.graph(self.graph, pool=pool):
+        with torch.cuda.graph(self.graph):
             self.out = fn()
         after = _launch_counters()
         for (mod, attr), val in before.items():
@@ -146,11 +151,11 @@ class StagedInputs:
         self._copied.record()
 
 
-def staged_step(fn: Callable, device, pool=None, generators=(),
+def staged_step(fn: Callable, device, generators=(),
                 capture: bool = True, **buffers: torch.Tensor):
     """A serving engine's dispatch step over static input buffers: returns
     (inputs, step), where `inputs` is the StagedInputs over `buffers` and
-    `step()` runs `fn(**buffers)`: captured into `pool` on CUDA (the capture
+    `step()` runs `fn(**buffers)`: captured on CUDA (the capture
     warms `fn` up on the buffers' initial values, so those must make its
     writes harmless), `fn` itself, eagerly, on the CPU or with
     `capture=False` (a step that runs collectives of a mesh)."""
@@ -162,4 +167,4 @@ def staged_step(fn: Callable, device, pool=None, generators=(),
 
     if device.type != "cuda" or not capture:
         return inputs, run
-    return inputs, CapturedStep(run, device, pool, generators)
+    return inputs, CapturedStep(run, device, generators)

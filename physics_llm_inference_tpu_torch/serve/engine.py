@@ -21,8 +21,8 @@ request stream gives the same `dispatch_trace`. What differs:
   prefill chunks in a `StepCache` keyed by the bucket
   (`stats()["prefill_compile"]`), decode horizons keyed by (horizon,
   filtered), the verify window by its width. On CUDA each is a CUDA graph
-  over static input buffers (`staged_step`), and all of an engine's graphs
-  share one memory pool; on the CPU the steps run eagerly. Sampling
+  over static input buffers (`staged_step`), each graph in a memory pool
+  of its own; on the CPU the steps run eagerly. Sampling
   scalars reach the steps as device tensors.
 - A prefill chunk runs on a static (L, 1, S, ·) slot buffer: the request's
   slot is copied into it before the chunk and back after it, by two copies
@@ -222,9 +222,6 @@ class InferenceEngine(RequestLifecycle):
         # aggregate stats (ref ch10/engine.py:200-211)
         self._start = time.monotonic()
 
-        # the graphs of this engine share one memory pool
-        self._graph_pool = (torch.cuda.graph_pool_handle()
-                            if dev.type == "cuda" else None)
         self._prefill_cache = StepCache(self._make_prefill)
         self._decode_fns: dict[tuple, tuple] = {}
         self._spec_step = None   # the verify window, made at first use
@@ -291,7 +288,7 @@ class InferenceEngine(RequestLifecycle):
                                  self._rng, temp, top_k, top_p)
 
         buf = self._buf
-        return staged_step(fn, self.device, self._graph_pool, (self._rng,),
+        return staged_step(fn, self.device, (self._rng,),
                            capture=self.mesh is None, ids=buf(1, cb),
                            start=buf(), nvalid=buf(fill=1),
                            temp=buf(dtype=torch.float32), top_k=buf(1),
@@ -345,7 +342,7 @@ class InferenceEngine(RequestLifecycle):
 
             n = self._slots_local
             self._decode_fns[key] = staged_step(
-                fn, self.device, self._graph_pool, (self._rng,),
+                fn, self.device, (self._rng,),
                 capture=self.mesh is None, tokens=buf(n),
                 lengths=buf(n, fill=c.max_seq_len - 1),
                 temps=buf(n, fill=1, dtype=torch.float32),
@@ -381,7 +378,7 @@ class InferenceEngine(RequestLifecycle):
                                       self._v, starts, starts, None)
 
             self._spec_step = staged_step(
-                fn, self.device, self._graph_pool,
+                fn, self.device,
                 window=buf(c.num_slots, w),
                 starts=buf(c.num_slots, fill=c.max_seq_len - 1 - w))
         return self._spec_step

@@ -22,8 +22,8 @@ steps: prefill chunks in a `StepCache` keyed by the prompt bucket
 (`stats()["prefill_compile"]`), each entry holding one step per padded row
 count, and decode horizons in `_decode_fns` keyed by (horizon, filtered).
 On CUDA each step is a captured CUDA graph over static input buffers, which
-the host fills through pinned staging buffers, and all of an engine's
-graphs share one memory pool; `warmup()` captures every decode horizon and
+the host fills through pinned staging buffers, each graph in a memory pool
+of its own; `warmup()` captures every decode horizon and
 each prefill bucket at one row. On the CPU the steps run eagerly. On CUDA
 the default INT8 geometry decodes through K8 (the fused paged kernel); the
 per-op routes run K6 (INT8 pools) or K7 (bf16 pools). The request
@@ -200,9 +200,6 @@ class PagedInferenceEngine(RequestLifecycle):
         gen_dev = dev if dev.type == "cuda" else "cpu"
         self._rng = torch.Generator(device=gen_dev).manual_seed(0)
         self._radix_hit_tokens = 0
-        # the graphs of this engine share one memory pool
-        self._graph_pool = (torch.cuda.graph_pool_handle()
-                            if dev.type == "cuda" else None)
         self._prefill_cache = StepCache(self._make_prefill)
         # (kind, bucket or horizon, ...) of every dispatch when a list
         self.dispatch_trace: list | None = None
@@ -273,7 +270,7 @@ class PagedInferenceEngine(RequestLifecycle):
         """A dispatch step over static input buffers (`staged_step`). The
         buffers' initial values must make `fn`'s writes harmless (tables on
         the trash block), since the capture's warm-up runs it on them."""
-        return staged_step(fn, self.device, self._graph_pool, generators,
+        return staged_step(fn, self.device, generators,
                            capture=self.mesh is None, **buffers)
 
     def _buf(self, *shape, fill=0, dtype=torch.int32) -> torch.Tensor:
@@ -385,6 +382,17 @@ class PagedInferenceEngine(RequestLifecycle):
             torch.cuda.synchronize(self.device)
         return time.monotonic() - t0
 
+    def _park_row(self, row: int) -> None:
+        """A row its request left (finished, preempted or its allocation
+        revoked): inactive, its table on the trash block. Every decode
+        dispatch writes K/V through every row's table, so a row left
+        pointing at its request's released blocks wrote into whichever
+        request the pool gave them to next, at the row's stale length (the
+        JAX engine parks only finished rows; its preempted rows write on
+        through their old tables)."""
+        self._active[row] = False
+        self._tables[row, :] = self._trash
+
     def _sync_table_row(self, row: int, rid: str) -> None:
         tbl = self.pool.tables[rid].block_ids
         self._tables[row, :] = self._trash
@@ -415,7 +423,7 @@ class PagedInferenceEngine(RequestLifecycle):
         for r in out.preempted:
             row = self._row_of.pop(r.request_id, None)
             if row is not None:
-                self._active[row] = False
+                self._park_row(row)
             r.output_tokens.clear()
             self._matched.pop(r.request_id, None)
 
@@ -448,7 +456,7 @@ class PagedInferenceEngine(RequestLifecycle):
                 # pool allocation revoked (preempted back to waiting after
                 # admission) — it re-enters via a future schedule()
                 self._row_of.pop(r.request_id, None)
-                self._active[row] = False
+                self._park_row(row)
                 continue
             if budget <= 0:
                 still_prefilling.append(r)
@@ -544,7 +552,7 @@ class PagedInferenceEngine(RequestLifecycle):
                     for v in victims:
                         vrow = self._row_of.pop(v.request_id, None)
                         if vrow is not None:
-                            self._active[vrow] = False
+                            self._park_row(vrow)
                         v.output_tokens.clear()
                 if not self.pool.free_blocks:
                     continue  # still full: request waits this iteration
@@ -590,16 +598,16 @@ class PagedInferenceEngine(RequestLifecycle):
                     ("decode", h, filtered,
                      tuple(int(self._row_of[r.request_id])
                            for r in decode_reqs)))
-            # the decode writes K/V through every row's table: route
-            # MID-PREFILL rows (inactive, but their tables point at blocks
-            # holding prefilled KV) to the trash block
-            tables = self._tables
-            if self._prefilling:
-                tables = self._tables.copy()
-                for pr in self._prefilling:
-                    prow = self._row_of.get(pr.request_id)
-                    if prow is not None:
-                        tables[prow, :] = self._trash
+            # the decode writes K/V through every row's table: route every
+            # row that does not decode in this dispatch (mid-prefill, or
+            # prefilled this step and not yet scheduled to decode) to the
+            # trash block, so it writes nothing a request owns (its first
+            # token and what it samples from it would land at its length
+            # and past it, to be written again by its first decode)
+            tables = self._tables.copy()
+            idle = np.ones(self.config.max_batch, dtype=bool)
+            idle[[self._row_of[r.request_id] for r in decode_reqs]] = False
+            tables[idle] = self._trash
             toks = self._decode(h, filtered, tokens, tables, temps, top_ks,
                                 top_ps)                  # (max_batch, h)
             for r in decode_reqs:
@@ -638,8 +646,7 @@ class PagedInferenceEngine(RequestLifecycle):
             self._radix_commit(r)
             row = self._row_of.pop(rid, None)
             if row is not None:
-                self._active[row] = False
-                self._tables[row, :] = self._trash
+                self._park_row(row)
             self._finish(r)
         if finished:
             self.scheduler.update(finished)

@@ -324,3 +324,28 @@ def test_w8a16_plan_covers_every_unit_once_in_one_wave(mode, shape, grid):
             assert set(rows.values()) == {G}
     if mode == t_fd.W4A16 and shape == "ragged":
         assert min(groups) < 16
+
+
+@pytest.mark.parametrize("mode", [t_fd.W8A16, t_fd.W4A16, t_fd.W8A8])
+def test_launch_scratch_is_fresh_and_sized_by_mode(mode):
+    """K4's scratch is allocated anew for every launch (no launch shares
+    another's, and none is kept), W8A8's int8 rows, scales and silu row
+    only in that mode; the write_cache path gets its new K/V from _new_kv
+    like the others."""
+    B, D, F_, QH = 4, 48, 40, 64
+    a = t_fd._workspace("cpu", B, D, F_, QH, 96, mode)
+    b = t_fd._workspace("cpu", B, D, F_, QH, 96, mode)
+    assert all(a[k].data_ptr() != b[k].data_ptr()
+               for k in a if a[k] is not None)
+    assert a["ws"].numel() == 96 and a["sync"].numel() == 2
+    assert tuple(a["h"].shape) == (B, D) and tuple(a["ff"].shape) == (B, F_)
+    w8a8 = ("a8", "asc", "ffs")
+    if mode == t_fd.W8A8:
+        assert a["a8"].numel() == B * 64 and a["a8"].dtype == torch.int8
+        assert tuple(a["asc"].shape) == (5, B)
+        assert tuple(a["ffs"].shape) == (B, F_)
+    else:
+        assert all(a[k] is None for k in w8a8)
+    new = t_fd._new_kv(2, B, 32, 2, "cpu")
+    assert [tuple(t.shape) for t in new] == [(2, B, 32), (2, B, 2),
+                                             (2, B, 32), (2, B, 2)]

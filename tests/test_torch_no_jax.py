@@ -40,7 +40,11 @@ def test_walk_finds_every_module():
                      "sched.mixed_batch", "sched.overlap", "parallel",
                      "parallel.mesh", "parallel.tp", "parallel.ep",
                      "parallel.ring_attention", "parallel.multihost",
-                     "specs.nvlink", "bench.scaling", "bench.ep_scaling"):
+                     "specs.nvlink", "bench.scaling", "bench.ep_scaling",
+                     "utils.profiling", "utils.logging", "specs.plot",
+                     "bench.train_toy", "bench.serving7b",
+                     "bench.speculative", "bench.attribution",
+                     "bench.probe_step_overhead", "bench.probe_prefill"):
         assert f"{port.__name__}.{expected}" in names
 
 

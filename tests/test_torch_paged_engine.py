@@ -220,15 +220,42 @@ ENGINE_CASES = {
 }
 
 
+class ParkedJaxEngine(j_engine.PagedInferenceEngine):
+    """The JAX engine with the rows its requests left routed to the trash
+    block in every decode dispatch, as the port parks them
+    (`_park_row`). The JAX engine parks only finished rows: a preempted
+    row's table keeps pointing at the blocks its request released, and the
+    fixed-shape decode writes K/V through it into whichever request the
+    pool hands those blocks next (test_reference_preempted_rows_write_
+    through_stale_tables). The host decisions, and so dispatch_trace, are
+    the JAX engine's."""
+
+    def _decode_for(self, horizon, filtered):
+        step = super()._decode_for(horizon, filtered)
+
+        def parked(params, tokens, k, v, tables, *rest):
+            t = np.asarray(tables).copy()
+            live = set(self._row_of.values())
+            for row in range(t.shape[0]):
+                if row not in live:
+                    t[row, :] = self._trash
+            return step(params, tokens, k, v, jax.numpy.asarray(t), *rest)
+
+        return parked
+
+
 @pytest.mark.parametrize("case", list(ENGINE_CASES))
 def test_engine_matches_jax_engine(toy, case):
+    """The port's engine against the JAX engine (with its left rows parked
+    on the trash block, ParkedJaxEngine) on one request stream: tokens,
+    finish reasons, dispatch_trace, radix hits, preemptions, pool stats."""
     jcfg, tcfg, jparams, tparams = toy
     kw = dict(num_blocks=32, block_size=8, max_batch=4,
               max_blocks_per_request=8, prompt_buckets=(8, 16, 32))
     kw.update(ENGINE_CASES[case])
     stream = _stream(len(case), 10)
     waves = [stream[:6], stream[6:]]
-    want = _serve(j_engine.PagedInferenceEngine(
+    want = _serve(ParkedJaxEngine(
         jparams, jcfg, j_engine.PagedEngineConfig(**kw)), JRequest, waves)
     got = _serve(t_engine.PagedInferenceEngine(
         tparams, tcfg, t_engine.PagedEngineConfig(**kw)), TRequest, waves)
@@ -242,6 +269,37 @@ def test_engine_matches_jax_engine(toy, case):
     if case.startswith("pressure"):
         assert want["preempted"] > 0
     assert (max(horizons) > 1) == (kw["decode_horizon"] > 1)
+
+
+def test_reference_preempted_rows_write_through_stale_tables(toy):
+    """Each greedy request's tokens do not depend on the pool's pressure:
+    the port's and ParkedJaxEngine's under pressure equal the JAX engine's
+    without it. The JAX engine's own under pressure do not: its preempted
+    rows write K/V through their stale tables into blocks another request
+    holds, which ParkedJaxEngine routes to the trash block."""
+    case = "pressure-h8-int8"
+    jcfg, tcfg, jparams, tparams = toy
+    kw = dict(num_blocks=32, block_size=8, max_batch=4,
+              max_blocks_per_request=8, prompt_buckets=(8, 16, 32))
+    kw.update(ENGINE_CASES[case])
+    free = dict(kw, num_blocks=64)
+    stream = _stream(len(case), 10)
+    waves = [stream[:6], stream[6:]]
+
+    def tokens(cls, cfg_cls, params, cfg, req, c):
+        return [r[0] for r in _serve(cls(params, cfg, cfg_cls(**c)), req,
+                                     waves)["results"]]
+
+    want = tokens(j_engine.PagedInferenceEngine, j_engine.PagedEngineConfig,
+                  jparams, jcfg, JRequest, free)
+    assert want == tokens(t_engine.PagedInferenceEngine,
+                          t_engine.PagedEngineConfig, tparams, tcfg,
+                          TRequest, kw)
+    assert want == tokens(ParkedJaxEngine, j_engine.PagedEngineConfig,
+                          jparams, jcfg, JRequest, kw)
+    assert want != tokens(j_engine.PagedInferenceEngine,
+                          j_engine.PagedEngineConfig, jparams, jcfg,
+                          JRequest, kw)     # the reference's hazard
 
 
 def test_int8_pool_contents_match_after_serving(toy):
@@ -297,3 +355,36 @@ def test_prefill_compile_stats_match_jax_engine(toy):
     for got, want in seen:
         assert got == want
     assert seen[-1][1]["hits"] > 0 and seen[0][1]["misses"] == 2
+
+
+@pytest.mark.parametrize("case", ["radix-h8-int8", "pressure-h8-int8"])
+def test_decode_dispatch_routes_idle_rows_to_trash(toy, case):
+    """Every decode dispatch writes K/V through the tables it is given: each
+    row that does not decode in it (left, mid-prefill, or prefilled in the
+    same step and not yet decoding) gets the trash block's table, each
+    decoding row its request's own; the tokens stay the JAX engine's."""
+    jcfg, tcfg, jparams, tparams = toy
+    kw = dict(num_blocks=32, block_size=8, max_batch=4,
+              max_blocks_per_request=8, prompt_buckets=(8, 16, 32))
+    kw.update(ENGINE_CASES[case])
+    eng = t_engine.PagedInferenceEngine(tparams, tcfg,
+                                        t_engine.PagedEngineConfig(**kw))
+    seen = []
+    decode = eng._decode
+
+    def spy(horizon, filtered, tokens, tables, *rest):
+        rows = eng.dispatch_trace[-1][3]
+        seen.append((rows, tables.copy(), eng._tables.copy()))
+        return decode(horizon, filtered, tokens, tables, *rest)
+
+    eng._decode = spy
+    stream = _stream(len(case), 10)
+    got = _serve(eng, TRequest, [stream[:6], stream[6:]])
+    assert seen
+    for rows, tables, own in seen:
+        for row in range(kw["max_batch"]):
+            want = own[row] if row in rows else eng._trash
+            np.testing.assert_array_equal(tables[row], want)
+    je = ParkedJaxEngine(jparams, jcfg, j_engine.PagedEngineConfig(**kw))
+    assert got["results"] == _serve(je, JRequest,
+                                    [stream[:6], stream[6:]])["results"]
