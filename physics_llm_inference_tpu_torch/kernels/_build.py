@@ -14,6 +14,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -84,6 +85,7 @@ SIGNATURES = {
 
 _lock = threading.Lock()
 _lib = None
+load_s = 0.0
 
 
 def _nvcc() -> str:
@@ -140,16 +142,19 @@ def build(ptxas: dict | None = None) -> Path:
 
 
 def lib() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
-    global _lib
+    """The loaded kernel library (built on first call; `load_s` counts the
+    seconds building and loading it took)."""
+    global _lib, load_s
     with _lock:
         if _lib is None:
+            t0 = time.perf_counter()
             handle = ctypes.CDLL(str(build()))
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(handle, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
             _lib = handle
+            load_s = time.perf_counter() - t0
     return _lib
 
 

@@ -14,13 +14,22 @@ integers named `*launches` that each wrapper bumps where it launches) would
 not move: a `CapturedStep` records each counter's change during its capture
 and adds it on every replay. The capture itself launches nothing and is
 not counted; the warm-up before it launches, and is.
+
+`capture_s` counts the seconds the `CapturedStep`s made in the process
+took to warm up and capture, each timed between two synchronizations of
+the device, less the kernel library's build and load when a warm-up's
+first launch triggered it (`_build.load_s`): set-up's cost; a replay does
+not move it.
 """
 from __future__ import annotations
 
 import importlib
+import time
 from typing import Callable, Sequence
 
 import torch
+
+from ..kernels import _build
 
 DEFAULT_BATCH_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128)
 DEFAULT_SEQ_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
@@ -28,6 +37,7 @@ DEFAULT_SEQ_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
 _KERNEL_MODULES = ("flash_attention", "fused_decode", "hello_pallas",
                    "int8_kv_attention", "int8_matmul", "lmhead", "matmul",
                    "membench", "paged_attention")
+capture_s = 0.0
 
 
 def bucket_for(n: int, buckets: Sequence[int]) -> int:
@@ -93,7 +103,10 @@ class CapturedStep:
     replay advances them. A capture that fails raises."""
 
     def __init__(self, fn: Callable, device, generators=()):
+        global capture_s
         device = torch.device(device)
+        torch.cuda.synchronize(device)
+        t0, loaded = time.perf_counter(), _build.load_s
         main = torch.cuda.current_stream(device)
         side = torch.cuda.Stream(device)
         side.wait_stream(main)
@@ -112,6 +125,8 @@ class CapturedStep:
             setattr(mod, attr, val)
         self.launches = {k: after[k] - v for k, v in before.items()
                          if after[k] != v}
+        torch.cuda.synchronize(device)
+        capture_s += time.perf_counter() - t0 - (_build.load_s - loaded)
 
     def __call__(self):
         """Replay the graph; returns the static output."""

@@ -71,6 +71,7 @@ from ..runtime.speculative import NgramIndex, _verify_window
 from ..runtime.step_cache import StepCache, bucket_for, staged_step
 from ..sched.request import Request, RequestState
 from ..sched.scheduler import Scheduler, SchedulerConfig, SchedulingPolicy
+from ..utils import tracing
 # the request records are also this module's names, as in the JAX package
 from .lifecycle import GenerationRequest, GenerationResult, RequestLifecycle
 
@@ -497,6 +498,7 @@ class InferenceEngine(RequestLifecycle):
                        listener: list | None = None) -> str:
         """Thread-safe intake (ref submit_request ch10/engine.py:72-94).
         `listener`, a list, receives each emitted token from the first."""
+        submitted = tracing.now()
         rid = self._new_id(req)
         if len(req.prompt_tokens) + req.max_tokens > self.config.max_seq_len:
             raise ValueError(
@@ -510,7 +512,7 @@ class InferenceEngine(RequestLifecycle):
                                     top_k=req.top_k, top_p=req.top_p,
                                     stop_tokens=tuple(req.stop_tokens)),
         )
-        self._enqueue(r, listener)
+        self._enqueue(r, listener, submitted)
         return rid
 
     # ----------------------------------------------------------------- step
@@ -542,6 +544,7 @@ class InferenceEngine(RequestLifecycle):
             slot = self._slot_pool.tables[r.request_id].block_ids[0]
             self._slot_of[r.request_id] = slot
             r.start_time = r.start_time or time.monotonic()
+            self._advance(r, "request.queued")
             self._prefilling.append(r)
         budget = (self.config.prefill_tokens_per_iter
                   or self.config.max_prefill_chunk)
@@ -576,6 +579,7 @@ class InferenceEngine(RequestLifecycle):
             # sampled from the final chunk's last token
             tok_i = self._first_token(slot, tok)
             r.first_token_time = time.monotonic()
+            self._advance(r, "request.first_token")
             r.output_tokens.append(tok_i)
             emitted.setdefault(r.request_id, []).append(tok_i)
             if self.config.speculative_k > 0:

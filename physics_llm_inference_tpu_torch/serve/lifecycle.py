@@ -10,6 +10,13 @@ for a whole iteration. A stream listener is a list that each emitted token
 is appended to; it is registered under the engine lock in the same critical
 section that makes the request schedulable, so no step can emit a token
 before the listener is there.
+
+Each request's time is recorded as three consecutive spans
+(utils/tracing.py): `request.queued` opens when `submit_request` is
+called (before it waits for the engine lock), the engine calls
+`_advance(r, "request.queued")` at its first admission and
+`_advance(r, "request.first_token")` at its first token, and `_finish`
+closes `request.decode`.
 """
 from __future__ import annotations
 
@@ -18,6 +25,11 @@ import time
 from dataclasses import dataclass
 
 from ..sched.request import Request
+from ..utils import tracing
+
+# the span that follows each of a request's spans
+_NEXT = {"request.queued": "request.first_token",
+         "request.first_token": "request.decode"}
 
 
 @dataclass
@@ -56,6 +68,7 @@ class RequestLifecycle:
         self._next_id = 0
         self._results: dict[str, GenerationResult] = {}
         self._listeners: dict[str, list] = {}
+        self._open: dict[str, tuple] = {}   # rid -> (open span, its start)
         self._total_requests = 0
         self._total_tokens = 0
 
@@ -66,18 +79,37 @@ class RequestLifecycle:
             self._total_requests += 1
         return rid
 
-    def _enqueue(self, r: Request, listener: list | None) -> None:
-        """Make `r` schedulable, its listeners registered first."""
+    def _enqueue(self, r: Request, listener: list | None,
+                 submitted_ns: int) -> None:
+        """Make `r` schedulable, its listeners registered first;
+        `submitted_ns`: when its submit_request was called (tracing.now)."""
         with self._lock:
             self._listeners[r.request_id] = ([] if listener is None
                                              else [listener])
+            if tracing.RECORDER.enabled:
+                self._open[r.request_id] = ("request.queued", submitted_ns)
             self.scheduler.add_request(r)
+
+    def _advance(self, r: Request, span: str) -> None:
+        """End `r`'s span `span` now and open the next one; nothing when
+        another span is open (a re-admission after a preemption keeps the
+        first admission)."""
+        opened = self._open.get(r.request_id)
+        if opened is None or opened[0] != span:
+            return
+        t = tracing.now()
+        tracing.record(span, opened[1], t, r.request_id)
+        self._open[r.request_id] = (_NEXT[span], t)
 
     def _notify(self, r: Request, tok: int) -> None:
         for q in self._listeners.get(r.request_id, []):
             q.append(tok)
 
     def _finish(self, r: Request) -> None:
+        opened = self._open.pop(r.request_id, None)
+        if opened is not None:
+            tracing.record(opened[0], opened[1], key=r.request_id,
+                           attrs=(r.finish_reason, len(r.output_tokens)))
         total = (r.finish_time or time.monotonic()) - r.arrival_time
         self._results[r.request_id] = GenerationResult(
             request_id=r.request_id, tokens=list(r.output_tokens),

@@ -29,7 +29,11 @@ the default INT8 geometry decodes through K8 (the fused paged kernel); the
 per-op routes run K6 (INT8 pools) or K7 (bf16 pools). The request
 lifecycle (intake with stream listeners, abort, `generate_stream`,
 `wait_result`) is serve/lifecycle.py's, shared with the slot engine; the
-HTTP server (serve/http_server.py) streams through it.
+HTTP server (serve/http_server.py) streams through it. Each `step()` records
+its phases as spans (utils/tracing.py): `engine.step` and, inside it,
+`schedule`, `prefill.stage`/`.launch`/`.results` per bucket,
+`decode.prepare`/`.launch`/`.results` and `retire`; a dispatch's launch
+span carries its `dispatch_trace` entry.
 
 `mesh` (parallel/mesh.py) serves tensor-parallel on its `model` axis, one
 engine a rank: the params are this rank's Megatron shard, the pools hold
@@ -43,6 +47,7 @@ decode is per-op, K1 with K6 or K7.
 """
 from __future__ import annotations
 
+import itertools
 import sys
 import time
 from dataclasses import dataclass
@@ -61,7 +66,16 @@ from ..runtime.paged_kv import PagedKVCache
 from ..runtime.step_cache import StepCache, bucket_for, staged_step
 from ..sched.request import Request, RequestState
 from ..sched.scheduler import Scheduler, SchedulerConfig, SchedulingPolicy
+from ..utils.tracing import RECORDER, now, record
 from .lifecycle import GenerationRequest, RequestLifecycle
+
+# the key of each step's spans: one count for every engine in the process
+_STEPS = itertools.count(1)
+
+
+def _no_time() -> int:
+    """A step's clock while the recorder is off: it reads nothing."""
+    return 0
 
 
 @dataclass
@@ -204,6 +218,11 @@ class PagedInferenceEngine(RequestLifecycle):
         # (kind, bucket or horizon, ...) of every dispatch when a list
         self.dispatch_trace: list | None = None
         self._decode_fns: dict[tuple, tuple] = {}
+        # the step's clock (`now`, or `_no_time` while the recorder is
+        # off), and on it when the latest dispatch step was launched and
+        # when its launch returned (decode; before the read-back)
+        self._clock = now
+        self._launched = self._returned = None
 
     def _dev(self, a) -> torch.Tensor:
         """A host array as a fresh tensor on the engine's device."""
@@ -296,6 +315,7 @@ class PagedInferenceEngine(RequestLifecycle):
                     starts=buf(rb), nval=buf(rb))
             inputs, step = steps[rb]
             inputs.load(ids=ids, tables=tables, starts=starts, nval=nval)
+            self._launched = self._clock()
             return step()
 
         return prefill
@@ -333,7 +353,10 @@ class PagedInferenceEngine(RequestLifecycle):
         inputs, step = self._decode_for(horizon, filtered)
         inputs.load(tokens=tokens, tables=tables, lengths=self._lengths,
                     temps=temps, top_ks=top_ks, top_ps=top_ps)
-        return step().cpu().numpy()
+        self._launched = self._clock()
+        out = step()
+        self._returned = self._clock()
+        return out.cpu().numpy()
 
     # ------------------------------------------------------------ requests
 
@@ -341,6 +364,7 @@ class PagedInferenceEngine(RequestLifecycle):
                        listener: list | None = None) -> str:
         """Thread-safe intake; `listener`, a list, receives each emitted
         token from the first."""
+        submitted = now()
         rid = self._new_id(req)
         cap = self.config.max_blocks_per_request * self.config.block_size
         if len(req.prompt_tokens) + req.max_tokens > cap:
@@ -354,7 +378,7 @@ class PagedInferenceEngine(RequestLifecycle):
                                     top_k=req.top_k, top_p=req.top_p,
                                     stop_tokens=tuple(req.stop_tokens)),
         )
-        self._enqueue(r, listener)
+        self._enqueue(r, listener, submitted)
         return rid
 
     def warmup(self, buckets=None) -> float:
@@ -407,6 +431,9 @@ class PagedInferenceEngine(RequestLifecycle):
             return self._step_locked()
 
     def _step_locked(self) -> dict[str, list[int]]:
+        tracing_on = RECORDER.enabled
+        clock = self._clock = now if tracing_on else _no_time
+        step, t_step = next(_STEPS), clock()
         # admission starvation relief: when the pool can't fit the next
         # waiting request, reclaim radix-cached prefixes first (LRU) —
         # eviction-before-preemption order
@@ -436,6 +463,8 @@ class PagedInferenceEngine(RequestLifecycle):
                        if i not in used)
             self._row_of[r.request_id] = row
             r.start_time = r.start_time or time.monotonic()
+            if tracing_on:
+                self._advance(r, "request.queued")
             if r.prefill_pos == 0:
                 r.prefill_pos = self._matched.pop(r.request_id, 0)
                 # radix hits counted where they save work: these prefix
@@ -469,6 +498,8 @@ class PagedInferenceEngine(RequestLifecycle):
         for item in torun:
             cb = bucket_for(item[3], self.config.prompt_buckets)
             by_cb.setdefault(cb, []).append(item)
+        t_phase = clock()
+        record("schedule", t_step, t_phase, step)
         for cb, items in sorted(by_cb.items()):
             rb = 1                            # pad R to a power of two, as
             while rb < len(items):            # the reference bounds its
@@ -484,11 +515,19 @@ class PagedInferenceEngine(RequestLifecycle):
                 tables[j] = self._tables[row]
                 starts[j] = pos
                 nval[j] = n
+            entry = None
+            if self.dispatch_trace is not None or tracing_on:
+                entry = ("prefill", cb, tuple(it[1] for it in items),
+                         tuple(it[2] for it in items), tuple(nval.tolist()))
             if self.dispatch_trace is not None:
-                self.dispatch_trace.append(
-                    ("prefill", cb, tuple(it[1] for it in items),
-                     tuple(it[2] for it in items), tuple(nval.tolist())))
+                self.dispatch_trace.append(entry)
+            self._launched = None
             logits = self._prefill(ids, tables, starts, nval)
+            t_results = clock()
+            launched = self._launched or t_phase
+            record("prefill.stage", t_phase, launched, step)
+            record("prefill.launch", launched, t_results, step, entry)
+            t_phase = t_results
             done = []                          # (j, r, row)
             for j, (r, row, pos, n) in enumerate(items):
                 r.prefill_pos = pos + n
@@ -512,9 +551,13 @@ class PagedInferenceEngine(RequestLifecycle):
                 self._lengths[row] = r.prompt_len
                 self._active[row] = True
                 r.first_token_time = time.monotonic()
+                if tracing_on:
+                    self._advance(r, "request.first_token")
                 r.output_tokens.append(tok_i)
                 emitted.setdefault(r.request_id, []).append(tok_i)
                 self._notify(r, tok_i)
+            t_phase = clock()
+            record("prefill.results", t_results, t_phase, step)
         self._prefilling = still_prefilling
 
         # ---- grow KV for decoding requests; relieve pressure if needed
@@ -593,11 +636,13 @@ class PagedInferenceEngine(RequestLifecycle):
                 top_ks[row] = r.sampling.top_k
                 top_ps[row] = r.sampling.top_p
             filtered = bool((top_ks > 0).any() or (top_ps < 1.0).any())
+            entry = None
+            if self.dispatch_trace is not None or tracing_on:
+                entry = ("decode", h, filtered,
+                         tuple(int(self._row_of[r.request_id])
+                               for r in decode_reqs))
             if self.dispatch_trace is not None:
-                self.dispatch_trace.append(
-                    ("decode", h, filtered,
-                     tuple(int(self._row_of[r.request_id])
-                           for r in decode_reqs)))
+                self.dispatch_trace.append(entry)
             # the decode writes K/V through every row's table: route every
             # row that does not decode in this dispatch (mid-prefill, or
             # prefilled this step and not yet scheduled to decode) to the
@@ -608,8 +653,17 @@ class PagedInferenceEngine(RequestLifecycle):
             idle = np.ones(self.config.max_batch, dtype=bool)
             idle[[self._row_of[r.request_id] for r in decode_reqs]] = False
             tables[idle] = self._trash
+            lengths = (tuple(self._lengths[list(entry[3])].tolist())
+                       if tracing_on else None)
+            self._launched = self._returned = None
             toks = self._decode(h, filtered, tokens, tables, temps, top_ks,
                                 top_ps)                  # (max_batch, h)
+            t_results = clock()
+            launched = self._launched or t_phase
+            returned = self._returned or t_results
+            record("decode.prepare", t_phase, launched, step)
+            record("decode.launch", launched, returned, step,
+                   entry + (lengths,) if tracing_on else None)
             for r in decode_reqs:
                 row = self._row_of[r.request_id]
                 # take tokens until stop/max; tokens past a stop are
@@ -625,8 +679,12 @@ class PagedInferenceEngine(RequestLifecycle):
                         break
                     if r.num_generated >= r.max_new_tokens:
                         break
+            record("decode.results", returned, clock(), step)
+        elif out.decode:
+            record("decode.prepare", t_phase, clock(), step)
 
         # ---- retire
+        t_retire = clock()
         finished = []
         for r in list(self.scheduler.running.values()):
             reason = None
@@ -650,6 +708,9 @@ class PagedInferenceEngine(RequestLifecycle):
             self._finish(r)
         if finished:
             self.scheduler.update(finished)
+        t_end = clock()
+        record("retire", t_retire, t_end, step)
+        record("engine.step", t_step, t_end, step)
         return emitted
 
     def stats(self) -> dict:
