@@ -18,7 +18,8 @@ capture and replay, and K8, with output digests, and the phase clock;
 --decode: phase 5's cached_generate at prompt 128 in each K4 mode and on
 the per-op path, each against the eager loop; --serving: the
 bench_serving7b waves, captured and eager, then one wave under
-torch.profiler; --frontend: phase 5c; --moe: phase 5d; --accuracy:
+torch.profiler; --frontend: phase 5c; --moe: phase 3's grouped expert
+kernels (moe_experts), then phase 5d; --accuracy:
 phase 5e; --parallel: phase 5f; --copy: phase 3's K9-K12; --capture:
 part A (captured steps against eager runs, below) with its stress
 repeated CAPTURE_REPS times; --train: phase 5g; --benches: phase 5h;
@@ -34,7 +35,10 @@ Phases, each of which raises on failure (exit code != 0, no final line):
    lmhead_greedy, K4 fused_decode_step in its modes W8A16, W4A16 and W8A8,
    K5 flash_attention, K6 int8_paged_decode_attention, K7
    paged_decode_attention, K8 fused_paged_decode_step, K9 tiled_matmul, K10
-   stream_copy, K11 strided_copy, K12 vector_add) against its plain torch
+   stream_copy, K11 strided_copy, K12 vector_add, and the grouped expert
+   kernels moe_experts, which replace no TPU kernel, at Mixtral-8x7B's
+   decode step and config 5's, beside the dequantize-then-bmm products
+   they replace) against its plain torch
    version at the main paths' shapes, with the tolerance stated, and both
    timed with CUDA events, beside the kernel's bound at that shape and,
    where one PyTorch call computes the same function, that call's time;
@@ -112,22 +116,25 @@ Phases, each of which raises on failure (exit code != 0, no final line):
    of FFN 2816, capacity factor 1.25, INT8 weights and KV), initialized
    on the card from a seed by init_params then quantize_params_int8: a
    2-layer slice parity (prefill plus 8 teacher-forced decode steps with
-   the kernels, K1 "stream", K2 and K3, and with their plain versions;
+   the kernels, K1 "stream", K2, K3 and the grouped expert kernels at 10
+   slots an expert, and with their plain versions;
    rows whose routing moved are reported, the others held to 2e-2 of
    their own norm, and two controls, one slot less of capacity and
    weights not renormalised, must break that rule); the engines' step
    functions at 2 layers, with the kernels and with the dense and paged
    models' plain entry points, under the same rule: four slot-engine
-   prefill chunks of 128 (K1 "wgmma" at K = 2,048), two paged prefill
-   chunks of 16 x 128 (K5; each token's final hidden state held) and a
-   paged decode step of 32 (K1 "stream", K6), both runs from the kernel
+   prefill chunks of 128 (K1 "wgmma" at K = 2,048; the grouped expert
+   kernels at 40 slots), two paged prefill chunks of 16 x 128 (K5; the
+   dequantized expert products at 640 slots; each token's final hidden
+   state held) and a paged decode step of 32 (K1 "stream", K6, the
+   grouped expert kernels), both runs from the kernel
    run's INT8 pools of 16-token blocks; each kernel of both parts held
    against its plain version on the inputs the path gave it; then 16
    layers:
    cached_generate at batch 32, prompt 128, 64 greedy tokens over an INT8
    cache, replayed from a graph and held against the eager loop, beside
-   the all-expert and active-expert floors (K1, K2, K3 launched; K4 and
-   K8 not); bench/moe.main([]) and bench/moe.main(["--engine"]), each
+   the all-expert and active-expert floors (K1, K2, K3 and the grouped
+   expert kernels launched; K4 and K8 not); bench/moe.main([]) and bench/moe.main(["--engine"]), each
    JSON on its own line; the slot engine (32 slots, horizon 8) captured
    and eager on 32 requests, and the paged engine (INT8 pools of 16-token
    blocks: K6, K5) captured and eager: tokens, finish reasons and
@@ -304,6 +311,11 @@ KERNELS = {  # name: (module, launch counter, CUDA source, TPU kernel replaced)
                      "physics_llm_inference_tpu/kernels/membench.py:44"),
     "vector_add": ("hello_pallas", "launches", "csrc/vector_add.cu",
                    "physics_llm_inference_tpu/kernels/hello_pallas.py:23"),
+    # no TPU kernel: the JAX package's expert products are einsums outside
+    # Pallas; this one replaces the port's dequantize-then-bmm products
+    "moe_experts": ("moe_experts", "launches", "csrc/moe_experts.cu",
+                    "none (physics_llm_inference_tpu/models/moe.py:122, "
+                    "XLA einsums)"),
 }
 # K4's modes: the block weights' init, cfg.act_quant, the KERNELS entry
 # whose counter the mode's launches go to, the weight bits of the HBM floor
@@ -639,8 +651,88 @@ def check_kernels(dev, flush) -> dict:
     out["flash_attention"] = check_flash(dev, flush)
     out.update(check_paged_attention(dev, flush))
     out["fused_paged_decode_step"] = check_fused_paged(dev, flush)
+    out["moe_experts"] = check_moe_experts(dev, flush)
     out.update(check_teaching(dev, flush))
     return out
+
+
+# the grouped expert kernels' shapes (E, C, D, F): Mixtral-8x7B's decode
+# step (the benchmark's mixtral8x7b.decode: 64 tokens, top-2 of 8 experts
+# at capacity factor 4.0) and phase 5d's (config 5, B 32 at 1.25)
+MOE_KERNEL_SHAPES = {"mixtral": (8, 64, 4096, 14336),
+                     "config 5": (8, 10, 2048, 2816)}
+
+
+def check_moe_experts(dev, flush) -> dict:
+    """The grouped expert kernels (kernels/moe_experts) at
+    MOE_KERNEL_SHAPES, the last expert's second half of slots empty: held
+    against the plain version by K1's rule (rtol 1e-2 plus 1e-3 of the
+    output's max), two calls bit-equal, two launches a call; timed with
+    each launch apart, beside their bound (the three stacks' int8 weights
+    and f32 scales and the slots read once, the output written once, over
+    3.35 TB/s), the plain version and the path they replace (each stack
+    dequantized to bf16, three torch.bmm, silu and a product). Returns the
+    Mixtral row."""
+    import torch
+    import torch.nn.functional as F
+
+    from physics_llm_inference_tpu_torch.kernels import moe_experts as me
+    from physics_llm_inference_tpu_torch.models.quant import QuantizedTensor
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 20)
+    rows = {}
+    for name, (e, c, d, f) in MOE_KERNEL_SHAPES.items():
+        def stack(k, n):
+            q = torch.randint(-127, 128, (e, k, n), dtype=torch.int8,
+                              generator=g, device=dev)
+            s = (torch.rand((e, 1, n), generator=g, device=dev) + 0.5) \
+                / (73.3 * k ** 0.5)
+            return QuantizedTensor(q, s)
+
+        w1, w3, w2 = stack(d, f), stack(d, f), stack(f, d)
+        x = torch.randn((e, c, d), generator=g, device=dev).bfloat16()
+        x[e - 1, c // 2:] = 0
+        what = f"moe_experts {name} (E {e}, C {c}, D {d}, F {f})"
+        before = me.launches
+        got = me.moe_experts(x, w1, w3, w2)
+        torch.cuda.synchronize()
+        if me.launches != before + 2:
+            raise AssertionError(f"{what}: {me.launches - before} launches "
+                                 "counted, not 2")
+        want = me.moe_experts_plain(x, w1, w3, w2).float()
+        diff = (got.float() - want).abs()
+        lim = 1e-2 * want.abs() + 1e-3 * float(want.abs().max())
+        if not bool(torch.isfinite(got).all()) or bool((diff > lim).any()):
+            raise AssertionError(f"{what}: off its plain version, max abs "
+                                 f"err {float(diff.max()):.4g}")
+        if not torch.equal(me.moe_experts(x, w1, w3, w2), got):
+            raise AssertionError(f"{what}: two calls differ")
+
+        def dequantized():
+            a, b, o = (w.dequantize(torch.bfloat16) for w in (w1, w3, w2))
+            return torch.bmm(F.silu(torch.bmm(x, a)) * torch.bmm(x, b), o)
+
+        hidden = torch.empty((e, c, f), dtype=torch.bfloat16, device=dev)
+        ms = time_ms(lambda: me.moe_experts(x, w1, w3, w2), flush)
+        ms_a = time_ms(lambda: me._stream(x, (w1, w3), hidden), flush)
+        ms_b = time_ms(lambda: me._stream(hidden, (w2,), got), flush)
+        pms = time_ms(lambda: me.moe_experts_plain(x, w1, w3, w2), flush,
+                      reps=5)
+        lib = time_ms(dequantized, flush, reps=5)
+        wbytes = nbytes(*w1, *w3, *w2)
+        row = entry(float(diff.max()), ms, pms, wbytes + nbytes(x, got),
+                    6 * e * c * d * f, library_ms=lib)
+        log(f"{what} ({nvidia_smi()}): kernel {ms:.4f} ms "
+            f"({wbytes / ms / 1e6:.0f} GB/s of weights; gate/up launch "
+            f"{ms_a:.4f} ms, down "
+            f"{ms_b:.4f} ms), plain {pms:.4f} ms, dequantize + bmm "
+            f"{lib:.4f} ms, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}); max abs err {float(diff.max()):.4g}; two "
+            f"calls bit-equal")
+        rows[name] = row
+        del w1, w3, w2, x, got, want, diff, lim, hidden
+        torch.cuda.empty_cache()
+    return rows["mixtral"]
 
 
 def check_k2(dev, flush, g) -> dict:
@@ -1882,16 +1974,17 @@ def run_slice(params, cfg, prompts, steps_tokens, dev):
 
 
 class plain_entry_points:
-    """Within the block, the dense and the paged model's references to
-    every kernel entry point are its plain version (here, not in the
-    package)."""
+    """Within the block, the dense and the paged model's and the routed
+    FFN's references to every kernel entry point are its plain version
+    (here, not in the package)."""
 
     def __enter__(self):
+        from physics_llm_inference_tpu_torch.models import moe as mo
         from physics_llm_inference_tpu_torch.models import \
             paged_transformer as pt
         from physics_llm_inference_tpu_torch.models import transformer as tf
 
-        self.saved = [(m, n, getattr(m, n)) for m in (tf, pt)
+        self.saved = [(m, n, getattr(m, n)) for m in (tf, pt, mo)
                       for n in KERNELS if hasattr(m, n)]
         for m, n, _ in self.saved:
             setattr(m, n, getattr(kernel_module(n), f"{n}_plain"))
@@ -3676,18 +3769,20 @@ class kernel_probe:
     main path's."""
 
     NAMES = ("int8_matmul", "int8_kv_decode_attention", "flash_attention",
-             "int8_paged_decode_attention", "paged_decode_attention")
+             "int8_paged_decode_attention", "paged_decode_attention",
+             "moe_experts")
 
     def __init__(self, names=NAMES, at=None):
         self.names, self.at = names, at or {}
         self.calls, self.seen = {}, {}
 
     def __enter__(self):
+        from physics_llm_inference_tpu_torch.models import moe as mo
         from physics_llm_inference_tpu_torch.models import \
             paged_transformer as pt
         from physics_llm_inference_tpu_torch.models import transformer as tf
 
-        self.saved = [(m, n, getattr(m, n)) for m in (tf, pt)
+        self.saved = [(m, n, getattr(m, n)) for m in (tf, pt, mo)
                       for n in self.names if hasattr(m, n)]
         for m, n, fn in self.saved:
             setattr(m, n, self.spy(n, fn))
@@ -3752,7 +3847,9 @@ class kernel_probe:
         want = plain(*a, **kw).float()
         torch.cuda.synchronize()
         diff = (got - want).abs()
-        if name == "int8_matmul":
+        if name == "moe_experts":
+            tag = f"moe_experts {tuple(a[0].shape)}"
+        if name in ("int8_matmul", "moe_experts"):
             lim = 1e-2 * want.abs() + 1e-3 * float(want.abs().max())
         else:
             lim = torch.full_like(want, 2e-2)
@@ -3986,7 +4083,8 @@ def moe_slice_parity(dev):
     steps = [torch.randint(1, cfg.vocab_size, (MOE_BATCH,), generator=g,
                            device=dev) for _ in range(8)]
     stages = slice_stages(MOE_BATCH, len(steps))
-    path = ("int8_matmul", "int8_kv_decode_attention", "lmhead_greedy")
+    path = ("int8_matmul", "int8_kv_decode_attention", "lmhead_greedy",
+            "moe_experts")
     before = read_launches()
     with kernel_probe() as probe:
         got, seen = moe_slice(params, cfg, prompts, steps, dev, moe_routes())
@@ -4005,7 +4103,8 @@ def moe_slice_parity(dev):
                              f"head's max: {ulp_rows(own, 1)}")
     kinds = probe.kinds()
     if not {("int8_matmul", "stream", cfg.hidden_dim),
-            ("int8_kv_decode_attention", None, None)} <= kinds:
+            ("int8_kv_decode_attention", None, None),
+            ("moe_experts", None, None)} <= kinds:
         raise AssertionError(f"MoE slice parity: the probe saw {kinds}")
     probed = probe.check("MoE slice parity")
     moved, _ = moe_moved(got[1], want[1], stages, 2)
@@ -4154,7 +4253,7 @@ def moe_engine_parity(dev):
     cfg = moe_cfg(2)
     params = moe_params(dev, cfg, SEED + 2)
     path = ("int8_matmul", "int8_matmul_prefill", "flash_attention",
-            "int8_paged_decode_attention")
+            "int8_paged_decode_attention", "moe_experts")
     before = read_launches()
     with kernel_probe() as probe:
         got, stages, pools = moe_engine_steps(params, cfg, dev, moe_routes())
@@ -4169,7 +4268,8 @@ def moe_engine_parity(dev):
     d = cfg.hidden_dim
     need = {("int8_matmul", "wgmma", d), ("int8_matmul", "stream", d),
             ("flash_attention", None, None),
-            ("int8_paged_decode_attention", None, None)}
+            ("int8_paged_decode_attention", None, None),
+            ("moe_experts", None, None)}
     if not need <= probe.kinds():
         raise AssertionError(f"MoE engine steps: the probe saw "
                              f"{probe.kinds()}, not all of {need}")
@@ -4219,7 +4319,8 @@ def moe_full_run(dev, params, cfg) -> dict:
     out = run()
     counts = read_launches()
     what = f"MoE {cfg.num_layers} layers, cached_generate"
-    need = ("int8_matmul", "int8_kv_decode_attention", "lmhead_greedy")
+    need = ("int8_matmul", "int8_kv_decode_attention", "lmhead_greedy",
+            "moe_experts")
     if any(counts[n] == 0 for n in need) or any(counts[n]
                                                 for n in MOE_FORBID):
         raise AssertionError(f"{what}: kernels not launched as expected: "
@@ -4282,9 +4383,10 @@ def moe_bench(dev) -> dict:
 
     total = {k: 0 for k in KERNELS}
     for argv, need in (([], ("int8_matmul", "int8_kv_decode_attention",
-                             "lmhead_greedy")),
+                             "lmhead_greedy", "moe_experts")),
                        (["--engine"], ("int8_matmul", "int8_matmul_prefill",
-                                       "int8_kv_decode_attention"))):
+                                       "int8_kv_decode_attention",
+                                       "moe_experts"))):
         t0 = time.perf_counter()
         reset_launches()
         res = bench_moe.main(argv)
@@ -4337,7 +4439,8 @@ def moe_engines(dev, params, cfg) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     same_run(runs["captured"], runs["eager"], "MoE slot engine")
-    need = ("int8_matmul", "int8_matmul_prefill", "int8_kv_decode_attention")
+    need = ("int8_matmul", "int8_matmul_prefill", "int8_kv_decode_attention",
+            "moe_experts")
     if any(counts[n] == 0 for n in need) or any(counts[n]
                                                 for n in MOE_FORBID):
         raise AssertionError(f"MoE slot engine: kernels not launched as "
@@ -4352,7 +4455,8 @@ def moe_engines(dev, params, cfg) -> dict:
                        decode_horizon=8, prefill_tokens_per_iter=2048),
                   MOE_BATCH, MOE_PROMPT, 16,
                   expect=("int8_paged_decode_attention", "flash_attention",
-                          "int8_matmul"), forbid=MOE_FORBID, compare=True)
+                          "int8_matmul", "moe_experts"), forbid=MOE_FORBID,
+                  compare=True)
     return {k: counts[k] + paged[k] for k in KERNELS}
 
 
@@ -6861,6 +6965,9 @@ def main(argv=()) -> int:
             check_k3(dev, flush, torch.Generator(device=dev).manual_seed(SEED))
         if "--copy" in argv:
             check_teaching(dev, flush)
+        if "--moe" in argv:
+            log(json.dumps({"kernels": [{"name": "moe_experts",
+                                         **check_moe_experts(dev, flush)}]}))
         if "--fused" in argv:
             for mode in FUSED_MODES:
                 check_fused(dev, flush, mode)

@@ -74,6 +74,9 @@ SIGNATURES = {
     # resident blocks an SM of K5's (head_dim 128) and K7's block
     "pli_flash_attention_block": [_P, _P, _P],
     "pli_paged_decode_attention_block": [_P, _P, _P],
+    # x, the first stack and its scales, the second stack and its scales,
+    # out, workspace, E, C, K, N, stacks, the stream plan (5 ints), stream
+    "pli_moe_expert_stream": [_P] * 7 + [_I] * 10 + [_P],
     # a, b, c, M, N, K, route (0 f32, 1 bf16 WMMA, 2 bf16 wgmma + TMA),
     # out_bf16, vec_a, vec_b, stream
     "pli_tiled_matmul": [_P] * 3 + [_I] * 7 + [_P],

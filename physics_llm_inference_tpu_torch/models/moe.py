@@ -22,14 +22,19 @@ What differs from the JAX package, on purpose:
   the capacity is a Python int of the static shapes), so the layer can be
   captured in a CUDA graph.
 The expert products are what the JAX package computes outside any Pallas
-kernel: each INT8 stack dequantized into x's dtype, then batched products
-(`torch.bmm`) and silu(h1) * h3.
+kernel. Where the slots and stacks fit the grouped kernels
+(`kernels/moe_experts`: bf16 activations, INT8 stacks, at most 64 slots an
+expert, as in a decode step), those stream each expert's int8 weights once
+and scale the f32 sums; elsewhere (prefill, f32 models, plain stacks) each
+stack is dequantized into x's dtype, then batched products (`torch.bmm`)
+and silu(h1) * h3.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from ..kernels.moe_experts import MAX_SLOTS, moe_experts
 from .config import ModelConfig, MoEConfig, torch_dtype
 from .quant import QuantizedTensor
 
@@ -133,14 +138,32 @@ def _routed(x, params, moe, valid):
     grid.index_copy_(0, slot.reshape(-1),
                      xt.repeat_interleave(k, dim=0))
     expert_in = grid[:-1].view(e, capacity, d)
-    w1, w3, w2 = (_dequantize(params[n], x.dtype) for n in ("w1", "w3", "w2"))
-    hidden = F.silu(torch.bmm(expert_in, w1)) * torch.bmm(expert_in, w3)
-    expert_out = torch.bmm(hidden, w2).reshape(e * capacity, d)
+    stacks = [params[n] for n in ("w1", "w3", "w2")]
+    if _grouped(x, stacks, capacity):
+        expert_out = moe_experts(expert_in, *stacks)
+    else:
+        w1, w3, w2 = (_dequantize(w, x.dtype) for w in stacks)
+        hidden = F.silu(torch.bmm(expert_in, w1)) * torch.bmm(expert_in, w3)
+        expert_out = torch.bmm(hidden, w2)
+    expert_out = expert_out.reshape(e * capacity, d)
     # weighted combine in f32; a dropped pair's weight is 0
     picked = expert_out[slot.clamp(max=e * capacity - 1)].float()
     out = (combine[..., None] * picked).sum(dim=1)
     out = out.to(x.dtype).reshape(orig_shape)
     return out, (weights, indices, probs, slot, capacity, valid)
+
+
+def _grouped(x, stacks, capacity: int) -> bool:
+    """Whether the grouped kernels take the expert products: bf16
+    activations, all three stacks INT8, at most MAX_SLOTS slots an expert
+    (decode steps; a prefill's capacity is larger), and widths whose rows
+    are whole 16-byte vectors, as the kernels' TMA reads them."""
+    if x.dtype != torch.bfloat16 or capacity > MAX_SLOTS:
+        return False
+    if not all(isinstance(w, QuantizedTensor) for w in stacks):
+        return False
+    d, f = stacks[0].q.shape[-2:]
+    return d % 16 == 0 and f % 16 == 0
 
 
 def _dequantize(w, dtype):

@@ -36,7 +36,7 @@ DEFAULT_SEQ_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
 # the kernel modules whose launch counters a replay must move
 _KERNEL_MODULES = ("flash_attention", "fused_decode", "hello_pallas",
                    "int8_kv_attention", "int8_matmul", "lmhead", "matmul",
-                   "membench", "paged_attention")
+                   "membench", "moe_experts", "paged_attention")
 capture_s = 0.0
 
 

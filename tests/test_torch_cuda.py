@@ -14,6 +14,7 @@ from physics_llm_inference_tpu_torch.kernels import fused_decode as t_fd
 from physics_llm_inference_tpu_torch.kernels import int8_kv_attention as t_attn
 from physics_llm_inference_tpu_torch.kernels import int8_matmul as t_mm
 from physics_llm_inference_tpu_torch.kernels import lmhead as t_head
+from physics_llm_inference_tpu_torch.kernels import moe_experts as t_me
 from physics_llm_inference_tpu_torch.models import transformer as ttf
 from physics_llm_inference_tpu_torch.models.config import ModelConfig
 from physics_llm_inference_tpu_torch.models.quant import (QuantizedTensor,
@@ -860,3 +861,81 @@ def test_decode_path_perplexity_runs_k4_every_step(dev, mode):
     assert moved == {m: 31 if m == mode else 0 for m in counters}
     ref = decode_path_perplexity(params, cfg, toks, window=32)
     assert abs(ppl - ref) / ref < 0.05, (ppl, ref)
+
+
+# the grouped expert kernels: Mixtral-8x7B's decode step (64 tokens, top-2
+# of 8 experts at capacity factor 4.0: C 64), config 5's (C 10), and ragged
+# shapes: F past whole 256-column slabs (208: a second box part-filled;
+# 112: one box), C below an m16 tile and across two
+MOE_CASES = [(8, 64, 4096, 14336), (8, 10, 2048, 2816), (3, 7, 96, 208),
+             (4, 17, 128, 112)]
+
+
+def _moe_stacks(g, dev, e, d, f):
+    """w1, w3 (E, D, F) and w2 (E, F, D) INT8 stacks, f32 scales."""
+    def stack(k, n):
+        q = torch.randint(-127, 128, (e, k, n), dtype=torch.int8,
+                          generator=g, device=dev)
+        s = (torch.rand((e, 1, n), generator=g, device=dev) + 0.5) \
+            / (73.3 * k ** 0.5)
+        return QuantizedTensor(q, s)
+
+    return stack(d, f), stack(d, f), stack(f, d)
+
+
+@pytest.mark.parametrize("e,c,d,f", MOE_CASES)
+def test_moe_experts_kernel_matches_plain(dev, e, c, d, f):
+    g = _gen(dev, 5)
+    x = torch.randn((e, c, d), generator=g, device=dev).bfloat16()
+    x[1, c // 2:] = 0      # ragged loads: slots nobody claimed
+    x[e - 1] = 0           # an expert with no token
+    w1, w3, w2 = _moe_stacks(g, dev, e, d, f)
+    before = t_me.launches
+    got = t_me.moe_experts(x, w1, w3, w2)
+    torch.cuda.synchronize()
+    assert t_me.launches == before + 2
+    want = t_me.moe_experts_plain(x, w1, w3, w2)
+    # f32 sums in another order, then the hidden grid's and the output's
+    # bf16 roundings (K1's rule)
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                               atol=1e-3 * float(want.float().abs().max()))
+    assert not got[e - 1].any() and not got[1, c // 2:].any()
+    # fixed-order sums: a second call gives the same bits
+    assert torch.equal(t_me.moe_experts(x, w1, w3, w2), got)
+
+
+def test_captured_moe_decode_step_matches_eager(dev, monkeypatch):
+    """One Mixtral-8x7B layer's routed FFN at a decode step (64 tokens,
+    top-2 of 8 experts at capacity factor 4.0: C = 64) captured in a CUDA
+    graph: each replay bit-equal to the eager call on the same tokens, two
+    grouped launches counted a replay, no expert stack dequantized."""
+    from physics_llm_inference_tpu_torch.models.config import MoEConfig
+    from physics_llm_inference_tpu_torch.models.moe import moe_forward
+    from physics_llm_inference_tpu_torch.runtime.step_cache import \
+        CapturedStep
+
+    def no_dequantize(*a, **kw):
+        raise AssertionError("an expert stack was dequantized")
+
+    monkeypatch.setattr(QuantizedTensor, "dequantize", no_dequantize)
+    g = _gen(dev, 23)
+    e, d, f, t = 8, 4096, 14336, 64
+    w1, w3, w2 = _moe_stacks(g, dev, e, d, f)
+    params = {"gate": (torch.randn((d, e), generator=g, device=dev)
+                       * d ** -0.5).bfloat16(), "w1": w1, "w3": w3, "w2": w2}
+    moe = MoEConfig(num_experts=e, num_experts_per_tok=2,
+                    capacity_factor=4.0)
+    x = torch.randn((t, d), generator=g, device=dev).bfloat16()
+    before = t_me.launches
+    captured = CapturedStep(lambda: moe_forward(x, params, moe), dev)
+    assert t_me.launches == before + 2     # the warm-up; the capture none
+    for seed in (0, 1):
+        x.copy_(torch.randn((t, d), generator=_gen(dev, 30 + seed),
+                            device=dev).bfloat16())
+        before = t_me.launches
+        got = captured().clone()
+        assert t_me.launches == before + 2
+        want = moe_forward(x, params, moe)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert bool(want.float().abs().max() > 0)
