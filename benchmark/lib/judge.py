@@ -3,17 +3,16 @@ below the reference's best at its position, over the sampled requests:
 the widest gap, and the mean gap. A cell's file says which of the two it
 compares and their limits.
 
-A served token is greedy, so the reference's own choice has gap 0, and a
-token the program chose at a near-tie has a small gap. The control is the
-reference in the precision below the stated one (int4 weights), read on
-the same prompts and tokens: at each position, the gap of the token the
-control puts first.
+The reference is the configuration's architecture module's `logits`
+(lib/spec.py). A served token is greedy, so the reference's own choice
+has gap 0, and a token the program chose at a near-tie has a small gap.
+The control is the reference in the precision below the stated one (int4
+weights), read on the same prompts and tokens: at each position, the gap
+of the token the control puts first.
 """
 from __future__ import annotations
 
 import torch
-
-from . import reference
 
 
 def _positions(sample: dict) -> tuple[list, list]:
@@ -28,10 +27,11 @@ def _stats(gap: torch.Tensor, prefix: str) -> dict:
             f"{prefix}_mean": float(gap.mean())}
 
 
-def gaps(w: dict, config: dict, samples: list, control: bool = False,
-         witness: bool = False) -> dict:
+def gaps(logits, w: dict, config: dict, samples: list,
+         control: bool = False, witness: bool = False) -> dict:
     """Over every served token of `samples` (each a dict with `prompt` and
-    `tokens`): the widest gap (`logit_gap_max`), the mean gap
+    `tokens`), against the reference `logits` (an architecture module's):
+    the widest gap (`logit_gap_max`), the mean gap
     (`logit_gap_mean`) and the tokens' count; with `control` the control's
     `control_gap_max` and `control_gap_mean`. None where nothing was
     served."""
@@ -39,10 +39,10 @@ def gaps(w: dict, config: dict, samples: list, control: bool = False,
         return {"logit_gap_max": None, "logit_gap_mean": None, "tokens": 0,
                 "control_gap_max": None, "control_gap_mean": None}
     seqs, pos = zip(*(_positions(s) for s in samples))
-    ref = reference.logits(w, config, list(seqs), list(pos))
-    ctrl = (reference.logits(w, config, list(seqs), list(pos), int4=True)
+    ref = logits(w, config, list(seqs), list(pos))
+    ctrl = (logits(w, config, list(seqs), list(pos), int4=True)
             if control else [None] * len(ref))
-    wit = (reference.logits(w, config, list(seqs), list(pos), bf16=True)
+    wit = (logits(w, config, list(seqs), list(pos), bf16=True)
            if witness else [None] * len(ref))
     served, chosen, seen = [], [], []
     for s, r, c, b in zip(samples, ref, ctrl, wit):

@@ -5,10 +5,33 @@ The configuration's file is the one `configs` gives; the mix is
 `benchmark/traffic/<traffic>.json`, whose `client` names
 `benchmark/clients/<client>.py`; the cell's correctness limits are
 `benchmark/cells/<workload>.json`; each metric is read by
-`benchmark/metrics/<metric>.py`. A later cell, mix, client or metric is
-added as files and entries, without editing any file here. Each file is
-looked for under the root's `benchmark/` first, then beside this module
-(the same folder in a checkout; a test's root holds only its new files).
+`benchmark/metrics/<metric>.py`; the configuration file's `model_type`
+names its architecture, `benchmark/arch/<model_type>.py`. A later cell,
+mix, client, metric or architecture is added as files and entries,
+without editing any file here. Each file is looked for under the root's
+`benchmark/` first, then beside this module (the same folder in a
+checkout; a test's root holds only its new files).
+
+An architecture module provides, for a configuration file's contents
+`config` (Hugging Face keys with `precision` and `assumed`):
+
+- `model_config(config)`: the port's `ModelConfig`.
+- `weights(config, seed, device) -> w`: the weights made from the seed on
+  the device (lib/weights.py), plain tensors under the architecture's own
+  names. The same seed gives the same tensors.
+- `program_params(w)`: the port's parameter dict over the same tensors.
+- `weight_bytes(w) -> wbytes`: the weights' bytes by part, for `Work`.
+- `Work(config, wbytes)`: the operations and compulsory bytes the metric
+  readers use: `decode(contexts)` and `prefill(chunks)` give (FLOPs,
+  bytes) of a whole step or None where the count needs the program's
+  routing; `fused_decode_bytes(contexts)`, `prefill_linear_flops(chunks)`,
+  `expert_bytes(rows)`, `experts_touched(rows)`,
+  `layer_weight_bytes(rows)`; the attributes `L` (layers), `d` (hidden
+  size) and `e` (routed experts, 0 for none).
+- `logits(w, config, seqs, positions, int4=False, bf16=False)`: the plain
+  float32 reference (lib/judge.py), from `w` alone and importing nothing
+  of the port; `int4=True` is the control, the precision below the
+  stated one, and `bf16=True` the bf16 witness (lib/plain.py).
 """
 from __future__ import annotations
 
@@ -86,6 +109,17 @@ def load_module(path: Path, name: str):
 def client(root: Path, name: str):
     return load_module(find(root, "clients", f"{name}.py"),
                        f"benchmark_client_{name}")
+
+
+def arch(root: Path, config: dict):
+    """The architecture module `benchmark/arch/<model_type>.py` of a
+    configuration file's contents."""
+    kind = config.get("model_type")
+    if not kind:
+        raise SystemExit("the configuration has no model_type, so no "
+                         "benchmark/arch/<model_type>.py")
+    return load_module(find(root, "arch", f"{kind}.py"),
+                       f"benchmark_arch_{kind}")
 
 
 def metric_reader(root: Path, name: str):

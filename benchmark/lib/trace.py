@@ -4,14 +4,19 @@ and the host clock mapped onto the trace's.
 
 Host spans are taken with `time.time_ns()`. The profile starts with the
 device idle and then launches one short marker kernel at a known host
-time: the first device operation of the trace gives the offset from the
-host clock to the trace's (within a launch's latency, some microseconds).
+time: its record gives the offset from the host clock to the trace's
+(within a launch's latency, some microseconds). The marker is found by
+its name, since a trace can lose records (a process's third and later
+profiles lost the marker every time); without it the first device
+operation stands in, which moves the slice later.
 """
 from __future__ import annotations
 
 import time
 from bisect import bisect_left
 from dataclasses import dataclass, field
+
+MARKER = "spin_kernel"          # the kernel of torch.cuda._sleep
 
 
 @dataclass
@@ -137,7 +142,9 @@ class Profiler:
             else:
                 host.append((s, e, ev.name()))
         device.sort()
-        offset = device[0][0] - self._clock if device else 0
+        marker = next((d for d in device if MARKER in d[2]),
+                      device[0] if device else None)
+        offset = marker[0] - self._clock if marker else 0
         self._prof = None
         return Slice(t0=self._t0 + offset, t1=t1 + offset, device=device,
                      host=host, offset=offset)

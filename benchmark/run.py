@@ -4,11 +4,12 @@
         --trace <0|1>
 
 The cell (an entry of BENCHMARK.json's `workloads`) names a configuration
-and a traffic mix; each is a file of its own, as are the mix's client and
-every metric's reader (lib/spec.py). The run makes the weights from the
-seed on the card, sets up the client (build, capture, warm-up: `setup_s`
-counts from the process's start), runs the window, then judges what the
-window produced against the plain reference (lib/judge.py) and reads the
+and a traffic mix; each is a file of its own, as are the configuration's
+architecture module, the mix's client and every metric's reader
+(lib/spec.py). The run makes the weights from the seed on the card, sets
+up the client (build, capture, warm-up: `setup_s` counts from the
+process's start), runs the window, then judges what the window produced
+against the architecture's plain reference (lib/judge.py) and reads the
 cell's metrics: the end-to-end ones, or with `--trace 1` the per-layer
 ones from a profiled slice. The last line of standard output is one JSON
 object; the compared numbers and their limits are the last lines of
@@ -95,18 +96,19 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
     SystemExit(3) if JAX or the JAX package is loaded after the window."""
     import torch
 
-    from benchmark.lib import arith, judge, model, spec
+    from benchmark.lib import arith, judge, spec
     from benchmark.lib.trace import Profiler
 
     started = T_START if started is None else started
     cell = spec.load_cell(root, workload)
     device = torch.device(device)
     torch.manual_seed(seed % (1 << 63))
+    arch = spec.arch(root, cell.config)
     run = Run(cell, seed, seconds, trace, device)
-    run.cfg = model.model_config(cell.config)
-    w = model.weights(cell.config, seed, device)
-    run.work = arith.Work(cell.config, model.weight_bytes(w))
-    run.params = model.program_params(w)
+    run.cfg = arch.model_config(cell.config)
+    w = arch.weights(cell.config, seed, device)
+    run.work = arch.Work(cell.config, arch.weight_bytes(w))
+    run.params = arch.program_params(w)
     client = spec.client(root, cell.traffic["client"])
     client.setup(run)
     if trace:
@@ -132,7 +134,7 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    got = judge.gaps(w, cell.config, picked, control=control,
+    got = judge.gaps(arch.logits, w, cell.config, picked, control=control,
                      witness=witness)
     run.peaks = arith.peaks(dev_info["kind"])
     checks = {name: {"value": got[name], "limit": limit}

@@ -29,7 +29,7 @@ def _mean(xs):
 def main() -> int:
     import torch
 
-    from benchmark.lib import arith, model, spec
+    from benchmark.lib import arith, spec
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--workload", required=True)
@@ -39,10 +39,11 @@ def main() -> int:
     args = ap.parse_args()
     cell = spec.load_cell(bench.ROOT, args.workload)
     dev = torch.device("cuda")
+    arch = spec.arch(bench.ROOT, cell.config)
     run = bench.Run(cell, args.seed, args.seconds, False, dev)
-    run.cfg = model.model_config(cell.config)
-    w = model.weights(cell.config, args.seed, dev)
-    run.params = model.program_params(w)
+    run.cfg = arch.model_config(cell.config)
+    w = arch.weights(cell.config, args.seed, dev)
+    run.params = arch.program_params(w)
     client = spec.client(bench.ROOT, cell.traffic["client"])
     t0 = time.time()
     client.setup(run)

@@ -7,17 +7,18 @@ from __future__ import annotations
 import json
 from pathlib import Path
 
-CONFIG = {"hidden_size": 128, "intermediate_size": 256,
-          "max_position_embeddings": 256, "num_attention_heads": 4,
-          "num_hidden_layers": 2, "num_key_value_heads": 2,
+CONFIG = {"model_type": "mistral", "hidden_size": 128,
+          "intermediate_size": 256, "max_position_embeddings": 256,
+          "num_attention_heads": 4, "num_hidden_layers": 2,
+          "num_key_value_heads": 2,
           "rms_norm_eps": 1e-5, "rope_theta": 10000.0, "vocab_size": 512,
           "precision": {"weights": "int8", "kv_cache": "int8",
                         "activations": "bfloat16"}}
 # top-2 of 2 experts: every token meets both, so no near-tie of the router
 # can flip an expert (at this size one flip moves a token's logits past the
 # limit) while dispatch, the expert products and the combine all run
-MOE = dict(CONFIG, num_local_experts=2, num_experts_per_tok=2,
-           assumed={"expert_capacity_factor": 1.0})
+MOE = dict(CONFIG, model_type="mixtral", num_local_experts=2,
+           num_experts_per_tok=2, assumed={"expert_capacity_factor": 1.0})
 OFFLINE = {"client": "offline", "batch": 8,
            "prompt": {"dist": "uniform", "min": 8, "max": 32},
            "prompt_bucket": 32, "new_tokens": 16, "kv_dtype": "int8",
