@@ -1495,6 +1495,86 @@ def check_flash(dev, flush):
     return first
 
 
+def check_mla(dev, flush) -> list:
+    """DeepSeek-V2-Lite's two attention kernels at the benchmark cell's
+    shapes (`--mla`): the MLA decode kernel (kernels/mla_decode) at B 64,
+    16 heads, a 4,096-slot latent cache with every row's live keys from a
+    ragged valid_from to the last slot, and K5 at q/k 192 and v 128 (B 64,
+    16 heads of group 1, Sq = Sk = 4,096, ragged valid_from), each held
+    against its plain version and timed beside its bound and the plain
+    version (K5's plain version two rows at a time: its (B, H, S, S)
+    scores do not fit the card at B 64). Returns the two rows."""
+    import torch
+
+    from physics_llm_inference_tpu_torch.kernels import flash_attention as kfa
+    from physics_llm_inference_tpu_torch.kernels import mla_decode as kmla
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 22)
+    B, H, S = 64, 16, 4096
+    q = (torch.randn((B, H, 576), generator=g, device=dev) * 8).bfloat16()
+    codes = torch.randint(-127, 128, (B, S, 576), dtype=torch.int8,
+                          generator=g, device=dev)
+    scales = torch.rand((B, 2, S), generator=g, device=dev) * 0.03 + 0.005
+    vfrom = torch.randint(0, 2048, (B,), generator=g, device=dev).int()
+    qslot = torch.full((B,), S - 1, dtype=torch.int32, device=dev)
+    args = (q, codes, scales, qslot, vfrom, 0.1147)
+    got = kmla.mla_decode_attention(*args)
+    want = kmla.mla_decode_attention_plain(*args)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    tol = 2e-2 * float(want.float().abs().max())
+    if not bool(torch.isfinite(got).all()) or err > tol:
+        raise AssertionError(f"MLA decode: max abs err {err:.4g} > {tol:.4g}")
+    if not torch.equal(got, kmla.mla_decode_attention(*args)):
+        raise AssertionError("MLA decode: two launches differ")
+    ms = time_ms(lambda: kmla.mla_decode_attention(*args), flush)
+    pms = time_ms(lambda: kmla.mla_decode_attention_plain(*args), flush,
+                  reps=5, warmup=1)
+    live = int((qslot - vfrom + 1).sum())
+    nb = live * 584 + nbytes(q) + B * H * 512 * 2
+    mla = entry(err, ms, pms, nb, 2 * live * H * (576 + 512))
+    log(f"MLA decode B={B} H={H} S={S}, ragged valid_from ({live} live "
+        f"keys): max abs err {err:.4g} (atol {tol:.4g}), two launches "
+        f"bit-equal, kernel {ms:.4f} ms ({nb / ms / 1e6:.1f} GB/s of live "
+        f"latent), plain {pms:.4f} ms, bound {mla['bound_ms']:.4f} ms "
+        f"({mla['bound_by']})")
+    del codes, scales, got, want
+    qk = torch.randn((2, B, S, H, 192), generator=g, device=dev).bfloat16()
+    kv = torch.randn((B, S, H, 256), generator=g, device=dev).bfloat16()
+    vfrom = torch.randint(0, 2048, (B,), generator=g, device=dev).int()
+    fargs = (qk[0].transpose(1, 2), qk[1].transpose(1, 2),
+             kv[..., 128:].transpose(1, 2))
+    kw = dict(q_offset=0, causal=True, valid_from=vfrom, scale=0.1147)
+
+    def plain_rows():
+        return torch.cat([kfa.flash_attention_plain(
+            *(t[i:i + 2] for t in fargs), q_offset=0, causal=True,
+            valid_from=vfrom[i:i + 2], scale=0.1147) for i in range(0, B, 2)])
+    got = kfa.flash_attention(*fargs, **kw)
+    want = plain_rows()
+    torch.cuda.synchronize()
+    livem = (torch.arange(S, device=dev)[None, :] >= vfrom[:, None])
+    err = float((got.float() - want.float()).abs().transpose(1, 2)[livem]
+                .max())
+    if not bool(torch.isfinite(got).all()) or err > 2e-2:
+        raise AssertionError(f"K5 192/128: max abs err on live rows "
+                             f"{err:.4g} > 2e-2")
+    if not torch.equal(got, kfa.flash_attention(*fargs, **kw)):
+        raise AssertionError("K5 192/128: two launches differ")
+    ms = time_ms(lambda: kfa.flash_attention(*fargs, **kw), flush, reps=10)
+    pms = time_ms(plain_rows, flush, reps=3, warmup=1)
+    pairs = int(((S - vfrom) * (S - vfrom + 1) // 2).sum())
+    flop = 2 * pairs * H * (192 + 128)
+    k5 = entry(err, ms, pms, nbytes(qk, got) + B * S * H * 128 * 2, flop)
+    log(f"K5 flash_attention q/k 192 v 128 B={B} H={H} Sq=Sk={S}, ragged "
+        f"valid_from: max abs err on live rows {err:.4g} (atol 2e-2), two "
+        f"launches bit-equal, kernel {ms:.4f} ms ({flop / ms / 1e9:.1f} "
+        f"TFLOP/s of live causal work), plain {pms:.4f} ms, bound "
+        f"{k5['bound_ms']:.4f} ms ({k5['bound_by']})")
+    return [{"name": "mla_decode", **mla},
+            {"name": "flash_attention_mla", **k5}]
+
+
 def flash_err(kfa, args, kw, what) -> float:
     """K5 against its plain version: the max abs error on live rows (a query
     at or past its request's valid_from) within 2e-2, finite everywhere, and
@@ -6950,6 +7030,7 @@ def main(argv=()) -> int:
 
     parts = set(argv) & {"--k1", "--attention", "--fused", "--decode",
                          "--serving", "--frontend", "--copy", "--moe",
+                         "--mla",
                          "--accuracy", "--parallel", "--capture",
                          "--train", "--benches", "--determinism"}
     flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
@@ -6965,6 +7046,8 @@ def main(argv=()) -> int:
             check_k3(dev, flush, torch.Generator(device=dev).manual_seed(SEED))
         if "--copy" in argv:
             check_teaching(dev, flush)
+        if "--mla" in argv:
+            log(json.dumps({"kernels": check_mla(dev, flush)}))
         if "--moe" in argv:
             log(json.dumps({"kernels": [{"name": "moe_experts",
                                          **check_moe_experts(dev, flush)}]}))

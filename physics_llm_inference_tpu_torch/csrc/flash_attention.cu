@@ -37,6 +37,13 @@
 // - the grid puts the q tile on its slowest axis, reversed, so the causal
 //   last tiles (the most KV tiles) start first and the last wave is short.
 // Every sum runs in a fixed order, so two launches are bit-equal.
+//
+// Multi-head latent attention's prefill (models/mla.py) has q and k of
+// d = 192 (128 + 64 rope dims) and v of dv = 128: one more instance,
+// flash_attention_kernel<12, 8>, whose Q/K rows are 192 wide in shared
+// memory (95 KB: still two blocks an SM) and whose V rows, output
+// registers and output are 128 wide. The d == dv instances keep the
+// 128-wide rows and the single K/V copy loop they had.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -53,12 +60,14 @@ constexpr int LD = DMAX + 8;      // bf16 row stride of the Q/K/V tiles (+16 B)
 constexpr int NT = BK / 8;        // n8 score tiles of a KV tile
 constexpr float NEG = -1e30f;
 
+template <int LDK, int LDV>   // bf16 row strides of the Q/K and the V tiles
 struct __align__(128) Smem {
-  __nv_bfloat16 q[ROWS * LD];
-  __nv_bfloat16 k[2][BK * LD];
-  __nv_bfloat16 v[2][BK * LD];
+  __nv_bfloat16 q[ROWS * LDK];
+  __nv_bfloat16 k[2][BK * LDK];
+  __nv_bfloat16 v[2][BK * LDV];
   int qpos[ROWS];   // the row's query position in key space; -1: padding row
 };
+constexpr int LD_MLA = 192 + 8;   // the d = 192 instance's Q/K rows
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -104,7 +113,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-template <int KD>   // d / 16
+template <int KD, int VD>   // d / 16, dv / 16
 __global__ void __launch_bounds__(THREADS, 2)   // two blocks an SM
 flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
                        const __nv_bfloat16* __restrict__ k,
@@ -117,9 +126,12 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
                        long long ksb, long long ksh, long long kss,
                        long long vsb, long long vsh, long long vss,
                        float scale_log2) {
-  constexpr int d = KD * 16;
+  constexpr int d = KD * 16, dv = VD * 16;
+  constexpr int LDQ = KD == VD ? LD : LD_MLA;   // Q/K row stride
+  constexpr int LDV = LD;
+  using SmemT = Smem<LDQ, LDV>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  SmemT& sm = *reinterpret_cast<SmemT*>(smem_raw);
 
   // the q tile is the grid's slowest axis, reversed: the causal last
   // (heaviest) tiles of every (kv head, request) start first
@@ -132,7 +144,8 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
   const int nq = min(bq, Sq - q0);        // positions in this tile
   const int qoff = q_offset[b];
   const int vfrom = max(valid_from[b], 0);
-  constexpr int DT = d / 8;   // n8 tiles of the output, 16-byte chunks of a row
+  constexpr int DT = d / 8;   // 16-byte chunks of a Q/K row
+  constexpr int VT = dv / 8;  // n8 tiles of the output, 16-byte chunks of a V row
 
   // live KV tiles: from the one holding valid_from to the causal last one
   int k_end = kv_len;
@@ -144,12 +157,27 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* vb = v + b * vsb + (long long)h * vsh;
   auto load_kv = [&](int t, int stage) {
     const int k0 = t * BK;
-    for (int c = tid; c < BK * DT; c += THREADS) {
-      const int key = c / DT, part = c % DT;
-      const bool in = k0 + key < Sk;
-      const long long kp = in ? k0 + key : 0;
-      cp16(&sm.k[stage][key * LD + part * 8], kb + kp * kss + part * 8, in ? 16 : 0);
-      cp16(&sm.v[stage][key * LD + part * 8], vb + kp * vss + part * 8, in ? 16 : 0);
+    if constexpr (KD == VD) {
+      for (int c = tid; c < BK * DT; c += THREADS) {
+        const int key = c / DT, part = c % DT;
+        const bool in = k0 + key < Sk;
+        const long long kp = in ? k0 + key : 0;
+        cp16(&sm.k[stage][key * LD + part * 8], kb + kp * kss + part * 8, in ? 16 : 0);
+        cp16(&sm.v[stage][key * LD + part * 8], vb + kp * vss + part * 8, in ? 16 : 0);
+      }
+    } else {
+      for (int c = tid; c < BK * DT; c += THREADS) {
+        const int key = c / DT, part = c % DT;
+        const bool in = k0 + key < Sk;
+        const long long kp = in ? k0 + key : 0;
+        cp16(&sm.k[stage][key * LDQ + part * 8], kb + kp * kss + part * 8, in ? 16 : 0);
+      }
+      for (int c = tid; c < BK * VT; c += THREADS) {
+        const int key = c / VT, part = c % VT;
+        const bool in = k0 + key < Sk;
+        const long long kp = in ? k0 + key : 0;
+        cp16(&sm.v[stage][key * LDV + part * 8], vb + kp * vss + part * 8, in ? 16 : 0);
+      }
     }
   };
 
@@ -161,7 +189,7 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
     const __nv_bfloat16* src =
         in ? q + b * qsb + (long long)(h * group + j) * qsh + (long long)(q0 + i) * qss + part * 8
            : q;
-    cp16(&sm.q[r * LD + part * 8], src, in ? 16 : 0);
+    cp16(&sm.q[r * LDQ + part * 8], src, in ? 16 : 0);
   }
   for (int r = tid; r < ROWS; r += THREADS) {
     const int i = r % bq;
@@ -172,9 +200,9 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
 
   // this warp's 16 rows from r0; a thread holds rows g and g + 8 (rr 0, 1)
   const int r0 = warp * 16;
-  float o[DT][4];
+  float o[VT][4];
 #pragma unroll
-  for (int j = 0; j < DT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  for (int j = 0; j < VT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
   float m_run[2] = {NEG, NEG};   // running max
   float l_run[2] = {0.f, 0.f};   // this thread's share of the running sum
   __syncthreads();               // qpos
@@ -206,11 +234,11 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int kk = 0; kk < KD; ++kk) {
       uint32_t a[4];
-      ldsm_x4(a, &sm.q[a_row * LD + kk * 16 + a_col]);
+      ldsm_x4(a, &sm.q[a_row * LDQ + kk * 16 + a_col]);
 #pragma unroll
       for (int j = 0; j < NT; j += 2) {
         uint32_t bk[4];   // keys 8j..8j+15, d kk*16..+15
-        ldsm_x4(bk, &ks[(j * 8 + k_row) * LD + kk * 16 + k_col]);
+        ldsm_x4(bk, &ks[(j * 8 + k_row) * LDQ + kk * 16 + k_col]);
         mma16816(s[j], a, bk[0], bk[1]);
         mma16816(s[j + 1], a, bk[2], bk[3]);
       }
@@ -245,7 +273,7 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
       l_run[rr] *= alpha[rr];
     }
 #pragma unroll
-    for (int j = 0; j < DT; ++j) {
+    for (int j = 0; j < VT; ++j) {
       o[j][0] *= alpha[0];
       o[j][1] *= alpha[0];
       o[j][2] *= alpha[1];
@@ -268,9 +296,9 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
 #pragma unroll
-      for (int j = 0; j < DT; j += 2) {
+      for (int j = 0; j < VT; j += 2) {
         uint32_t bv[4];   // keys kk*16..+15, d 8j..8j+15
-        ldsm_x4_t(bv, &vs[(kk * 16 + v_row) * LD + j * 8 + v_col]);
+        ldsm_x4_t(bv, &vs[(kk * 16 + v_row) * LDV + j * 8 + v_col]);
         mma16816(o[j], p[kk], bv[0], bv[1]);
         mma16816(o[j + 1], p[kk], bv[2], bv[3]);
       }
@@ -291,35 +319,36 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
     inv[rr] = 1.f / (l > 0.f ? l : 1.f);
   }
 #pragma unroll
-  for (int j = 0; j < DT; ++j) {
+  for (int j = 0; j < VT; ++j) {
     const int col = j * 8 + 2 * t4;
-    *reinterpret_cast<uint32_t*>(&sm.q[(r0 + g) * LD + col]) =
+    *reinterpret_cast<uint32_t*>(&sm.q[(r0 + g) * LDQ + col]) =
         pack_bf16(o[j][0] * inv[0], o[j][1] * inv[0]);
-    *reinterpret_cast<uint32_t*>(&sm.q[(r0 + g + 8) * LD + col]) =
+    *reinterpret_cast<uint32_t*>(&sm.q[(r0 + g + 8) * LDQ + col]) =
         pack_bf16(o[j][2] * inv[1], o[j][3] * inv[1]);
   }
   __syncwarp();
-  for (int c = lane; c < 16 * DT; c += 32) {
-    const int r = r0 + c / DT, part = c % DT;
+  for (int c = lane; c < 16 * VT; c += 32) {
+    const int r = r0 + c / VT, part = c % VT;
     const int j = r / bq, i = r % bq;
     if (r >= rows || i >= nq) continue;
-    *reinterpret_cast<uint4*>(out + (((long long)b * Hq + h * group + j) * Sq + q0 + i) * d +
+    *reinterpret_cast<uint4*>(out + (((long long)b * Hq + h * group + j) * Sq + q0 + i) * dv +
                               part * 8) =
-        *reinterpret_cast<const uint4*>(&sm.q[r * LD + part * 8]);
+        *reinterpret_cast<const uint4*>(&sm.q[r * LDQ + part * 8]);
   }
 }
 
 }  // namespace
 
-// q (B, Hq, Sq, d), k/v (B, Hkv, Sk, d) bf16 with the given element strides
+// q/k (B, H, S, d), v (B, Hkv, Sk, dv) bf16 with the given element strides
 // of their first three axes (the last axis contiguous, rows 16-byte
-// aligned); out (B, Hq, Sq, d) bf16 contiguous; q_offset/valid_from (B,)
-// int32. d % 16 == 0, d <= 128, Hq / Hkv <= 64 (checked by the Python
-// wrapper). Returns the launch's error code.
+// aligned); out (B, Hq, Sq, dv) bf16 contiguous; q_offset/valid_from (B,)
+// int32. d == dv, d % 16 == 0 and d <= 128, or d 192 and dv 128;
+// Hq / Hkv <= 64 (checked by the Python wrapper). Returns the launch's
+// error code.
 extern "C" int pli_flash_attention(
     const void* q, const void* k, const void* v, void* out,
     const void* q_offset, const void* valid_from, int B, int Hq, int Hkv,
-    int Sq, int Sk, int d, int kv_len, int causal, long long qsb,
+    int Sq, int Sk, int d, int dv, int kv_len, int causal, long long qsb,
     long long qsh, long long qss, long long ksb, long long ksh, long long kss,
     long long vsb, long long vsh, long long vss, float scale_log2,
     void* stream) {
@@ -328,22 +357,29 @@ extern "C" int pli_flash_attention(
                  __nv_bfloat16*, const int*, const int*, int, int, int, int, int, int,
                  int, long long, long long, long long, long long, long long, long long,
                  long long, long long, long long, float);
-  switch (d) {
-    case 16: kernel = flash_attention_kernel<1>; break;
-    case 32: kernel = flash_attention_kernel<2>; break;
-    case 48: kernel = flash_attention_kernel<3>; break;
-    case 64: kernel = flash_attention_kernel<4>; break;
-    case 80: kernel = flash_attention_kernel<5>; break;
-    case 96: kernel = flash_attention_kernel<6>; break;
-    case 112: kernel = flash_attention_kernel<7>; break;
-    case 128: kernel = flash_attention_kernel<8>; break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  int smem = static_cast<int>(sizeof(Smem<LD, LD>));
+  if (d != dv) {
+    if (d != 192 || dv != 128) return static_cast<int>(cudaErrorInvalidValue);
+    kernel = flash_attention_kernel<12, 8>;
+    smem = static_cast<int>(sizeof(Smem<LD_MLA, LD>));
+  } else {
+    switch (d) {
+      case 16: kernel = flash_attention_kernel<1, 1>; break;
+      case 32: kernel = flash_attention_kernel<2, 2>; break;
+      case 48: kernel = flash_attention_kernel<3, 3>; break;
+      case 64: kernel = flash_attention_kernel<4, 4>; break;
+      case 80: kernel = flash_attention_kernel<5, 5>; break;
+      case 96: kernel = flash_attention_kernel<6, 6>; break;
+      case 112: kernel = flash_attention_kernel<7, 7>; break;
+      case 128: kernel = flash_attention_kernel<8, 8>; break;
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(sizeof(Smem)));
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(Hkv, B, (Sq + bq - 1) / bq);
-  kernel<<<grid, THREADS, sizeof(Smem), static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
       static_cast<const int*>(q_offset), static_cast<const int*>(valid_from), Hq, Hkv, Sq, Sk,
@@ -358,11 +394,11 @@ extern "C" int pli_flash_attention(
 extern "C" int pli_flash_attention_block(int* threads, int* smem_bytes,
                                          int* blocks_per_sm) {
   *threads = THREADS;
-  *smem_bytes = static_cast<int>(sizeof(Smem));
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<8>,
+  *smem_bytes = static_cast<int>(sizeof(Smem<LD, LD>));
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<8, 8>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(sizeof(Smem)));
+                                         static_cast<int>(sizeof(Smem<LD, LD>)));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, flash_attention_kernel<8>, THREADS, sizeof(Smem)));
+      blocks_per_sm, flash_attention_kernel<8, 8>, THREADS, sizeof(Smem<LD, LD>)));
 }

@@ -45,10 +45,10 @@ SIGNATURES = {
     # tokens, B, D, D padded, V, V padded, eps, the stream plan (5 ints),
     # stream
     "pli_lmhead_greedy": [_P] * 8 + [_I] * 5 + [_F] + [_I] * 5 + [_P],
-    # q, k, v, out, q_offset, valid_from, B, Hq, Hkv, Sq, Sk, d, kv_len,
-    # causal, the (b, h, s) element strides of q, k and v, scale * log2(e),
-    # stream
-    "pli_flash_attention": [_P] * 6 + [_I] * 8 + [_L] * 9 + [_F, _P],
+    # q, k, v, out, q_offset, valid_from, B, Hq, Hkv, Sq, Sk, d (q and k),
+    # dv (v and out), kv_len, causal, the (b, h, s) element strides of q, k
+    # and v, scale * log2(e), stream
+    "pli_flash_attention": [_P] * 6 + [_I] * 9 + [_L] * 9 + [_F, _P],
     # instance (0-2: K4 in the modes W8A16, W4A16, W8A8; 3: K8), out:
     # blocks of one cooperative launch
     "pli_fused_decode_grid": [_I, _P],
@@ -80,6 +80,9 @@ SIGNATURES = {
     # a, b, c, M, N, K, route (0 f32, 1 bf16 WMMA, 2 bf16 wgmma + TMA),
     # out_bf16, vec_a, vec_b, stream
     "pli_tiled_matmul": [_P] * 3 + [_I] * 7 + [_P],
+    # q, codes, scales, q_slot, valid_from, out, the two workspaces, B, S,
+    # splits, scale * log2(e), stream
+    "pli_mla_decode": [_P] * 8 + [_I] * 3 + [_F, _P],
     # x, out, num_blocks, block_bytes, stride, vec, stream
     "pli_row_block_copy": [_P, _P, _L, _L, _L, _I, _P],
     # a, b, out, n, dtype (0 f32, 1 bf16), vec, stream

@@ -10,7 +10,9 @@ two-stage `cp.async` ring; scores, probabilities and the output stay in
 registers (`mma.sync` m16n8k16 bf16, f32 accumulation, a base-2 f32 online
 softmax); it walks only the live KV tiles, from the one holding
 `valid_from` to the causal last one. Ragged lengths are masked in the
-kernel, so no length needs to divide a tile.
+kernel, so no length needs to divide a tile. Head widths of 16 to 128 run
+with q, k and v alike; multi-head latent attention's prefill (models/
+mla.py) runs q and k of 192 against v of 128 (one more instance).
 
 `flash_attention` is the entry point: a CPU tensor goes to
 `flash_attention_plain`; a CUDA tensor goes to the kernel or raises.
@@ -28,6 +30,7 @@ launches = 0  # kernel launches made by flash_attention
 _NEG_INF = -1e30
 _LOG2E = 1.4426950408889634
 _DMAX, _GMAX = 128, 64  # the kernel's head_dim and group limits
+_MLA_DIMS = (192, 128)  # the one instance with q/k and v of their own widths
 
 
 def _per_request(val, b: int, device) -> torch.Tensor:
@@ -43,7 +46,7 @@ def _per_request(val, b: int, device) -> torch.Tensor:
 
 
 def flash_attention_plain(q, k, v, q_offset=0, causal=True, kv_len=None,
-                          valid_from=None):
+                          valid_from=None, scale=None):
     """Plain torch: the kernel's arithmetic in one pass — products of the
     input-dtype operands in f32, the scale with log2(e) folded in, masked
     scores at -1e30, a base-2 f32 softmax, probabilities cast to v's dtype
@@ -52,6 +55,7 @@ def flash_attention_plain(q, k, v, q_offset=0, causal=True, kv_len=None,
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     g = hq // hkv
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
     qoff = _per_request(q_offset, b, q.device).long()
     kpos = torch.arange(sk, device=q.device)
     mask = kpos[None, None, :] < (sk if kv_len is None else kv_len)
@@ -63,34 +67,39 @@ def flash_attention_plain(q, k, v, q_offset=0, causal=True, kv_len=None,
         mask = mask & (kpos[None, None, :] >= vfrom[:, None, None])
     qg = q.reshape(b, hkv, g, sq, d).float()
     s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float())
-    s = s * ((1.0 / math.sqrt(d)) * _LOG2E)
+    s = s * (scale * _LOG2E)
     s = s.masked_fill(~mask.expand(b, sq, sk)[:, None, None], _NEG_INF)
     p = torch.exp2(s - s.amax(dim=-1, keepdim=True))
     o = torch.einsum("bhgqk,bhkd->bhgqd", p.to(v.dtype).float(), v.float())
     o = o / p.sum(dim=-1, keepdim=True)
-    return o.reshape(b, hq, sq, d).to(q.dtype)
+    return o.reshape(b, hq, sq, v.shape[-1]).to(q.dtype)
 
 
 def flash_attention(q, k, v, q_offset=0, causal=True, kv_len=None,
-                    valid_from=None):
-    """q: (B, Hq, Sq, d); k, v: (B, Hkv, Sk, d), any strides with a
-    contiguous last axis. q_offset: the key position of q[:, :, 0], scalar or
-    (B,); kv_len: valid key prefix (<= Sk); valid_from: (B,) first valid key
-    (left padding). Returns (B, Hq, Sq, d) in q's dtype."""
+                    valid_from=None, scale=None):
+    """q: (B, Hq, Sq, d); k: (B, Hkv, Sk, d); v: (B, Hkv, Sk, dv), any
+    strides with a contiguous last axis. q_offset: the key position of
+    q[:, :, 0], scalar or (B,); kv_len: valid key prefix (<= Sk);
+    valid_from: (B,) first valid key (left padding); scale: the softmax
+    scale (default d**-0.5). Returns (B, Hq, Sq, dv) in q's dtype."""
     global launches
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, q_offset, causal, kv_len,
-                                     valid_from)
+                                     valid_from, scale)
     b, hq, sq, d = q.shape
     _, hkv, sk, _ = k.shape
-    if (k.shape != (b, hkv, sk, d) or v.shape != k.shape or hkv == 0
-            or hq % hkv):
+    dv = v.shape[-1]
+    if (k.shape != (b, hkv, sk, d) or v.shape != (b, hkv, sk, dv)
+            or hkv == 0 or hq % hkv):
         raise ValueError(f"flash_attention: inconsistent shapes q "
                          f"{tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}")
-    if d % 16 or d > _DMAX or hq // hkv > _GMAX:
-        raise ValueError(f"kernel takes head_dim % 16 == 0, <= {_DMAX} and "
-                         f"<= {_GMAX} query heads per kv head")
+    if (d, dv) != _MLA_DIMS and (d % 16 or d > _DMAX or dv != d) \
+            or hq // hkv > _GMAX:
+        raise ValueError(f"kernel takes head_dim % 16 == 0, <= {_DMAX} "
+                         f"(v alike), or q/k {_MLA_DIMS[0]} with v "
+                         f"{_MLA_DIMS[1]}, and <= {_GMAX} query heads per "
+                         f"kv head")
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
         raise TypeError("flash_attention on CUDA takes bf16 q, k and v")
     kv_len = sk if kv_len is None else int(kv_len)
@@ -103,14 +112,14 @@ def flash_attention(q, k, v, q_offset=0, causal=True, kv_len=None,
                              "contiguous last axis and 16-byte aligned rows")
     qoff = _per_request(q_offset, b, q.device)
     vfrom = _per_request(0 if valid_from is None else valid_from, b, q.device)
-    out = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, hq, sq, dv), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
     err = _build.lib().pli_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        qoff.data_ptr(), vfrom.data_ptr(), b, hq, hkv, sq, sk, d, kv_len,
+        qoff.data_ptr(), vfrom.data_ptr(), b, hq, hkv, sq, sk, d, dv, kv_len,
         int(causal), *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        (1.0 / math.sqrt(d)) * _LOG2E,
+        (1.0 / math.sqrt(d) if scale is None else scale) * _LOG2E,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention")
     launches += 1

@@ -53,6 +53,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..models.config import refuse_mla
 from ..models.quant import QuantizedTensor, QuantizedTensor4, unpack_int4
 from ..ops.norms import rms_norm
 from . import _build
@@ -464,6 +465,7 @@ def fused_decode_step(blocks, x, k_q, k_s, v_q, v_s, q_slot, valid_from,
     Otherwise (x_out, k_new (L, B, Hkv·hd) int8, ks (L, B, Hkv) f32, v_new,
     vs) for the caller to scatter. `clock` (CUDA only): a `phase_clock`
     buffer the launch fills with its barrier times."""
+    refuse_mla(cfg, "the fused decode kernels (K4, K8)")
     global launches, w4a16_launches, w8a8_launches
     if not x.is_cuda:
         return fused_decode_step_plain(blocks, x, k_q, k_s, v_q, v_s, q_slot,
@@ -603,6 +605,7 @@ def fused_paged_decode_step(blocks, x, kv_pool, kvs_pool, tables, lengths,
     aliased pools. Which of several writes to one block position lands (the
     trash block that inactive rows share) is unspecified. `clock`: as
     `fused_decode_step`'s."""
+    refuse_mla(cfg, "the fused decode kernels (K4, K8)")
     global paged_launches
     if not x.is_cuda:
         return fused_paged_decode_step_plain(blocks, x, kv_pool, kvs_pool,

@@ -13,6 +13,17 @@ import torch
 
 
 @dataclass(frozen=True)
+class YarnScaling:
+    """YaRN's `rope_scaling` (type "yarn") as DeepSeek-V2 publishes it."""
+    factor: float = 40.0
+    original_max_position_embeddings: int = 4096
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 0.707
+    mscale_all_dim: float = 0.707
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     vocab_size: int
     hidden_dim: int
@@ -49,12 +60,25 @@ class ModelConfig:
     tp_axis: str | None = None
     tp_data_axis: str | None = None
     head_dim_override: int | None = None
+    # DeepSeek-V2's settings (DeepSeekV2Config's fields) read on every
+    # config: class attributes, not fields, so ModelConfig stays the JAX
+    # package's field for field
+    router_f32 = False
+    norm_topk_prob = True
+    routed_scaling_factor = 1.0
+    shared_expert_dim = 0
+    first_k_dense_replace = 0
+    kv_lora_rank = 0
 
     def __post_init__(self):
         if self.head_dim_override is None and self.hidden_dim % self.num_heads:
             raise ValueError("hidden_dim must be divisible by num_heads")
         if self.num_heads % self.num_kv_heads:
             raise ValueError("num_heads must be divisible by num_kv_heads")
+
+    @property
+    def mla(self) -> bool:
+        return self.kv_lora_rank > 0
 
     @property
     def head_dim(self) -> int:
@@ -75,6 +99,37 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class DeepSeekV2Config(ModelConfig):
+    """A ModelConfig with DeepSeek-V2's parts (arXiv:2405.04434): its
+    router, shared experts, leading dense layers, multi-head latent
+    attention and YaRN. The JAX package has none of them."""
+
+    # DeepSeek-V2's router (arXiv:2405.04434): the gate's product and softmax
+    # in f32, and the top-k weights kept as they are (times
+    # routed_scaling_factor) instead of renormalised
+    router_f32: bool = False
+    norm_topk_prob: bool = True
+    routed_scaling_factor: float = 1.0
+    # shared experts: one SwiGLU of this width (all shared experts side by
+    # side) that every token of an MoE layer passes through; 0: none
+    shared_expert_dim: int = 0
+    # the first `first_k_dense_replace` layers of an MoE model keep a dense
+    # SwiGLU of width `dense_intermediate_dim`
+    first_k_dense_replace: int = 0
+    dense_intermediate_dim: int = 0
+    # multi-head latent attention (models/mla.py): kv_lora_rank > 0 replaces
+    # GQA; queries of qk_nope_head_dim + qk_rope_head_dim, values of
+    # v_head_dim, and a cache of the kv_lora_rank latent and one shared rope
+    # key a token
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    # YaRN frequencies and attention scale (ops/rope.py) of the rope key
+    rope_yarn: YarnScaling = YarnScaling()
+
+
+@dataclass(frozen=True)
 class TPConfig(ModelConfig):
     """The per-rank ModelConfig of tensor parallelism (parallel/tp.py
     tp_local_config): local head and FFN counts, `tp_axis`, and the mesh
@@ -86,12 +141,49 @@ class TPConfig(ModelConfig):
 
 @dataclass(frozen=True)
 class MoEConfig:
-    """Mixture-of-experts settings (JAX `config.py:95-103`)."""
+    """Mixture-of-experts settings (JAX `config.py:95-103`), with
+    DeepSeek-V2's router options (ModelConfig's fields of the same names)."""
     num_experts: int = 8
     num_experts_per_tok: int = 2
     # static dispatch capacity per expert, as a multiple of the average load
     # (tokens * top_k / num_experts)
     capacity_factor: float = 1.25
+    # DeepSeek-V2's router (DeepSeekMoEConfig's fields), as on ModelConfig
+    router_f32 = False
+    norm_topk_prob = True
+    routed_scaling_factor = 1.0
+
+
+@dataclass(frozen=True)
+class DeepSeekMoEConfig(MoEConfig):
+    """MoEConfig with DeepSeek-V2's router options."""
+    router_f32: bool = False
+    norm_topk_prob: bool = True
+    routed_scaling_factor: float = 1.0
+
+
+def moe_config(cfg: ModelConfig) -> MoEConfig:
+    """The MoE settings of a model configuration (a DeepSeekMoEConfig where
+    its router is DeepSeek-V2's)."""
+    base = dict(num_experts=cfg.num_experts,
+                num_experts_per_tok=cfg.num_experts_per_tok,
+                capacity_factor=cfg.expert_capacity_factor)
+    if (cfg.router_f32, cfg.norm_topk_prob, cfg.routed_scaling_factor) == \
+            (False, True, 1.0):
+        return MoEConfig(**base)
+    return DeepSeekMoEConfig(router_f32=cfg.router_f32,
+                             norm_topk_prob=cfg.norm_topk_prob,
+                             routed_scaling_factor=cfg.routed_scaling_factor,
+                             **base)
+
+
+def refuse_mla(cfg, what: str) -> None:
+    """Raise where a path does not take multi-head latent attention yet."""
+    if getattr(cfg, "kv_lora_rank", 0):
+        raise NotImplementedError(
+            f"{what} does not take MLA (multi-head latent attention, "
+            f"kv_lora_rank {cfg.kv_lora_rank}) yet: run it through "
+            f"runtime/generate.cached_generate")
 
 
 def torch_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -136,4 +228,34 @@ MIXTRAL_MOE_CONFIG = ModelConfig(
     num_heads=32,
     num_kv_heads=8,
     intermediate_dim=14336,
+)
+
+# DeepSeek-V2-Lite at its published widths (https://huggingface.co/
+# deepseek-ai/DeepSeek-V2-Lite/blob/main/config.json): MLA without q-LoRA,
+# layer 0 dense, layers 1-26 of 64 routed experts (top-6, no
+# renormalisation) and 2 shared ones. intermediate_dim is the routed
+# expert's width, as for every MoE config here; capacity 10.67 just above
+# experts / top-k, so no (token, expert) pair is dropped.
+DEEPSEEK_V2_LITE_CONFIG = DeepSeekV2Config(
+    vocab_size=102400,
+    hidden_dim=2048,
+    num_layers=27,
+    num_heads=16,
+    num_kv_heads=16,
+    intermediate_dim=1408,
+    norm_eps=1e-6,
+    rope_theta=10000.0,
+    max_seq_len=163840,
+    num_experts=64,
+    num_experts_per_tok=6,
+    expert_capacity_factor=10.67,
+    router_f32=True,
+    norm_topk_prob=False,
+    shared_expert_dim=2816,
+    first_k_dense_replace=1,
+    dense_intermediate_dim=10944,
+    kv_lora_rank=512,
+    qk_nope_head_dim=128,
+    qk_rope_head_dim=64,
+    v_head_dim=128,
 )

@@ -20,14 +20,26 @@ What differs from the JAX package, on purpose:
   weighted f32 rows.
 - Nothing is read from the device on the host (`dropped` stays a tensor,
   the capacity is a Python int of the static shapes), so the layer can be
-  captured in a CUDA graph.
+  captured in a CUDA graph; the dropless path below, which reads each
+  expert's row count, is never taken while a graph is captured.
+- DeepSeek-V2's router (`MoEConfig.router_f32`, `norm_topk_prob`,
+  `routed_scaling_factor`; the model's `MoEGate`, topk_method "greedy"):
+  the gate's product in f32, and the top-k weights left as they are, times
+  the scaling factor, instead of renormalised. The JAX package has no such
+  router.
 The expert products are what the JAX package computes outside any Pallas
 kernel. Where the slots and stacks fit the grouped kernels
 (`kernels/moe_experts`: bf16 activations, INT8 stacks, at most 64 slots an
 expert, as in a decode step), those stream each expert's int8 weights once
-and scale the f32 sums; elsewhere (prefill, f32 models, plain stacks) each
-stack is dequantized into x's dtype, then batched products (`torch.bmm`)
-and silu(h1) * h3.
+and scale the f32 sums. Where the capacity admits every pair and exceeds
+those 64 slots (a dropless prefill), the grid is skipped: the pairs are
+sorted by expert and each expert's SwiGLU runs over its own rows only, one
+grouped product a matrix (`_dropless`), so the transient memory grows with
+the pairs (T·K rows), not with the grid (E·C rows, E·T when dropless).
+Elsewhere (a capacity below T, slots or stacks the kernels do not take, a
+dropless layer while a graph is captured) each stack is dequantized into
+x's dtype, then batched products (`torch.bmm`) and silu(h1) * h3 over the
+grid.
 """
 from __future__ import annotations
 
@@ -35,6 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.moe_experts import MAX_SLOTS, moe_experts
+from ..utils import tracing
 from .config import ModelConfig, MoEConfig, torch_dtype
 from .quant import QuantizedTensor
 
@@ -55,13 +68,18 @@ def init_moe_params(generator: torch.Generator, cfg: ModelConfig,
             "w3": w((e, d, f), d), "w2": w((e, f, d), f)}
 
 
-def router(x: torch.Tensor, gate: torch.Tensor, top_k: int):
-    """Linear gate in x's dtype -> f32 softmax -> top-k (ties to the lower
-    expert index) -> renormalized weights. x: (T, D); returns (weights
-    (T, K) f32, indices (T, K) int64, probs (T, E) f32)."""
-    probs = torch.softmax((x @ gate).float(), dim=-1)
+def router(x: torch.Tensor, gate: torch.Tensor, top_k: int,
+           norm: bool = True, f32: bool = False, scaling: float = 1.0):
+    """Linear gate in x's dtype (in f32 with `f32`) -> f32 softmax -> top-k
+    (ties to the lower expert index) -> renormalized weights (with `norm`;
+    else the top-k probabilities times `scaling`). x: (T, D); returns
+    (weights (T, K) f32, indices (T, K) int64, probs (T, E) f32)."""
+    logits = x.float() @ gate.float() if f32 else x @ gate
+    probs = torch.softmax(logits.float(), dim=-1)
     weights, indices = torch.sort(probs, dim=-1, descending=True, stable=True)
     weights, indices = weights[:, :top_k], indices[:, :top_k]
+    if not norm:
+        return weights * scaling, indices, probs
     return weights / weights.sum(dim=-1, keepdim=True), indices, probs
 
 
@@ -127,10 +145,18 @@ def _routed(x, params, moe, valid):
     e, k = moe.num_experts, moe.num_experts_per_tok
     capacity = max(1, int(moe.capacity_factor * t * k / e))
 
-    weights, indices, probs = router(xt, params["gate"], k)
+    weights, indices, probs = router(xt, params["gate"], k,
+                                     norm=moe.norm_topk_prob,
+                                     f32=moe.router_f32,
+                                     scaling=moe.routed_scaling_factor)
     if valid is not None:
         valid = valid.expand(orig_shape[:-1]).reshape(t)
     slot, combine = _dispatch_slots(indices, weights, e, capacity, valid)
+    stacks = [params[n] for n in ("w1", "w3", "w2")]
+    if capacity >= t and capacity > MAX_SLOTS and not _capturing(x):
+        out = _dropless(xt, stacks, indices, combine, valid, e)
+        out = out.to(x.dtype).reshape(orig_shape)
+        return out, (weights, indices, probs, slot, capacity, valid)
 
     # gather token slots: (E, C, D); the sink row (past the grid) takes the
     # dropped pairs, and slots nobody claims stay 0
@@ -138,7 +164,6 @@ def _routed(x, params, moe, valid):
     grid.index_copy_(0, slot.reshape(-1),
                      xt.repeat_interleave(k, dim=0))
     expert_in = grid[:-1].view(e, capacity, d)
-    stacks = [params[n] for n in ("w1", "w3", "w2")]
     if _grouped(x, stacks, capacity):
         expert_out = moe_experts(expert_in, *stacks)
     else:
@@ -151,6 +176,50 @@ def _routed(x, params, moe, valid):
     out = (combine[..., None] * picked).sum(dim=1)
     out = out.to(x.dtype).reshape(orig_shape)
     return out, (weights, indices, probs, slot, capacity, valid)
+
+
+def _capturing(x: torch.Tensor) -> bool:
+    return x.is_cuda and torch.cuda.is_current_stream_capturing()
+
+
+def _dropless(xt, stacks, indices, combine, valid, e: int) -> torch.Tensor:
+    """The expert products over the routed (token, choice) pairs alone,
+    when no pair is dropped: the pairs sorted by expert (stable, so
+    token-major within an expert; pads' pairs last, in no expert), one
+    grouped product a matrix over the experts' runs of rows
+    (`torch._grouped_mm`, each stack dequantized into x's dtype, as the
+    grid path dequantizes them), the rows put back at their pairs, and the
+    grid path's combine (the K weighted f32 rows of a token summed in
+    choice order). Every buffer has the T·K rows of every pair, so its
+    size does not move with the routing. Reads each expert's row count on
+    the host, once, and records them in a `moe.prefill_route` span
+    (attributes: the largest and the mean rows an expert, the experts and
+    the routed pairs). Returns (T, D) f32."""
+    t, k = indices.shape
+    d = xt.shape[1]
+    t0 = tracing.now()
+    flat = indices.reshape(-1)
+    if valid is not None:
+        flat = torch.where(valid.repeat_interleave(k), flat,
+                           torch.full_like(flat, e))
+    order = torch.sort(flat, stable=True).indices
+    count = torch.bincount(flat, minlength=e + 1)[:e]
+    offs = count.cumsum(0).to(torch.int32)
+    counts = count.tolist()
+    pairs = sum(counts)
+    rows = xt[order // k]
+    w1, w3, w2 = (_dequantize(w, xt.dtype) for w in stacks)
+    h = F.silu(torch._grouped_mm(rows, w1, offs=offs)) * \
+        torch._grouped_mm(rows, w3, offs=offs)
+    ys = torch._grouped_mm(h, w2, offs=offs)
+    ys[pairs:] = 0          # pads' rows: written by no group
+    picked = torch.empty_like(ys)
+    picked[order] = ys
+    out = (combine[..., None] * picked.view(t, k, d).float()).sum(dim=1)
+    tracing.record("moe.prefill_route", t0, attrs={
+        "rows_max": max(counts), "rows_mean": pairs / e, "experts": e,
+        "pairs": pairs})
+    return out
 
 
 def _grouped(x, stacks, capacity: int) -> bool:

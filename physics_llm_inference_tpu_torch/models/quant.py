@@ -75,7 +75,8 @@ class QuantizedTensor4(NamedTuple):
 
 
 _QUANT_LEAVES = ("wqkv", "wo", "w_gate_up", "w_down",
-                 "moe_w1", "moe_w2", "moe_w3")
+                 "moe_w1", "moe_w2", "moe_w3",
+                 "wq", "wkv_a", "wkv_b", "shared_w_gate_up", "shared_w_down")
 
 
 def _quantize_stacked_int8(w: torch.Tensor) -> QuantizedTensor:

@@ -7,6 +7,12 @@ The parameter dict has the JAX pytree's keys and stacked layouts: `embed`
 `moe_gate` (L, D, E), `moe_w1`/`moe_w3` (L, E, D, F) and `moe_w2`
 (L, E, F, D)); `norm` (D,); `lm_head` (D, V). INT8 weights are
 `QuantizedTensor`s, INT4 block weights `QuantizedTensor4`s (models/quant.py).
+A multi-head latent attention config (`cfg.kv_lora_rank > 0`, DeepSeek-V2)
+has `wq`, `wkv_a`, `kv_ln`, `wkv_b` in place of `wqkv` (models/mla.py) and a
+`LatentKV` cache; an MoE config with `cfg.first_k_dense_replace` layers of
+dense FFN first holds `w_gate_up`/`w_down` stacks of those layers only and
+the routed stacks (with `shared_w_gate_up`/`shared_w_down` for shared
+experts) of the others, which `layer_view` tells apart.
 
 What differs from the JAX package, on purpose:
 - The layer loop is a Python loop over zero-copy layer views
@@ -53,7 +59,8 @@ from ..kernels.quant import quantize_int8
 from ..ops.gqa import grouped_sdpa
 from ..ops.norms import rms_norm
 from ..ops.rope import apply_rope, rope_frequencies
-from .config import ModelConfig, MoEConfig, torch_dtype
+from .config import ModelConfig, moe_config, torch_dtype
+from .mla import LatentKV, mla_attention, rope_cos_sin
 from .moe import moe_forward
 from .quant import QuantizedTensor, QuantizedTensor4
 
@@ -197,7 +204,9 @@ def _cache_read_layer(cache, layer: int, dtype) -> torch.Tensor:
 def init_params(generator: torch.Generator, cfg: ModelConfig,
                 device=None) -> dict:
     """Random parameters in the JAX layout (weights ~ N(0, 1/fan_in)); with
-    `cfg.num_experts > 0` the MoE leaves take the dense FFN's place."""
+    `cfg.num_experts > 0` the MoE leaves take the dense FFN's place, but in
+    the first `cfg.first_k_dense_replace` layers; with `cfg.kv_lora_rank`
+    the MLA leaves take wqkv's."""
     device = torch.device(device) if device is not None else generator.device
     dtype = torch_dtype(cfg)
     d, f, v, L = cfg.hidden_dim, cfg.intermediate_dim, cfg.vocab_size, \
@@ -209,35 +218,69 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
         return torch.randn(shape, generator=generator,
                            device=device).mul_(fan_in ** -0.5).to(dtype)
 
-    qkv_out = (cfg.num_heads + 2 * cfg.num_kv_heads) * hd
-    blocks = {
-        "ln1": torch.ones((L, d), dtype=dtype, device=device),
-        "wqkv": w((L, d, qkv_out), d),
-        "wo": w((L, cfg.num_heads * hd, d), d),
-        "ln2": torch.ones((L, d), dtype=dtype, device=device),
-    }
-    if cfg.num_experts > 0:
-        e = cfg.num_experts
-        blocks.update({"moe_gate": w((L, d, e), d),
-                       "moe_w1": w((L, e, d, f), d),
-                       "moe_w3": w((L, e, d, f), d),
-                       "moe_w2": w((L, e, f, d), f)})
+    blocks = {"ln1": torch.ones((L, d), dtype=dtype, device=device),
+              "ln2": torch.ones((L, d), dtype=dtype, device=device)}
+    if cfg.mla:
+        h, r = cfg.num_heads, cfg.kv_lora_rank
+        dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, \
+            cfg.v_head_dim
+        blocks.update({"wq": w((L, d, h * (dn + dr)), d),
+                       "wkv_a": w((L, d, r + dr), d),
+                       "kv_ln": torch.ones((L, r), dtype=dtype, device=device),
+                       "wkv_b": w((L, r, h * (dn + dv)), r),
+                       "wo": w((L, h * dv, d), h * dv)})
     else:
-        blocks.update({"w_gate_up": w((L, d, 2 * f), d),
-                       "w_down": w((L, f, d), f)})
+        qkv_out = (cfg.num_heads + 2 * cfg.num_kv_heads) * hd
+        blocks.update({"wqkv": w((L, d, qkv_out), d),
+                       "wo": w((L, cfg.num_heads * hd, d), d)})
+    n_dense = cfg.first_k_dense_replace if cfg.num_experts > 0 else L
+    if n_dense:
+        fd = f if cfg.num_experts == 0 else cfg.dense_intermediate_dim
+        blocks.update({"w_gate_up": w((n_dense, d, 2 * fd), d),
+                       "w_down": w((n_dense, fd, d), fd)})
+    if cfg.num_experts > 0:
+        e, lm = cfg.num_experts, L - n_dense
+        blocks.update({"moe_gate": w((lm, d, e), d),
+                       "moe_w1": w((lm, e, d, f), d),
+                       "moe_w3": w((lm, e, d, f), d),
+                       "moe_w2": w((lm, e, f, d), f)})
+        if cfg.shared_expert_dim:
+            fs = cfg.shared_expert_dim
+            blocks.update({"shared_w_gate_up": w((lm, d, 2 * fs), d),
+                           "shared_w_down": w((lm, fs, d), fs)})
     return {"embed": w((v, d), d), "blocks": blocks,
             "norm": torch.ones((d,), dtype=dtype, device=device),
             "lm_head": w((d, v), d)}
 
 
+_DENSE_FFN = ("w_gate_up", "w_down")
+_ROUTED_FFN = ("moe_gate", "moe_w1", "moe_w3", "moe_w2", "shared_w_gate_up",
+               "shared_w_down")
+
+
 def layer_view(blocks: dict, layer: int) -> dict:
-    """One layer's parameters as zero-copy views of the stacks."""
+    """One layer's parameters as zero-copy views of the stacks. Where the
+    blocks hold both a dense FFN and a routed one, the dense stacks are the
+    first layers' (as many as they hold) and the routed stacks the rest's:
+    a layer gets the FFN of its kind, each stack indexed from its own
+    first layer."""
+    n_dense = None
+    if "w_gate_up" in blocks and "moe_gate" in blocks:
+        w = blocks["w_gate_up"]
+        n_dense = (w.q if isinstance(w, tuple) else w).shape[0]
     out = {}
     for name, w in blocks.items():
+        i = layer
+        if n_dense is not None:
+            if name in _DENSE_FFN and layer >= n_dense or \
+                    name in _ROUTED_FFN and layer < n_dense:
+                continue
+            if name in _ROUTED_FFN:
+                i = layer - n_dense
         if isinstance(w, (QuantizedTensor, QuantizedTensor4)):
-            out[name] = type(w)(w.q[layer], w.s[layer])
+            out[name] = type(w)(w.q[i], w.s[i])
         else:
-            out[name] = w[layer]
+            out[name] = w[i]
     return out
 
 
@@ -278,16 +321,19 @@ def lm_logits(x: torch.Tensor, params: dict, cfg: ModelConfig) -> torch.Tensor:
 
 def _ffn(bp: dict, h: torch.Tensor, cfg: ModelConfig,
          valid: torch.Tensor | None = None) -> torch.Tensor:
-    """Block FFN: dense fused SwiGLU, or the routed MoE layer when
-    cfg.num_experts > 0. `valid` takes padding tokens out of MoE routing so
-    pads cannot claim expert capacity (models/moe.py)."""
-    if cfg.num_experts > 0:
-        moe = MoEConfig(num_experts=cfg.num_experts,
-                        num_experts_per_tok=cfg.num_experts_per_tok,
-                        capacity_factor=cfg.expert_capacity_factor)
-        return moe_forward(h, {"gate": bp["moe_gate"], "w1": bp["moe_w1"],
-                                "w3": bp["moe_w3"], "w2": bp["moe_w2"]},
-                           moe, valid=valid)
+    """Block FFN: dense fused SwiGLU, or the routed MoE layer (plus the
+    shared experts' SwiGLU where the layer has them) when cfg.num_experts >
+    0 and the layer is not one of the leading dense ones. `valid` takes
+    padding tokens out of MoE routing so pads cannot claim expert capacity
+    (models/moe.py)."""
+    if cfg.num_experts > 0 and "moe_gate" in bp:
+        y = moe_forward(h, {"gate": bp["moe_gate"], "w1": bp["moe_w1"],
+                             "w3": bp["moe_w3"], "w2": bp["moe_w2"]},
+                        moe_config(cfg), valid=valid)
+        if "shared_w_gate_up" in bp:
+            gate, up = _linear(h, bp["shared_w_gate_up"]).chunk(2, dim=-1)
+            y = y + _linear(F.silu(gate) * up, bp["shared_w_down"])
+        return y
     gate, up = _linear(h, bp["w_gate_up"]).chunk(2, dim=-1)
     return _tp_psum(_linear(F.silu(gate) * up, bp["w_down"]), cfg)
 
@@ -302,8 +348,9 @@ def _attend(q, k, v, q_slots, k_slots, valid_from=None):
 
 
 def _cache_capacity(kv) -> int:
-    arr = kv[0].q if isinstance(kv[0], QuantKV) else kv[0]
-    stacked = arr.dim() == (4 if isinstance(kv[0], QuantKV) else 5)
+    quant = isinstance(kv[0], (QuantKV, LatentKV))
+    arr = kv[0].q if quant else kv[0]
+    stacked = arr.dim() == (4 if quant else 5)
     return arr.shape[2] if stacked else arr.shape[1]
 
 
@@ -326,7 +373,9 @@ def block_forward(bp: dict, x: torch.Tensor, cfg: ModelConfig,
                   kv=None, start=None, slots=None, valid_from=None,
                   layer: int | None = None, k_limit: int | None = None,
                   fresh_kv: bool = False):
-    """One pre-norm block: GQA attention + residual, SwiGLU + residual.
+    """One pre-norm block: GQA attention (or MLA, models/mla.py, with kv =
+    (LatentKV, None) and rope_cos/rope_sin its per-token tables) +
+    residual, SwiGLU + residual.
 
     With kv=(k_cache, v_cache) the new K/V are written in place at `layer`
     and slot offset `start`, and attention reads that layer's cache.
@@ -336,8 +385,23 @@ def block_forward(bp: dict, x: torch.Tensor, cfg: ModelConfig,
     b, s, _ = x.shape
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     on_cuda = x.is_cuda
+    if slots is None:
+        slots = positions
+    # token validity for MoE routing: left-pad slots below valid_from must
+    # not claim expert capacity
+    ffn_valid = None
+    if cfg.num_experts > 0 and valid_from is not None:
+        ffn_valid = slots >= valid_from[:, None]
 
     h = rms_norm(x, bp["ln1"], cfg.norm_eps)
+    if cfg.mla:
+        x = x + mla_attention(bp, h, cfg, rope_cos, rope_sin,
+                              kv=None if kv is None else kv[0], start=start,
+                              slots=slots, valid_from=valid_from, layer=layer,
+                              fresh_kv=fresh_kv)
+        x = x + _ffn(bp, rms_norm(x, bp["ln2"], cfg.norm_eps), cfg,
+                     valid=ffn_valid)
+        return x, kv
     q, k, v = _linear(h, bp["wqkv"]).split([hq * hd, hkv * hd, hkv * hd],
                                            dim=-1)
     q = q.reshape(b, s, hq, hd)
@@ -346,13 +410,6 @@ def block_forward(bp: dict, x: torch.Tensor, cfg: ModelConfig,
     if rope_cos is not None:
         q = apply_rope(q, rope_cos, rope_sin, positions)
         k = apply_rope(k, rope_cos, rope_sin, positions)
-    if slots is None:
-        slots = positions
-    # token validity for MoE routing: left-pad slots below valid_from must
-    # not claim expert capacity
-    ffn_valid = None
-    if cfg.num_experts > 0 and valid_from is not None:
-        ffn_valid = slots >= valid_from[:, None]
     impl = _resolve_attention(cfg, b, s, kv, on_cuda)
 
     if kv is None:
@@ -420,7 +477,8 @@ def _fused_decode_ok(params: dict, cfg: ModelConfig, b: int,
     stacks int8 (W8A16, or W8A8 with `act_quant="int8"`) or all int4 with
     no activation quantization (W4A8 takes the per-op path)."""
     if not (cfg.fused_decode and cfg.num_experts == 0 and cfg.use_rope
-            and cfg.attention_impl != "dense" and cfg.tp_axis is None):
+            and not cfg.mla and cfg.attention_impl != "dense"
+            and cfg.tp_axis is None):
         return False
     if not isinstance(kv.k, QuantKV):
         return False
@@ -490,7 +548,9 @@ def forward(params: dict, input_ids: torch.Tensor, cfg: ModelConfig,
         positions = (torch.arange(s, device=dev)[None, :] + base).expand(b, s)
 
     rope_cos = rope_sin = None
-    if cfg.use_rope:
+    if cfg.mla:
+        rope_cos, rope_sin = rope_cos_sin(cfg, positions)
+    elif cfg.use_rope:
         rope_cos, rope_sin = rope_frequencies(cfg.head_dim, cfg.max_seq_len,
                                               cfg.rope_theta, device=dev)
 

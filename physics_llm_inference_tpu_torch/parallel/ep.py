@@ -35,6 +35,11 @@ def moe_layer_ep(mesh, x: torch.Tensor, params: dict, moe: MoEConfig,
     [i·T/n, (i+1)·T/n) and runs experts [i·E/n, (i+1)·E/n), each INT8 stack
     dequantized for those experts alone. Returns the (T, D) output,
     gathered over `axis`."""
+    if moe.router_f32 or not moe.norm_topk_prob:
+        raise NotImplementedError(
+            "expert parallelism (parallel/ep.py) does not take DeepSeek-V2's "
+            "router (the MLA models' f32 gate, top-k without "
+            "renormalisation) or shared experts yet")
     n, i = mesh.size(axis), mesh.index(axis)
     e, k = moe.num_experts, moe.num_experts_per_tok
     if e % n:

@@ -22,7 +22,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..models.config import ModelConfig, TPConfig
+from ..models.config import ModelConfig, TPConfig, refuse_mla
 from ..models.quant import QuantizedTensor, QuantizedTensor4
 
 REPLICATED = None
@@ -174,6 +174,7 @@ def tp_local_config(cfg, tp: int, axis: str = "model",
     TP degree, head_dim kept (head_dim_override), `tp_axis` and the mesh
     set so the forward all-reduces row-parallel partial sums and
     all-gathers the vocab-sharded logits. vocab_size stays global."""
+    refuse_mla(cfg, "tensor parallelism (parallel/tp.py)")
     if cfg.num_kv_heads % tp:
         raise ValueError(f"num_kv_heads {cfg.num_kv_heads} must divide TP "
                          f"degree {tp}")

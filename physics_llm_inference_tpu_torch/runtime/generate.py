@@ -12,10 +12,18 @@ The graph advances its own step index, so nothing of a step is a host
 value. A `StepCache` keyed by what fixes the step's shapes keeps captured
 loops for later calls, as the JAX package's compile cache keeps
 `_decode_jit`. Phase times come from `time.perf_counter` around work that
-ends in `torch.cuda.synchronize()` on the card.
+ends in `torch.cuda.synchronize()` on the card. A prefill of more than
+`PREFILL_TOKENS` padded tokens runs in slices of whole rows, each writing
+its rows of the cache, so its transient memory is bounded by the slice.
+Each call records a `generate.prefill` and a `generate.decode` span
+(utils/tracing.py; key: the call's number in the process; attributes: the
+rows, the prompt bucket, the new tokens, the cache's kind and its bytes a
+token over every layer), on the host clock after each phase's
+synchronization.
 """
 from __future__ import annotations
 
+import itertools
 import time
 from dataclasses import dataclass
 
@@ -24,7 +32,10 @@ import torch
 
 from ..models.config import ModelConfig
 from ..models.transformer import KVSlice, forward
+from ..models.mla import LatentKV
+from ..models.transformer import QuantKV
 from ..ops.sampling import sample_token
+from ..utils import tracing
 from .kv_cache import KVCache
 from .step_cache import DEFAULT_SEQ_BUCKETS, CapturedStep, StepCache, \
     bucket_for
@@ -68,17 +79,42 @@ class GenerationOutput:
         return self.decode_s / max(1, steps - 1)
 
 
+# padded prompt tokens one prefill forward takes at most (whole rows)
+PREFILL_TOKENS = 1 << 16
+_calls = itertools.count()
+
+
+def _rows(cache, r0: int, r1: int):
+    """Rows [r0, r1) of a stacked cache (L, B, ...), as views."""
+    if cache is None:
+        return None
+    if isinstance(cache, (QuantKV, LatentKV)):
+        return type(cache)(cache.q[:, r0:r1], cache.s[:, r0:r1])
+    return cache[:, r0:r1]
+
+
 def _prefill(params, cfg: ModelConfig, ids, lens, kv: KVSlice):
-    """One forward over the whole left-padded prompt into slots [0, p).
-    Returns (last-position logits (B, V), kv, valid_from)."""
+    """One forward over the whole left-padded prompt into slots [0, p), in
+    slices of whole rows of at most PREFILL_TOKENS tokens (one slice
+    unless the batch is larger). Returns (last-position logits (B, V), kv,
+    valid_from)."""
     b, p = ids.shape
     slots = torch.arange(p, device=ids.device)[None, :].expand(b, p)
     positions = (slots - (p - lens)[:, None]).clamp_min(0)
     valid_from = (p - lens).to(torch.int32)
-    logits, kv = forward(params, ids, cfg, kv=kv, positions=positions,
-                         slots=slots, valid_from=valid_from, last_only=True,
-                         k_limit=p, fresh_kv=True)
-    return logits[:, 0], kv, valid_from
+    step = max(1, PREFILL_TOKENS // p)
+    out = []
+    for r0 in range(0, b, step):
+        r1 = min(b, r0 + step)
+        part = kv if (r0, r1) == (0, b) else KVSlice(
+            _rows(kv.k, r0, r1), _rows(kv.v, r0, r1), kv.start)
+        logits, _ = forward(params, ids[r0:r1], cfg, kv=part,
+                            positions=positions[r0:r1], slots=slots[r0:r1],
+                            valid_from=valid_from[r0:r1], last_only=True,
+                            k_limit=p, fresh_kv=True)
+        out.append(logits[:, 0])
+    logits = out[0] if len(out) == 1 else torch.cat(out)
+    return logits, KVSlice(kv.k, kv.v, kv.start + p), valid_from
 
 
 class DecodeLoop:
@@ -244,16 +280,21 @@ def cached_generate(params, cfg: ModelConfig, prompts, max_new_tokens: int,
                            top_k, has_top_p, tuple(stop_tokens), pad_id,
                            gen_device)
 
+    call = next(_calls)
+    attrs = {"rows": b, "prompt_bucket": p, "new_tokens": max_new_tokens,
+             "cache": loop.cache.kind,
+             "cache_bytes_per_token": loop.cache.bytes_per_token(cfg)}
     _sync(device)
-    t0 = time.perf_counter()
+    h0, t0 = tracing.now(), time.perf_counter()
     logits0, _, valid_from = _prefill(params, cfg, ids, lens,
                                       loop.cache.as_slice())
     first = sample_token(logits0, generator, temperature=temperature,
                          top_k=top_k, top_p=top_p if has_top_p else None)
     _sync(device)
     prefill_s = time.perf_counter() - t0
+    tracing.record("generate.prefill", h0, key=call, attrs=attrs)
 
-    t0 = time.perf_counter()
+    h0, t0 = tracing.now(), time.perf_counter()
     loop.begin(first, lens, valid_from, p, temperature, top_p, generator)
     for _ in range(max_new_tokens):
         step()
@@ -261,6 +302,7 @@ def cached_generate(params, cfg: ModelConfig, prompts, max_new_tokens: int,
     tokens = loop.emitted[:, :max_new_tokens].cpu().numpy().astype(np.int32)
     _sync(device)
     decode_s = time.perf_counter() - t0
+    tracing.record("generate.decode", h0, key=call, attrs=attrs)
 
     gen_lens = np.full((b,), tokens.shape[1], dtype=np.int32)
     if stop_tokens:

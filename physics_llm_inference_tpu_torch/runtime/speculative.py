@@ -23,7 +23,7 @@ import time
 import numpy as np
 import torch
 
-from ..models.config import ModelConfig
+from ..models.config import ModelConfig, refuse_mla
 from ..models.transformer import KVSlice, forward
 from .generate import GenerationOutput, _prefill, _sync, pad_and_stack
 from .kv_cache import KVCache
@@ -112,6 +112,7 @@ def speculative_generate(params, cfg: ModelConfig, prompts,
     Output tokens equal cached_generate(temperature=0)'s; steps where drafts
     are accepted advance several tokens per model pass. The returned
     GenerationOutput carries `extras` (model passes, tokens per pass)."""
+    refuse_mla(cfg, "speculative decoding")
     device = params["embed"].device
     ids, lens = pad_and_stack(prompts, pad_id=pad_id, bucket=prompt_bucket,
                               device=device)

@@ -63,7 +63,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..models.config import ModelConfig
+from ..models.config import ModelConfig, refuse_mla
 from ..models.transformer import KVSlice, QuantKV, forward
 from ..ops.sampling import SamplingParams, sample_token
 from ..runtime.paged_kv import PagedKVCache
@@ -171,6 +171,7 @@ class InferenceEngine(RequestLifecycle):
         mesh); the pools are made on the device of the params, or of the
         mesh. mesh: a (data, model) Mesh of more than one rank serves
         sharded (the module's docstring); its steps run eagerly."""
+        refuse_mla(model_cfg, "the slot engine (serve/engine.py)")
         self.mesh = mesh if (mesh is not None and mesh.world > 1) else None
         self.cfg = model_cfg
         self.config = c = config or EngineConfig()

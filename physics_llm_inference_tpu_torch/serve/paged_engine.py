@@ -56,7 +56,7 @@ import numpy as np
 import torch
 
 from ..kernels.fused_decode import fused_paged_decode_ok
-from ..models.config import ModelConfig
+from ..models.config import ModelConfig, refuse_mla
 from ..models.paged_transformer import (paged_decode_scan_impl,
                                         paged_prefill_chunk_impl)
 from ..models.transformer import QuantKV
@@ -121,6 +121,7 @@ class PagedInferenceEngine(RequestLifecycle):
         mesh. mesh: a Mesh whose `model` axis has more than one rank serves
         tensor-parallel (the module's docstring); its steps run
         eagerly."""
+        refuse_mla(model_cfg, "PagedInferenceEngine (a paged latent cache)")
         self.cfg = model_cfg
         self.config = c = config or PagedEngineConfig()
         self.mesh = mesh if (mesh is not None

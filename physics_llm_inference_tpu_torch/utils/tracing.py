@@ -1,4 +1,5 @@
-"""Spans of the serving path, always recorded, in a ring of fixed size.
+"""Spans of the serving and offline paths, always recorded, in a ring of
+fixed size.
 
 A span is a name, a start and an end on `time.time_ns()`'s clock (the host
 clock a `torch.profiler` trace can be mapped onto), the key of what caused
@@ -24,7 +25,16 @@ paged engine (serve/paged_engine.py) and the request lifecycle
   and `request.decode` (first token to finish; attributes: the finish
   reason and the tokens generated). A re-admission after a preemption
   opens no new span. A request that finishes early (an abort) closes the
-  span it is in, with the same attributes.
+  span it is in, with the same attributes;
+- per `runtime/generate.cached_generate` call, keyed by the call's number
+  in the process: `generate.prefill` and `generate.decode`, each ending
+  after its phase's synchronization (attributes: the rows, the prompt
+  bucket, the new tokens, the cache's kind and its bytes a token over
+  every layer); and inside a prefill, per MoE layer and row slice on the
+  dropless path (`models/moe._dropless`), `moe.prefill_route`
+  (attributes: the largest and the mean rows an expert, the experts, the
+  routed pairs), counted on the host before the expert products. Nothing
+  is recorded inside a captured step.
 
 Recording costs two clock reads and an append to a bounded deque, under a
 lock; nothing waits for the device. `RECORDER.enabled = False` records

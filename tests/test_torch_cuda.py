@@ -6,6 +6,7 @@ imports no jax, so on a machine without it run it as
 """
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -939,3 +940,163 @@ def test_captured_moe_decode_step_matches_eager(dev, monkeypatch):
         torch.cuda.synchronize()
         assert torch.equal(got, want)
         assert bool(want.float().abs().max() > 0)
+
+
+# MLA decode (kernels/mla_decode): 16 heads of a 512 + 64 latent over the
+# INT8 latent cache; ragged valid_from and q_slot, runs of several tiles
+@pytest.mark.parametrize("b,s", [(3, 300), (64, 4608), (1, 70)])
+def test_mla_decode_kernel_matches_plain(dev, b, s):
+    from physics_llm_inference_tpu_torch.kernels import mla_decode as t_mla
+    g = _gen(dev, 41)
+    q = (torch.randn((b, 16, 576), generator=g, device=dev) * 8).bfloat16()
+    codes = torch.randint(-127, 128, (b, s, 576), dtype=torch.int8,
+                          generator=g, device=dev)
+    scales = torch.rand((b, 2, s), generator=g, device=dev) * 0.03 + 0.005
+    q_slot = torch.randint(s // 2, s, (b,), generator=g, device=dev)
+    q_slot[0] = s - 1
+    valid_from = torch.randint(0, s // 3, (b,), generator=g, device=dev)
+    valid_from[-1] = 0
+    scale = 0.1147
+    before = t_mla.launches
+    got = t_mla.mla_decode_attention(q, codes, scales, q_slot, valid_from,
+                                     scale)
+    again = t_mla.mla_decode_attention(q, codes, scales, q_slot, valid_from,
+                                       scale)
+    torch.cuda.synchronize()
+    assert t_mla.launches == before + 2
+    assert torch.equal(got, again)           # a fixed order of sums
+    want = t_mla.mla_decode_attention_plain(q, codes, scales, q_slot,
+                                            valid_from, scale)
+    assert got.shape == (b, 16, 512) and bool(torch.isfinite(got).all())
+    # p * s_c rounded to bf16 (relative 2^-9 a term) and the output's bf16
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2 * float(want.float().abs().max()))
+
+
+def test_mla_decode_kernel_refuses_other_shapes(dev):
+    from physics_llm_inference_tpu_torch.kernels import mla_decode as t_mla
+    q = torch.zeros((2, 8, 576), dtype=torch.bfloat16, device=dev)
+    codes = torch.zeros((2, 16, 576), dtype=torch.int8, device=dev)
+    scales = torch.zeros((2, 2, 16), device=dev)
+    slot = torch.zeros(2, dtype=torch.long, device=dev)
+    with pytest.raises(ValueError, match="16 heads"):
+        t_mla.mla_decode_attention(q, codes, scales, slot, None, 0.1)
+
+
+# K5 at multi-head latent attention's prefill widths: q/k 192, v 128, 16
+# heads of group 1, v a strided view of W_kv_b's output as models/mla.py
+# passes it
+@pytest.mark.parametrize("b,s,qoff", [(2, 300, 0), (3, 200, [0, 40, 7])])
+def test_flash_kernel_mla_widths_match_plain(dev, b, s, qoff):
+    g = _gen(dev, 43)
+    h = 16
+    q = torch.randn((b, s, h, 192), generator=g, device=dev).bfloat16()
+    k = torch.randn((b, s + 50, h, 192), generator=g, device=dev).bfloat16()
+    kv = torch.randn((b, s + 50, h, 256), generator=g, device=dev).bfloat16()
+    v = kv[..., 128:]
+    qoff = torch.tensor(qoff, device=dev) if isinstance(qoff, list) else qoff
+    vfrom = torch.tensor([5, 0, 17][:b], dtype=torch.int32, device=dev)
+    args = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    before = t_fa.launches
+    got = t_fa.flash_attention(*args, q_offset=qoff, valid_from=vfrom,
+                               scale=0.1147)
+    again = t_fa.flash_attention(*args, q_offset=qoff, valid_from=vfrom,
+                                 scale=0.1147)
+    torch.cuda.synchronize()
+    assert t_fa.launches == before + 2 and torch.equal(got, again)
+    assert got.shape == (b, h, s, 128)
+    want = t_fa.flash_attention_plain(*args, q_offset=qoff, valid_from=vfrom,
+                                      scale=0.1147)
+    qpos = torch.as_tensor(qoff, device=dev).reshape(-1, 1) + \
+        torch.arange(s, device=dev)
+    live = qpos >= vfrom[:, None]
+    err = (got.float() - want.float()).abs().transpose(1, 2)[live]
+    assert float(err.max()) <= 2e-2
+
+
+def _mla_cfg():
+    from physics_llm_inference_tpu_torch.models.config import (
+        DeepSeekV2Config, YarnScaling)
+    return DeepSeekV2Config(
+        vocab_size=1000, hidden_dim=512, num_layers=2, num_heads=16,
+        num_kv_heads=16, intermediate_dim=256, norm_eps=1e-6,
+        max_seq_len=4096, num_experts=8, num_experts_per_tok=2,
+        expert_capacity_factor=4.0, router_f32=True, norm_topk_prob=False,
+        shared_expert_dim=256, first_k_dense_replace=1,
+        dense_intermediate_dim=1024, kv_lora_rank=512, qk_nope_head_dim=128,
+        qk_rope_head_dim=64, v_head_dim=128, rope_yarn=YarnScaling())
+
+
+def test_mla_cached_generate_captured_equals_eager(dev, monkeypatch):
+    """A 2-layer model at MLA's kernel widths (16 heads, latent 512 + 64;
+    a dense layer, then 8 experts top-2 and a shared one), bf16 and INT8:
+    cached_generate's captured decode loop gives the eager loop's tokens,
+    the MLA kernel runs in every decode layer, and the decode logits
+    through the latent cache stay near the no-cache forward's."""
+    from physics_llm_inference_tpu_torch.kernels import mla_decode as t_mla
+    from physics_llm_inference_tpu_torch.models.quant import \
+        quantize_params_int8
+    from physics_llm_inference_tpu_torch.runtime import generate as t_gen
+    cfg = _mla_cfg()
+    params = quantize_params_int8(ttf.init_params(_gen(dev, 44), cfg))
+    r = torch.Generator().manual_seed(45)
+    prompts = [torch.randint(1, 1000, (int(n),), generator=r).tolist()
+               for n in torch.randint(60, 256, (8,), generator=r)]
+    before = t_mla.launches
+    got = cached_generate(params, cfg, prompts, 12, temperature=0.0,
+                          kv_dtype=torch.int8, prompt_bucket=256)
+    assert t_mla.launches > before
+
+    class Eager:
+        def __init__(self, fn, *a, **kw):
+            self.fn = fn
+
+        def __call__(self):
+            return self.fn()
+    monkeypatch.setattr(t_gen, "CapturedStep", Eager)
+    eager = cached_generate(params, cfg, prompts, 12, temperature=0.0,
+                            kv_dtype=torch.int8, prompt_bucket=256)
+    np.testing.assert_array_equal(got.tokens, eager.tokens)
+    for p, toks in zip(prompts[:3], got.tokens[:3]):
+        seq = p + [int(t) for t in toks[:-1]]
+        logits, _ = ttf.forward(params, torch.tensor([seq], device=dev), cfg)
+        ref = logits[0, len(p) - 1:].float()
+        gap = ref.max(-1).values - ref.gather(
+            1, torch.as_tensor(toks, device=dev).long()[:, None])[:, 0]
+        assert float(gap.max()) <= 0.05 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("e,k,d,f,t", [(8, 2, 512, 1024, 300),
+                                       (64, 6, 256, 128, 700)])
+def test_dropless_prefill_matches_the_grid_on_the_card(dev, e, k, d, f, t,
+                                                      monkeypatch):
+    """The dropless routed-pairs path (one grouped product a matrix over
+    the experts' runs of rows) against the grid path on the same bf16
+    tokens and INT8 stacks, with pads; and a captured call takes the grid
+    (no host read inside a graph)."""
+    from physics_llm_inference_tpu_torch.models import moe as t_moe
+    from physics_llm_inference_tpu_torch.models.config import MoEConfig
+    from physics_llm_inference_tpu_torch.runtime.step_cache import \
+        CapturedStep
+    g = _gen(dev, 47)
+    w1, w3, w2 = _moe_stacks(g, dev, e, d, f)
+    params = {"gate": (torch.randn((d, e), generator=g, device=dev)
+                       * d ** -0.5).bfloat16(), "w1": w1, "w3": w3, "w2": w2}
+    moe = MoEConfig(num_experts=e, num_experts_per_tok=k,
+                    capacity_factor=e / k + 0.01)
+    x = torch.randn((t, d), generator=g, device=dev).bfloat16()
+    valid = torch.rand((t,), generator=g, device=dev) > 0.25
+    got = t_moe.moe_forward(x, params, moe, valid=valid)
+    captured = CapturedStep(lambda: t_moe.moe_forward(x, params, moe,
+                                                      valid=valid), dev)
+    replay = captured().clone()
+    # the grid path: what a call takes while a graph is captured
+    monkeypatch.setattr(t_moe, "_capturing", lambda x: True)
+    want = t_moe.moe_forward(x, params, moe, valid=valid)
+    torch.cuda.synchronize()
+    assert not got[~valid].any() and bool(torch.isfinite(got).all())
+    # bf16 products in another grouping: rounding of the hidden rows
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2 * float(want.float().abs().max()))
+    torch.testing.assert_close(replay.float(), want.float(), rtol=2e-2,
+                               atol=2e-2 * float(want.float().abs().max()))

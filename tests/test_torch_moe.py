@@ -201,7 +201,7 @@ def test_moe_layer_matches_reference_on_fixed_routing(layer_params,
     jw, ji, jprobs = j_moe.router(jnp.asarray(x.reshape(48, -1)), jp["gate"],
                                   K)
     monkeypatch.setattr(j_moe, "router", lambda *a: (jw, ji, jprobs))
-    monkeypatch.setattr(t_moe, "router", lambda *a: (
+    monkeypatch.setattr(t_moe, "router", lambda *a, **kw: (
         _t(jw), _t(ji).long(), _t(jprobs)))
     jm, tm = _moe(cf)
     v = _valid(valid, 48)
