@@ -656,19 +656,24 @@ def check_kernels(dev, flush) -> dict:
     return out
 
 
-# the grouped expert kernels' shapes (E, C, D, F): Mixtral-8x7B's decode
-# step (the benchmark's mixtral8x7b.decode: 64 tokens, top-2 of 8 experts
-# at capacity factor 4.0) and phase 5d's (config 5, B 32 at 1.25)
-MOE_KERNEL_SHAPES = {"mixtral": (8, 64, 4096, 14336),
-                     "config 5": (8, 10, 2048, 2816)}
+# the grouped expert kernels' shapes (E, C, D, F, tokens, top-k): Mixtral-
+# 8x7B's decode step (the benchmark's mixtral8x7b.decode: 64 tokens, top-2
+# of 8 experts at capacity factor 4.0), DeepSeek-V2-Lite's (dsv2lite.decode:
+# 64 tokens, top-6 of 64 at 10.67) and phase 5d's (config 5, B 32 at 1.25)
+MOE_KERNEL_SHAPES = {"mixtral": (8, 64, 4096, 14336, 64, 2),
+                     "deepseek": (64, 64, 2048, 1408, 64, 6),
+                     "config 5": (8, 10, 2048, 2816, 32, 2)}
 
 
 def check_moe_experts(dev, flush) -> dict:
     """The grouped expert kernels (kernels/moe_experts) at
-    MOE_KERNEL_SHAPES, the last expert's second half of slots empty: held
-    against the plain version by K1's rule (rtol 1e-2 plus 1e-3 of the
-    output's max), two calls bit-equal, two launches a call; timed with
-    each launch apart, beside their bound (the three stacks' int8 weights
+    MOE_KERNEL_SHAPES, each expert's live slots those a uniform top-k
+    routing of the step's tokens claims (models/moe._dispatch_slots), the
+    dead slot rows NaN: held against the plain version by K1's rule (rtol
+    1e-2 plus 1e-3 of the output's max) and equal to the full grid's (every
+    slot live, the dead rows zero: the kernels' work before counts), two
+    calls bit-equal, two launches a call; timed with each launch apart, and
+    on the full grid, beside their bound (the three stacks' int8 weights
     and f32 scales and the slots read once, the output written once, over
     3.35 TB/s), the plain version and the path they replace (each stack
     dequantized to bf16, three torch.bmm, silu and a product). Returns the
@@ -677,11 +682,12 @@ def check_moe_experts(dev, flush) -> dict:
     import torch.nn.functional as F
 
     from physics_llm_inference_tpu_torch.kernels import moe_experts as me
+    from physics_llm_inference_tpu_torch.models.moe import _dispatch_slots
     from physics_llm_inference_tpu_torch.models.quant import QuantizedTensor
 
     g = torch.Generator(device=dev).manual_seed(SEED + 20)
     rows = {}
-    for name, (e, c, d, f) in MOE_KERNEL_SHAPES.items():
+    for name, (e, c, d, f, t, top) in MOE_KERNEL_SHAPES.items():
         def stack(k, n):
             q = torch.randint(-127, 128, (e, k, n), dtype=torch.int8,
                               generator=g, device=dev)
@@ -690,47 +696,60 @@ def check_moe_experts(dev, flush) -> dict:
             return QuantizedTensor(q, s)
 
         w1, w3, w2 = stack(d, f), stack(d, f), stack(f, d)
+        idx = torch.rand((t, e), generator=g, device=dev).argsort(dim=1)
+        counts = _dispatch_slots(idx[:, :top],
+                                 torch.ones((t, top), device=dev), e, c,
+                                 counts=True)[2]
+        dead = (torch.arange(c, device=dev) >= counts[:, None])[..., None]
         x = torch.randn((e, c, d), generator=g, device=dev).bfloat16()
-        x[e - 1, c // 2:] = 0
-        what = f"moe_experts {name} (E {e}, C {c}, D {d}, F {f})"
+        x = x.masked_fill(dead, 0)
+        slots = x.masked_fill(dead, float("nan"))
+        live = int(((counts + 15) // 16).sum())
+        what = (f"moe_experts {name} (E {e}, C {c}, D {d}, F {f}; "
+                f"{int(counts.sum())} live rows, {live} of {e * -(-c // 16)} "
+                f"m16 tiles)")
         before = me.launches
-        got = me.moe_experts(x, w1, w3, w2)
+        got = me.moe_experts(slots, w1, w3, w2, counts)
         torch.cuda.synchronize()
         if me.launches != before + 2:
             raise AssertionError(f"{what}: {me.launches - before} launches "
                                  "counted, not 2")
-        want = me.moe_experts_plain(x, w1, w3, w2).float()
+        want = me.moe_experts_plain(slots, w1, w3, w2, counts).float()
         diff = (got.float() - want).abs()
         lim = 1e-2 * want.abs() + 1e-3 * float(want.abs().max())
         if not bool(torch.isfinite(got).all()) or bool((diff > lim).any()):
             raise AssertionError(f"{what}: off its plain version, max abs "
                                  f"err {float(diff.max()):.4g}")
-        if not torch.equal(me.moe_experts(x, w1, w3, w2), got):
+        if not torch.equal(me.moe_experts(slots, w1, w3, w2, counts), got):
             raise AssertionError(f"{what}: two calls differ")
+        if not torch.equal(me.moe_experts(x, w1, w3, w2), got):
+            raise AssertionError(f"{what}: not the full grid's output")
 
         def dequantized():
             a, b, o = (w.dequantize(torch.bfloat16) for w in (w1, w3, w2))
             return torch.bmm(F.silu(torch.bmm(x, a)) * torch.bmm(x, b), o)
 
         hidden = torch.empty((e, c, f), dtype=torch.bfloat16, device=dev)
-        ms = time_ms(lambda: me.moe_experts(x, w1, w3, w2), flush)
-        ms_a = time_ms(lambda: me._stream(x, (w1, w3), hidden), flush)
-        ms_b = time_ms(lambda: me._stream(hidden, (w2,), got), flush)
-        pms = time_ms(lambda: me.moe_experts_plain(x, w1, w3, w2), flush,
-                      reps=5)
+        ms = time_ms(lambda: me.moe_experts(slots, w1, w3, w2, counts), flush)
+        full_ms = time_ms(lambda: me.moe_experts(x, w1, w3, w2), flush)
+        ms_a = time_ms(lambda: me._stream(slots, (w1, w3), hidden, counts),
+                       flush)
+        ms_b = time_ms(lambda: me._stream(hidden, (w2,), got, counts), flush)
+        pms = time_ms(lambda: me.moe_experts_plain(slots, w1, w3, w2, counts),
+                      flush, reps=5)
         lib = time_ms(dequantized, flush, reps=5)
         wbytes = nbytes(*w1, *w3, *w2)
         row = entry(float(diff.max()), ms, pms, wbytes + nbytes(x, got),
                     6 * e * c * d * f, library_ms=lib)
         log(f"{what} ({nvidia_smi()}): kernel {ms:.4f} ms "
             f"({wbytes / ms / 1e6:.0f} GB/s of weights; gate/up launch "
-            f"{ms_a:.4f} ms, down "
-            f"{ms_b:.4f} ms), plain {pms:.4f} ms, dequantize + bmm "
+            f"{ms_a:.4f} ms, down {ms_b:.4f} ms; every slot live "
+            f"{full_ms:.4f} ms), plain {pms:.4f} ms, dequantize + bmm "
             f"{lib:.4f} ms, bound {row['bound_ms']:.4f} ms "
             f"({row['bound_by']}); max abs err {float(diff.max()):.4g}; two "
-            f"calls bit-equal")
+            f"calls bit-equal, equal to the full grid's")
         rows[name] = row
-        del w1, w3, w2, x, got, want, diff, lim, hidden
+        del w1, w3, w2, x, slots, got, want, diff, lim, hidden
         torch.cuda.empty_cache()
     return rows["mixtral"]
 
@@ -3714,19 +3733,20 @@ class moe_routes:
         self.saved = (moe._dispatch_slots, moe.router)
         dispatch, router = self.saved
 
-        def spy_dispatch(indices, weights, e, c, valid=None):
+        def spy_dispatch(indices, weights, e, c, valid=None, counts=False):
             cc = c - 1 if self.short else c
-            slot, comb = dispatch(indices, weights, e, cc, valid)
+            slot, comb, *count = dispatch(indices, weights, e, cc, valid,
+                                          counts=counts)
             if self.short:   # the same grid, one slot an expert unused
                 kept = slot < e * cc
                 slot = torch.where(kept, slot - indices * cc + indices * c,
                                    e * c)
             self.calls.append((indices.cpu(), (slot < e * c).cpu(),
                                self.probs.pop()))
-            return slot, comb
+            return (slot, comb, *count)
 
-        def spy_router(x, gate, k):
-            w, i, p = router(x, gate, k)
+        def spy_router(x, gate, k, **kw):
+            w, i, p = router(x, gate, k, **kw)
             self.probs.append(p.cpu())
             if self.unnormalised:
                 w = p.gather(1, i)

@@ -30,16 +30,18 @@ What differs from the JAX package, on purpose:
 The expert products are what the JAX package computes outside any Pallas
 kernel. Where the slots and stacks fit the grouped kernels
 (`kernels/moe_experts`: bf16 activations, INT8 stacks, at most 64 slots an
-expert, as in a decode step), those stream each expert's int8 weights once
-and scale the f32 sums. Where the capacity admits every pair and exceeds
-those 64 slots (a dropless prefill), the grid is skipped: the pairs are
-sorted by expert and each expert's SwiGLU runs over its own rows only, one
-grouped product a matrix (`_dropless`), so the transient memory grows with
-the pairs (T·K rows), not with the grid (E·C rows, E·T when dropless).
-Elsewhere (a capacity below T, slots or stacks the kernels do not take, a
-dropless layer while a graph is captured) each stack is dequantized into
-x's dtype, then batched products (`torch.bmm`) and silu(h1) * h3 over the
-grid.
+expert, as in a decode step), those stream each expert's int8 weights once,
+scale the f32 sums and work only on each expert's claimed slots (its count
+of pairs from the dispatch's running count, clamped to C, on the device);
+the slots past the count are neither zeroed nor read. Where the capacity
+admits every pair and exceeds those 64 slots (a dropless prefill), the grid
+is skipped: the pairs are sorted by expert and each expert's SwiGLU runs
+over its own rows only, one grouped product a matrix (`_dropless`), so the
+transient memory grows with the pairs (T·K rows), not with the grid (E·C
+rows, E·T when dropless). Elsewhere (a capacity below T, slots or stacks
+the kernels do not take, a dropless layer while a graph is captured) each
+stack is dequantized into x's dtype, then batched products (`torch.bmm`)
+and silu(h1) * h3 over the grid.
 """
 from __future__ import annotations
 
@@ -85,14 +87,16 @@ def router(x: torch.Tensor, gate: torch.Tensor, top_k: int,
 
 def _dispatch_slots(indices: torch.Tensor, weights: torch.Tensor,
                     num_experts: int, capacity: int,
-                    valid: torch.Tensor | None = None):
+                    valid: torch.Tensor | None = None, counts: bool = False):
     """Each (token, choice) pair's slot in the flat (E*C + 1) grid: row
     e*C + p for the p-th pair routed to expert e (token-major, choice-minor
     order), or the sink row E*C when the pair is past capacity or its token
     is not `valid`. Returns (slot (T, K) int64, combine weights (T, K) f32,
     0 where the pair is not routed): the JAX package's (T, E, C) dispatch
     and combine masks hold a 1 and the weight at (t, slot // C, slot % C)
-    for each routed pair."""
+    for each routed pair. With `counts`, also each expert's slots claimed,
+    (E,) int64: its valid pairs clamped to C, so its claimed slots are rows
+    0..count-1 of its C."""
     t, k = indices.shape
     experts = torch.arange(num_experts, device=indices.device)
     onehot = (indices[..., None] == experts).to(torch.int32)     # (T, K, E)
@@ -102,12 +106,16 @@ def _dispatch_slots(indices: torch.Tensor, weights: torch.Tensor,
     # the running count along each expert's row: an innermost-dim scan,
     # which CUDA runs per row in parallel (over dim 0 of (T*K, E) it is a
     # serial loop over the tokens a column)
-    pos_in_expert = flat.cumsum(dim=1) - flat
+    running = flat.cumsum(dim=1)
+    pos_in_expert = running - flat
     pos = (flat * pos_in_expert).sum(dim=0).reshape(t, k)
     routed = (flat.sum(dim=0).reshape(t, k) > 0) & (pos < capacity)
     slot = torch.where(routed, indices * capacity + pos,
                        num_experts * capacity)
-    return slot, torch.where(routed, weights, torch.zeros_like(weights))
+    combine = torch.where(routed, weights, torch.zeros_like(weights))
+    if counts:
+        return slot, combine, running[:, -1].clamp(max=capacity)
+    return slot, combine
 
 
 def moe_layer(x: torch.Tensor, params: dict, moe: MoEConfig,
@@ -151,21 +159,24 @@ def _routed(x, params, moe, valid):
                                      scaling=moe.routed_scaling_factor)
     if valid is not None:
         valid = valid.expand(orig_shape[:-1]).reshape(t)
-    slot, combine = _dispatch_slots(indices, weights, e, capacity, valid)
     stacks = [params[n] for n in ("w1", "w3", "w2")]
+    grouped = _grouped(x, stacks, capacity)
+    slot, combine, *count = _dispatch_slots(indices, weights, e, capacity,
+                                            valid, counts=grouped)
     if capacity >= t and capacity > MAX_SLOTS and not _capturing(x):
         out = _dropless(xt, stacks, indices, combine, valid, e)
         out = out.to(x.dtype).reshape(orig_shape)
         return out, (weights, indices, probs, slot, capacity, valid)
 
     # gather token slots: (E, C, D); the sink row (past the grid) takes the
-    # dropped pairs, and slots nobody claims stay 0
-    grid = xt.new_zeros((e * capacity + 1, d))
+    # dropped pairs; slots nobody claims are 0, or, on the grouped route,
+    # which reads none past an expert's count, left unwritten
+    grid = (xt.new_empty if grouped else xt.new_zeros)((e * capacity + 1, d))
     grid.index_copy_(0, slot.reshape(-1),
                      xt.repeat_interleave(k, dim=0))
     expert_in = grid[:-1].view(e, capacity, d)
-    if _grouped(x, stacks, capacity):
-        expert_out = moe_experts(expert_in, *stacks)
+    if grouped:
+        expert_out = moe_experts(expert_in, *stacks, *count)
     else:
         w1, w3, w2 = (_dequantize(w, x.dtype) for w in stacks)
         hidden = F.silu(torch.bmm(expert_in, w1)) * torch.bmm(expert_in, w3)

@@ -18,7 +18,10 @@ its rows of the cache, so its transient memory is bounded by the slice.
 Each call records a `generate.prefill` and a `generate.decode` span
 (utils/tracing.py; key: the call's number in the process; attributes: the
 rows, the prompt bucket, the new tokens, the cache's kind and its bytes a
-token over every layer), on the host clock after each phase's
+token over every layer; the decode's, where the grouped expert kernels ran
+in it, also `expert_tiles_live` and `expert_tiles`, the m16 slot tiles
+they worked on and all of them, from `kernels/moe_experts.tile_counter`,
+zeroed before the decode), on the host clock after each phase's
 synchronization.
 """
 from __future__ import annotations
@@ -30,6 +33,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..kernels import moe_experts
 from ..models.config import ModelConfig
 from ..models.transformer import KVSlice, forward
 from ..models.mla import LatentKV
@@ -294,6 +298,9 @@ def cached_generate(params, cfg: ModelConfig, prompts, max_new_tokens: int,
     prefill_s = time.perf_counter() - t0
     tracing.record("generate.prefill", h0, key=call, attrs=attrs)
 
+    tiles = moe_experts.tile_counter(device)
+    if tiles is not None:
+        tiles.zero_()
     h0, t0 = tracing.now(), time.perf_counter()
     loop.begin(first, lens, valid_from, p, temperature, top_p, generator)
     for _ in range(max_new_tokens):
@@ -302,7 +309,13 @@ def cached_generate(params, cfg: ModelConfig, prompts, max_new_tokens: int,
     tokens = loop.emitted[:, :max_new_tokens].cpu().numpy().astype(np.int32)
     _sync(device)
     decode_s = time.perf_counter() - t0
-    tracing.record("generate.decode", h0, key=call, attrs=attrs)
+    decode_attrs = attrs
+    if tiles is not None:
+        live, total = tiles.tolist()
+        if total:
+            decode_attrs = {**attrs, "expert_tiles_live": live,
+                            "expert_tiles": total}
+    tracing.record("generate.decode", h0, key=call, attrs=decode_attrs)
 
     gen_lens = np.full((b,), tokens.shape[1], dtype=np.int32)
     if stop_tokens:

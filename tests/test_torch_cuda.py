@@ -942,6 +942,100 @@ def test_captured_moe_decode_step_matches_eager(dev, monkeypatch):
         assert bool(want.float().abs().max() > 0)
 
 
+# the grouped expert kernels on each expert's live slots alone: DeepSeek-V2-
+# Lite's decode step (E 64, C 64, D 2048, F 1408) and Mixtral-8x7B's (E 8,
+# C 64, D 4096, F 14336); counts of 0, 1, 15, 16, 17, 33 and 64 rows over
+# the experts (the m16 tiles' edges), or the routing of 64 tokens
+LIVE_SHAPES = {"deepseek": (64, 64, 2048, 1408, 6),
+               "mixtral": (8, 64, 4096, 14336, 2)}
+LIVE_COUNTS = (0, 1, 15, 16, 17, 33, 64)
+
+
+def _live_counts(dev, e, c, top_k, fill, seed):
+    """(E,) int64 counts: LIVE_COUNTS over the experts in turn, or the
+    slots `_dispatch_slots` claims for 64 tokens routed top_k of E."""
+    from physics_llm_inference_tpu_torch.models.moe import _dispatch_slots
+    if fill == "edges":
+        return torch.tensor([LIVE_COUNTS[i % len(LIVE_COUNTS)]
+                             for i in range(e)], device=dev)
+    g = _gen(dev, seed)
+    idx = torch.rand((64, e), generator=g, device=dev).argsort(dim=1)
+    idx = idx[:, :top_k]
+    return _dispatch_slots(idx, torch.ones(idx.shape, device=dev), e, c,
+                           counts=True)[2]
+
+
+def _poisoned(x, counts):
+    """x with every slot row past its expert's count set to NaN."""
+    dead = torch.arange(x.shape[1], device=x.device) >= counts[:, None]
+    return x.masked_fill(dead[..., None], float("nan"))
+
+
+@pytest.mark.parametrize("fill", ["edges", "routing"])
+@pytest.mark.parametrize("shape", list(LIVE_SHAPES))
+def test_moe_experts_live_rows_equal_full_grid(dev, shape, fill):
+    """NaN in every dead slot row and in the hidden and output buffers: the
+    output equals the full grid's on the zero-filled slots (every row live,
+    the kernels' computation before counts), live rows bit for bit and dead
+    rows +0; the tile counter moves by the live m16 tiles and all of them."""
+    e, c, d, f, top_k = LIVE_SHAPES[shape]
+    g = _gen(dev, 61)
+    w1, w3, w2 = _moe_stacks(g, dev, e, d, f)
+    counts = _live_counts(dev, e, c, top_k, fill, 62)
+    dead = torch.arange(c, device=dev) >= counts[:, None]
+    x = torch.randn((e, c, d), generator=g, device=dev).bfloat16()
+    x = x.masked_fill(dead[..., None], 0)
+    want = t_me.moe_experts(x, w1, w3, w2)            # every slot row live
+    tiles = t_me.tile_counter(dev)
+    before = tiles.clone() if tiles is not None else torch.zeros(
+        2, dtype=torch.int64, device=dev)
+    got = t_me.moe_experts(_poisoned(x, counts), w1, w3, w2, counts)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert not got.isnan().any() and not got[dead].any()
+    assert bool(want[~dead].abs().max() > 0)
+    live = int(((counts.clamp(max=c) + 15) // 16).sum())
+    assert (t_me.tile_counter(dev) - before).tolist() == [live, e * 4]
+    # the two launches on buffers full of NaN
+    hidden = torch.full((e, c, f), float("nan"), dtype=torch.bfloat16,
+                        device=dev)
+    out = torch.full_like(x, float("nan"))
+    t_me._stream(_poisoned(x, counts), (w1, w3), hidden, counts)
+    t_me._stream(hidden, (w2,), out, counts)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    assert hidden[dead].isnan().all()       # dead hidden rows unwritten
+    assert torch.equal(t_me.moe_experts_plain(_poisoned(x, counts), w1, w3,
+                                              w2, counts)[dead],
+                       got[dead])
+
+
+def test_moe_experts_captured_with_counts_that_change(dev):
+    """One captured graph of the grouped kernels (DeepSeek-V2-Lite's decode
+    shape), replayed with new slots and new counts each time: each replay
+    equal to the eager call on the same inputs."""
+    e, c, d, f, top_k = LIVE_SHAPES["deepseek"]
+    g = _gen(dev, 63)
+    w1, w3, w2 = _moe_stacks(g, dev, e, d, f)
+    x = torch.randn((e, c, d), generator=g, device=dev).bfloat16()
+    counts = torch.full((e,), c, dtype=torch.int64, device=dev)
+    t_me.moe_experts(x, w1, w3, w2, counts)        # warm-up: the counter
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = t_me.moe_experts(x, w1, w3, w2, counts)
+    for i, fill in enumerate(("routing", "edges", "routing")):
+        x.copy_(_poisoned(torch.randn((e, c, d), generator=g,
+                                      device=dev).bfloat16(),
+                          _live_counts(dev, e, c, top_k, fill, 70 + i)))
+        counts.copy_(_live_counts(dev, e, c, top_k, fill, 70 + i))
+        graph.replay()
+        want = t_me.moe_experts(x, w1, w3, w2, counts)
+        torch.cuda.synchronize()
+        assert torch.equal(static, want)
+        assert not static.isnan().any()
+
+
 # MLA decode (kernels/mla_decode): 16 heads of a 512 + 64 latent over the
 # INT8 latent cache; ragged valid_from and q_slot, runs of several tiles
 @pytest.mark.parametrize("b,s", [(3, 300), (64, 4608), (1, 70)])

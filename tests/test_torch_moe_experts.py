@@ -1,8 +1,11 @@
 """The grouped W8A16 expert products (kernels/moe_experts.py) on the CPU:
 the plain version against the dequantized products it replaces and
 against exact f32 arithmetic, the routed FFN's choice between the two
-(models/moe._routed), and `moe_forward` through the grouped route against
-the JAX package's `moe_layer`.
+(models/moe._routed), `moe_forward` through the grouped route against
+the JAX package's `moe_layer`, and the live slots: each expert's count of
+claimed slots from the dispatch, the dead rows' +0 whatever the slots
+held, the tile count and its attributes on `cached_generate`'s decode
+span.
 
 Tolerances, from bf16's 8-bit significand (a rounding moves a value by at
 most 2^-9 of itself): the grouped version rounds twice (the hidden grid,
@@ -191,3 +194,128 @@ def test_moe_forward_grouped_matches_jax_moe_layer(seed, monkeypatch):
                  "bfloat16")
     assert calls == [(4, 32, 32)]
 
+
+
+# ------------------------------------------------------------ live slots
+
+# counts over the experts: none, one row, a tile less one, a tile, one past
+# it, past two tiles, all 64, and more pairs than slots (clamped to C)
+LIVE_COUNTS = (0, 1, 15, 16, 17, 33, 64, 90)
+
+
+def _live_experts(seed: int = 6):
+    e, c, d, f = len(LIVE_COUNTS), 64, 32, 48
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((e, c, d), generator=g).bfloat16()
+    return x, _stack(g, e, d, f), _stack(g, e, d, f), _stack(g, e, f, d)
+
+
+def _poison(x, counts):
+    dead = torch.arange(x.shape[1]) >= counts[:, None]
+    return x.masked_fill(dead[..., None], float("nan")), dead
+
+
+def test_plain_counts_keep_live_rows_and_zero_dead_ones():
+    x, w1, w3, w2 = _live_experts()
+    counts = torch.tensor(LIVE_COUNTS)
+    full = t_me.moe_experts_plain(x, w1, w3, w2)
+    poisoned, dead = _poison(x, counts)
+    got = t_me.moe_experts_plain(poisoned, w1, w3, w2, counts)
+    assert torch.equal(got[~dead], full[~dead])
+    assert not got[dead].any() and not torch.signbit(got[dead]).any()
+    assert torch.equal(t_me.moe_experts(poisoned, w1, w3, w2, counts), got)
+    with pytest.raises(ValueError, match="counts"):
+        t_me.moe_experts(x, w1, w3, w2, counts.int())
+
+
+def test_tile_counter_adds_live_and_all_tiles():
+    x, w1, w3, w2 = _live_experts()
+    counts = torch.tensor(LIVE_COUNTS)
+    t_me.moe_experts(x, w1, w3, w2, counts)
+    before = t_me.tile_counter("cpu").clone()
+    t_me.moe_experts(x, w1, w3, w2, counts)
+    t_me.moe_experts(x, w1, w3, w2)          # no counts: not counted
+    # 0, 1, 1, 1, 2, 3, 4, 4 live m16 tiles of 4 an expert
+    assert (t_me.tile_counter("cpu") - before).tolist() == [16, 32]
+
+
+@pytest.mark.parametrize("pads", [False, True])
+@pytest.mark.parametrize("cf", [4.0, 1.0, 0.5])
+def test_dispatch_counts_are_routed_pairs_clamped_to_capacity(cf, pads):
+    t, e, k = 24, 4, 2
+    g = torch.Generator().manual_seed(11)
+    indices = torch.stack([torch.randperm(e, generator=g)[:k]
+                           for _ in range(t)])
+    weights = torch.rand((t, k), generator=g)
+    valid = torch.rand(t, generator=g) > 0.3 if pads else None
+    cap = max(1, int(cf * t * k / e))
+    slot, combine, counts = t_moe._dispatch_slots(indices, weights, e, cap,
+                                                  valid, counts=True)
+    routed = indices[valid] if pads else indices
+    want = torch.bincount(routed.reshape(-1), minlength=e).clamp(max=cap)
+    assert counts.dtype == torch.int64 and torch.equal(counts, want)
+    # the claimed slots are rows 0..count-1 of each expert's C
+    claimed = torch.zeros(e * cap + 1, dtype=torch.bool)
+    claimed[slot.reshape(-1)] = True
+    assert torch.equal(claimed[:-1].view(e, cap),
+                       torch.arange(cap) < counts[:, None])
+    # the slots and weights are the ones without counts
+    slot0, combine0 = t_moe._dispatch_slots(indices, weights, e, cap, valid)
+    assert torch.equal(slot0, slot) and torch.equal(combine0, combine)
+
+
+@pytest.mark.parametrize("cf", [4.0, 1.25])
+def test_routed_hands_the_grouped_products_its_counts(cf, monkeypatch):
+    """`_routed` passes each expert's claimed slots (its valid pairs, pads
+    out, clamped to C) to the grouped kernels, and its output is the
+    zero-filled grid's."""
+    params = _layer(5)
+    params["gate"] = params["gate"].bfloat16()
+    moe = t_config.MoEConfig(num_experts=4, num_experts_per_tok=2,
+                             capacity_factor=cf)
+    x = torch.randn((16, 32), generator=torch.Generator().manual_seed(8))
+    x = x.bfloat16()
+    valid = torch.arange(16) % 5 != 0
+    calls = []
+    real = t_moe.moe_experts
+    monkeypatch.setattr(t_moe, "moe_experts",
+                        lambda *a: calls.append(a) or real(*a))
+    got = t_moe.moe_forward(x, params, moe, valid)
+    (xs, *_, counts), = calls
+    cap = xs.shape[1]
+    _, indices, _ = t_moe.router(x, params["gate"], 2)
+    want = torch.bincount(indices[valid].reshape(-1), minlength=4)
+    assert torch.equal(counts, want.clamp(max=cap))
+    monkeypatch.setattr(t_moe, "moe_experts", lambda x, *w: real(x, *w))
+    zeroed = t_moe.moe_forward(x, params, moe, valid)
+    assert torch.equal(got, zeroed)
+
+
+def test_cached_generate_records_the_decode_tiles():
+    """A bf16 MoE model with INT8 stacks (the grouped route, on the CPU its
+    plain version): the decode span carries the m16 tiles of every MoE
+    layer and step, E ceil(C / 16) each, the prefill's left out."""
+    from physics_llm_inference_tpu_torch.models import quant as t_quant
+    from physics_llm_inference_tpu_torch.models import transformer as t_tf
+    from physics_llm_inference_tpu_torch.runtime import generate as t_gen
+    from physics_llm_inference_tpu_torch.utils import tracing
+
+    cfg = t_config.ModelConfig(
+        vocab_size=100, hidden_dim=64, num_layers=2, num_heads=4,
+        num_kv_heads=2, intermediate_dim=96, max_seq_len=64,
+        dtype="bfloat16", num_experts=4, num_experts_per_tok=2,
+        expert_capacity_factor=4.0, fused_decode=False,
+        attention_impl="dense")
+    params = t_quant.quantize_params_int8(
+        t_tf.init_params(torch.Generator().manual_seed(3), cfg))
+    prompts = [[5, 9, 2], [7, 1, 8, 3, 4, 6]]
+    steps = 3
+    t_gen.cached_generate(params, cfg, prompts, steps, temperature=0.0,
+                          kv_dtype=torch.int8)
+    spans = tracing.RECORDER.snapshot().spans
+    pre = [s for s in spans if s.name == "generate.prefill"][-1]
+    dec = [s for s in spans if s.name == "generate.decode"][-1]
+    # decode: 2 tokens a step, C = int(4.0 * 2 * 2 / 4) = 4, one tile each
+    assert dec.attrs["expert_tiles"] == cfg.num_layers * steps * 4 * 1
+    assert 0 < dec.attrs["expert_tiles_live"] <= dec.attrs["expert_tiles"]
+    assert "expert_tiles" not in pre.attrs
